@@ -1,0 +1,387 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+1. Builds the hand-written CUDA kernels from ``distil_whisper_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once) and prints the build time and the
+   ptxas resource report.
+2. Holds every kernel against its plain PyTorch version on the card at the
+   shapes of the main path (TF32 off), and times kernel, plain version, the
+   bound of the card and one PyTorch library call as a yardstick.
+3. Drives the main path at the full width of distil-large-v3 (random weights
+   from a seed, bf16): a ``WhisperPipeline`` transcribes a batch of 16
+   synthetic 30 s windows short-form (greedy, 128-token budget), again for
+   determinism, then one ~70 s file chunked with segment timestamps.  Kernel
+   launch counts are reset before and read after the short-form run; every
+   kernel of the path must have launched.  The result is checked: finite
+   encoder states of the right shape that agree with the einsum encoder, equal
+   tokens on both runs, and a small model on the card agreeing with the CPU
+   (fp32 tokens identical, bf16 fused encoder close).
+4. Prints the kernels line, the card's name and power limit, and last the
+   result line ``{"ok": true, "device": {...}}``.
+
+Any failed phase raises: the script then exits non-zero without a result
+line.  It also exits non-zero without a GPU, and outside the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s
+FP32_CUDA_CORE = 67e12    # H100 SXM fp32 outside the tensor cores, FLOP/s
+BF16_TENSOR = 989e12      # H100 SXM dense bf16 tensor cores, FLOP/s
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float):
+    t_bytes, t_ops = n_bytes / MEM_BW * 1e3, n_ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def synthetic_tokenizer(tmp: Path):
+    """A byte-level tokenizer with the large-v3 special-token layout
+    (<|notimestamps|> 50364, timestamps from 50365): no download needed."""
+    from distil_whisper_tpu_torch.tokenizer import LANGUAGES, WhisperTokenizer
+    from distil_whisper_tpu_torch.tokenizer.bpe import bytes_to_unicode
+    units = list(bytes_to_unicode().values())
+    vocab = {u: i for i, u in enumerate(units)}
+    vocab.update({f"[unused{i}]": i for i in range(len(units), 50257)})
+    added = {"<|endoftext|>": 50257, "<|startoftranscript|>": 50258}
+    added.update({f"<|{code}|>": 50259 + i for i, code in enumerate(LANGUAGES)})
+    nxt = 50259 + len(LANGUAGES)
+    for name in ("translate", "transcribe", "startoflm", "startofprev",
+                 "nospeech", "notimestamps"):
+        added[f"<|{name}|>"] = nxt
+        nxt += 1
+    (tmp / "vocab.json").write_text(json.dumps(vocab))
+    (tmp / "merges.txt").write_text("#version: 0.2\n")
+    (tmp / "added_tokens.json").write_text(json.dumps(added))
+    return WhisperTokenizer.from_pretrained(str(tmp))
+
+
+def synthetic_audio(n: int, seconds: float, seed: int):
+    """``n`` clips of tones gliding under noise with a syllable-like envelope."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    clips = []
+    for _ in range(n):
+        f0 = rng.uniform(90, 250)
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t) ** 2
+        x = sum(np.sin(2 * np.pi * f0 * h * t + rng.uniform(0, 6.3)) / h
+                for h in range(1, 6))
+        clips.append((0.1 * env * x + 0.01 * rng.standard_normal(t.shape))
+                     .astype(np.float32))
+    return clips
+
+
+def phase_build():
+    from distil_whisper_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_all()
+    seconds = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in _build.build_logs.items()}
+    emit({"phase": "build", "seconds": round(seconds, 3),
+          "sources": list(_build.SOURCES), "ptxas": ptxas})
+
+
+def phase_kernels():
+    """Each kernel against its plain version at main-path shapes."""
+    import torch
+    from distil_whisper_tpu_torch.audio import mel_kernel
+    from distil_whisper_tpu_torch.audio.mel import compress, whisper_mel_filters
+    from distil_whisper_tpu_torch.ops import encoder_attention as ea
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+
+    # -- fused log-mel: 16 x 30 s windows, 128 mels ------------------------
+    b, n, m = 16, 480000, 128
+    audio = 0.2 * torch.randn(b, n, generator=gen, device="cuda")
+    out = mel_kernel.log10_mel_fused(audio, m)
+    ref = mel_kernel.log10_mel_plain(audio, m)
+    torch.cuda.synchronize()
+    err_raw = (out - ref).abs().max().item()
+    # the features the encoder reads, held at the JAX package's own kernel
+    # tolerance (fp32 sums in another order; log10 domain)
+    err = (compress(out) - compress(ref)).abs().max().item()
+    if not (err <= 2e-4 and torch.isfinite(out).all()):
+        raise AssertionError(f"mel kernel disagrees: max abs err {err}")
+    window = torch.hann_window(400, device="cuda")
+    filters = torch.from_numpy(whisper_mel_filters(m)).cuda()
+
+    def library_mel():
+        spec = torch.stft(audio, 400, 160, window=window, center=True,
+                          pad_mode="reflect", return_complex=True)
+        power = spec[..., :-1].abs() ** 2
+        return torch.log10(torch.clamp(filters.T @ power, min=1e-10))
+
+    frames = n // 160
+    ops = b * frames * (2 * 402 * 400 + 2 * 201 * m)
+    n_bytes = 4 * (b * n + 402 * 400 + 201 * m + b * m * frames)
+    bound_ms, bound_by = bound(n_bytes, ops, FP32_CUDA_CORE)
+    rows.append({
+        "name": "log_mel", "route": "cuda",
+        "source": "distil_whisper_tpu_torch/csrc/mel.cu",
+        "replaces": "distil_whisper_tpu/audio/mel_pallas.py:34",
+        "max_abs_err": err, "max_abs_err_log10": err_raw, "tolerance": 2e-4,
+        "ms": cuda_ms(lambda: mel_kernel.log10_mel_fused(audio, m)),
+        "plain_ms": cuda_ms(lambda: mel_kernel.log10_mel_plain(audio, m)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(library_mel), "shape": [b, n, m]})
+    del audio, out, ref
+
+    # -- encoder attention: (16, 20, 1500, 64) bf16, t_real 1500 -------------
+    b, h, t, d = 16, 20, 1500, 64
+    q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out = ea.encoder_attention(q, k, v, t)
+    ref = ea.encoder_attention_plain(q, k, v, t)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    # Both round the same fp32 result to bf16, but the kernel's online
+    # softmax rounds p to bf16 against a running max and sums in another
+    # order: a few bf16 ulps (2^-8 relative) apart, inside atol/rtol 1e-2.
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    del ref
+    torch.cuda.empty_cache()
+
+    def library_attention():
+        # all 1500 keys are live (t_real == T), so the key mask is all-true
+        # and SDPA may take its fastest backend
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+    ops = 4 * b * h * t * t * d
+    n_bytes = 4 * b * h * t * d * 2
+    bound_ms, bound_by = bound(n_bytes, ops, BF16_TENSOR)
+    rows.append({
+        "name": "encoder_attention", "route": "cuda",
+        "source": "distil_whisper_tpu_torch/csrc/encoder_attention.cu",
+        "replaces": "distil_whisper_tpu/ops/encoder_attention.py:57",
+        "max_abs_err": err, "tolerance": 1e-2,
+        "ms": cuda_ms(lambda: ea.encoder_attention(q, k, v, t)),
+        "plain_ms": cuda_ms(lambda: ea.encoder_attention_plain(q, k, v, t)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(library_attention), "shape": [b, h, t, d]})
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def reset_counts():
+    from distil_whisper_tpu_torch.audio import mel_kernel
+    from distil_whisper_tpu_torch.ops import encoder_attention as ea
+    mel_kernel.log10_mel_fused.launches = 0
+    ea.encoder_attention.launches = 0
+
+
+def read_counts():
+    from distil_whisper_tpu_torch.audio import mel_kernel
+    from distil_whisper_tpu_torch.ops import encoder_attention as ea
+    return {"log_mel": mel_kernel.log10_mel_fused.launches,
+            "encoder_attention": ea.encoder_attention.launches}
+
+
+def phase_main_path(tok):
+    """distil-large-v3 at full width, bf16, through WhisperPipeline."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import GenerationOptions, generate
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+
+    cfg = PRESETS["distil-large-v3"]
+    if (tok.no_timestamps, tok.timestamp_begin) != (
+            cfg.no_timestamps_token_id, cfg.timestamp_begin):
+        raise AssertionError("tokenizer layout disagrees with the config")
+    dtype = torch.bfloat16
+    params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+    pipe = WhisperPipeline(None, dtype=dtype, batch_size=16,
+                           max_new_tokens=128, params=params, cfg=cfg,
+                           tokenizer=tok, device="cuda")
+    clips = synthetic_audio(16, 30.0, seed=1)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = pipe(clips, language="en")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["log_mel"] < 1 or counts["encoder_attention"] != cfg.encoder_layers:
+        raise AssertionError(f"main path missed a kernel: {counts}")
+
+    t0 = time.perf_counter()
+    second = pipe(clips, language="en")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if first != second:
+        raise AssertionError("two runs of the same batch gave other tokens")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # split the warm run: encode, then greedy decode (tokens compared too)
+    pcfg = pipe.cfg
+    mels = compute_mel(np.stack(clips), pcfg, device="cuda").to(dtype)
+    enc_ms = cuda_ms(lambda: W.encode(params["encoder"], pcfg, mels,
+                                      dtype=dtype), reps=5, warmup=1)
+    enc = W.encode(params["encoder"], pcfg, mels, dtype=dtype)
+    if enc.shape != (16, 1500, cfg.d_model) or not torch.isfinite(enc).all():
+        raise AssertionError(f"bad encoder states {tuple(enc.shape)}")
+    # the kernel encoder against the einsum encoder (fp32 attention logits,
+    # no kernel) on two windows: bf16 roundings apart, not more
+    ref_cfg = pcfg.replace(use_flash_encoder=False, fast_bf16_attention=False)
+    ref = W.encode(params["encoder"], ref_cfg, mels[:2], dtype=dtype).float()
+    rel = ((enc[:2].float() - ref).norm() / ref.norm()).item()
+    if not rel < 2e-2:
+        raise AssertionError(f"kernel encoder vs einsum encoder: rel {rel}")
+    prompt = torch.tensor([tok.prompt_ids(language="en")] * 16, device="cuda")
+    opts = GenerationOptions.from_config(pcfg, max_new_tokens=128,
+                                         no_speech_token_id=tok.no_speech)
+    cross = W.cross_kv(params["decoder"], pcfg, enc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params["decoder"], pcfg, cross, prompt, opts, dtype=dtype)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    steps = int(out.seq_len.max()) - prompt.shape[1]
+    texts = [tok.decode(out.sequences[j, :out.seq_len[j]].tolist())
+             for j in range(16)]
+    if texts != [r["text"] for r in first]:
+        raise AssertionError("pipeline and generate() disagree")
+
+    # one ~70 s file, chunked (3 windows), with segment timestamps
+    long_clip = synthetic_audio(1, 70.0, seed=2)[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    chunked = pipe(long_clip, language="en", return_timestamps=True)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    chunked_counts = read_counts()
+    if chunked_counts["encoder_attention"] != cfg.encoder_layers:
+        raise AssertionError(f"chunked path missed a kernel: {chunked_counts}")
+    if not isinstance(chunked["text"], str) or "chunks" not in chunked:
+        raise AssertionError("chunked result lacks text or chunks")
+
+    emit({"phase": "main_path", "model": "distil-large-v3", "dtype": "bf16",
+          "batch": 16, "window_s": 30, "max_new_tokens": 128,
+          "launches": counts, "chunked_launches": chunked_counts,
+          "first_call_s": first_s, "warm_call_s": warm_s,
+          "audio_s_per_s": 16 * 30.0 / warm_s,
+          "encode_ms": enc_ms, "decode_steps": steps,
+          "decode_ms_per_step": gen_s * 1e3 / max(steps, 1),
+          "generate_s": gen_s, "peak_mem_gib": peak_gib,
+          "encoder_rel_err_vs_einsum": rel,
+          "chunked_s": chunked_s, "chunked_segments": len(chunked["chunks"]),
+          "text_chars": [len(r["text"]) for r in first]})
+    return counts
+
+
+def phase_small_reference():
+    """A small model on the card against the CPU: fp32 greedy tokens
+    identical, bf16 fused (kernel) encoder close to the fp32 CPU encoder.
+    test-tiny widened to heads of 64, the kernel's head dim."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import (GenerationOptions,
+                                                      encode_and_generate)
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.models.params import tree_paths, unflatten_paths
+
+    cfg = PRESETS["test-tiny"].replace(d_model=128, encoder_attention_heads=2,
+                                       decoder_attention_heads=2)
+    cpu = init_params(cfg, seed=3, device="cpu")
+    gpu = unflatten_paths({p: x.cuda() for p, x in tree_paths(cpu).items()})
+    gpu16 = unflatten_paths({p: x.cuda().to(torch.bfloat16)
+                             for p, x in tree_paths(cpu).items()})
+    mel = np.random.default_rng(4).standard_normal((2, 80, 3000)).astype("float32")
+    prompt = [[50258, 50259, 50359, 50363]] * 2
+    opts = GenerationOptions.from_config(cfg, max_new_tokens=24)
+    a = encode_and_generate(cpu, cfg, mel, prompt, opts, device="cpu")
+    b = encode_and_generate(gpu, cfg, mel, prompt, opts, device="cuda")
+    same = torch.equal(a.sequences, b.sequences.cpu())
+    fcfg = cfg.replace(use_flash_encoder=True, fast_bf16_attention=True)
+    e32 = W.encode(cpu["encoder"], cfg, torch.from_numpy(mel))
+    e16 = W.encode(gpu16["encoder"], fcfg, torch.from_numpy(mel).cuda(),
+                   dtype=torch.bfloat16).float().cpu()
+    rel = ((e16 - e32).norm() / e32.norm()).item()
+    emit({"phase": "small_reference", "fp32_tokens_identical": same,
+          "bf16_kernel_encoder_rel_err": rel})
+    if not same or not rel < 2e-2:
+        raise AssertionError("the card disagrees with the CPU on test-tiny")
+
+
+def main() -> int:
+    if not (ROOT / "distil_whisper_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(distil_whisper_tpu_torch/ not found beside it)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device visible", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "env", "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0)})
+
+    phase_build()
+    rows = phase_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = synthetic_tokenizer(Path(tmp))
+    with torch.no_grad():
+        counts = phase_main_path(tok)
+        phase_small_reference()
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    emit({"kernels": rows})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,113 @@
+"""Fused log-mel front-end: the CUDA kernel's wrapper and its plain version.
+
+The kernel (``csrc/mel.cu``) replaces the Pallas TPU kernel of
+``distil_whisper_tpu/audio/mel_pallas.py``: framing -> windowed-DFT -> power
+-> mel projection -> log10 in one pass, so neither the [T, 400] frame matrix
+nor the [T, 402] spectrum reaches device memory.  The per-sample max clamp and
+(x+4)/4 scaling are a cheap epilogue (``mel.compress``), as in JAX.
+
+:func:`log10_mel_fused` launches the kernel for a CUDA tensor and runs
+:func:`log10_mel_plain` (the same arithmetic in plain PyTorch) for a CPU
+tensor; anything else raises.  ``log10_mel_fused.launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..config import WhisperConfig
+from ..ops import _build
+from .mel import compress, pad_or_trim, stft_basis, whisper_mel_filters
+
+_N_FFT = 400
+_HOP = 160
+
+
+def log10_mel_plain(audio: torch.Tensor, num_mel_bins: int, n_fft: int = 400,
+                    hop: int = 160, sampling_rate: int = 16000) -> torch.Tensor:
+    """``log10(max(mel, 1e-10))`` of fp32 audio [B, N] -> [B, n_mels, N // hop].
+
+    torch.stft(center=True) semantics: reflect-pad n_fft//2 on both sides; the
+    reference drops the final frame, so only ``N // hop`` frames are computed.
+    Frames are gathered, multiplied by the windowed DFT basis, squared into
+    power, projected onto the mel filters and logged — all in fp32.
+    """
+    n_frames = audio.shape[-1] // hop
+    x = torch.nn.functional.pad(audio[:, None], (n_fft // 2, n_fft // 2),
+                                mode="reflect")[:, 0]
+    frames = x.unfold(-1, n_fft, hop)[:, :n_frames]            # [B, T, n_fft]
+    basis = torch.from_numpy(stft_basis(n_fft)).to(audio.device)
+    spec = torch.matmul(frames, basis.T)                       # [B, T, 2*n_freq]
+    n_freq = n_fft // 2 + 1
+    power = spec[..., :n_freq] ** 2 + spec[..., n_freq:] ** 2  # [B, T, n_freq]
+    filters = torch.from_numpy(
+        whisper_mel_filters(num_mel_bins, n_fft, sampling_rate)).to(audio.device)
+    mel = torch.matmul(power, filters)                         # [B, T, n_mels]
+    return torch.log10(torch.clamp(mel, min=1e-10)).transpose(1, 2)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_constants(num_mel_bins: int, device: torch.device):
+    """(basis transposed to [400, 402], filters [201, n_mels]) on ``device``:
+    the transpose makes the kernel's per-bin basis reads coalesced."""
+    basis_t = torch.from_numpy(stft_basis(_N_FFT).T.copy()).to(device)
+    filters = torch.from_numpy(whisper_mel_filters(num_mel_bins)).to(device)
+    return basis_t, filters
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.load("mel")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dw_log_mel.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.dw_log_mel.restype = ctypes.c_int
+    return lib
+
+
+def log10_mel_fused(audio: torch.Tensor, num_mel_bins: int) -> torch.Tensor:
+    """``log10(max(mel, 1e-10))`` of fp32 audio [B, N] -> [B, n_mels, N // 160]
+    through the CUDA kernel (a CPU tensor takes :func:`log10_mel_plain`)."""
+    if audio.device.type == "cpu":
+        return log10_mel_plain(audio, num_mel_bins, _N_FFT, _HOP)
+    if audio.device.type != "cuda":
+        raise ValueError(f"log10_mel_fused: unsupported device {audio.device}")
+    if audio.dtype != torch.float32 or audio.ndim != 2:
+        raise ValueError("log10_mel_fused wants fp32 audio [B, N], got "
+                         f"{audio.dtype} {tuple(audio.shape)}")
+    if audio.shape[1] <= _N_FFT // 2:
+        raise ValueError("log10_mel_fused: reflect padding needs more than "
+                         f"{_N_FFT // 2} samples")
+    audio = audio.contiguous()
+    b, n = audio.shape
+    n_frames = n // _HOP
+    basis_t, filters = _device_constants(num_mel_bins, audio.device)
+    out = torch.empty((b, num_mel_bins, n_frames), dtype=torch.float32,
+                      device=audio.device)
+    err = _lib().dw_log_mel(
+        audio.data_ptr(), basis_t.data_ptr(), filters.data_ptr(),
+        out.data_ptr(), b, n, n_frames, num_mel_bins,
+        torch.cuda.current_stream(audio.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mel kernel launch failed (cudaError {err})")
+    log10_mel_fused.launches += 1
+    return out
+
+
+log10_mel_fused.launches = 0
+
+
+def log_mel_spectrogram_fused(audio: torch.Tensor, cfg: WhisperConfig,
+                              pad_to_chunk: bool = True) -> torch.Tensor:
+    """Drop-in for ``mel.log_mel_spectrogram`` through the fused kernel:
+    audio [T] or [B, T] -> [B, n_mels, 3000]."""
+    if (cfg.n_fft, cfg.hop_length) != (_N_FFT, _HOP):
+        raise ValueError("the fused mel kernel is built for n_fft 400, hop 160")
+    if audio.ndim == 1:
+        audio = audio[None]
+    if pad_to_chunk:
+        audio = pad_or_trim(audio, cfg.n_samples)
+    return compress(log10_mel_fused(audio.to(torch.float32), cfg.num_mel_bins))

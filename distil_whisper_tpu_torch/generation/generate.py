@@ -1,0 +1,159 @@
+"""Autoregressive greedy generation with the Whisper logits rules.
+
+Counterpart of ``distil_whisper_tpu.generation.generate``: a static token
+budget, a static-shape KV cache, and the processor stack of :mod:`.logits`.
+JAX's ``lax.while_loop`` is a Python loop with the same stop rule (stop when
+the budget is spent or every row has emitted EOS); the decode of a step
+whose logits would never be read is skipped.  Sampling (``do_sample``) comes
+with the sequential long-form slice.
+
+Everything returned is fixed-shape; host-side code slices with ``seq_len``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import WhisperConfig
+from ..device import resolve_device
+from ..models.whisper import decode, init_cache, cross_kv, encode
+from . import logits as L
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationOptions:
+    """Generation settings."""
+    max_new_tokens: int = 128
+    min_new_tokens: int = 0
+    do_sample: bool = False
+    top_k: int = 0                       # 0 = no top-k filtering
+    return_timestamps: bool = False
+    max_initial_timestamp_index: Optional[int] = 50
+    suppress_tokens: Tuple[int, ...] = ()
+    begin_suppress_tokens: Tuple[int, ...] = ()
+    forced_decoder_ids: Tuple[Tuple[int, int], ...] = ()
+    no_speech_token_id: Optional[int] = None
+
+    @classmethod
+    def from_config(cls, cfg: WhisperConfig, **kw) -> "GenerationOptions":
+        defaults = dict(suppress_tokens=tuple(cfg.suppress_tokens),
+                        begin_suppress_tokens=tuple(cfg.begin_suppress_tokens),
+                        forced_decoder_ids=tuple(cfg.forced_decoder_ids))
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+class GenerateOutput(NamedTuple):
+    sequences: torch.Tensor      # [B, prompt+max_new] int64, pad after EOS
+    seq_len: torch.Tensor        # [B] total length incl. prompt and EOS
+    sum_logprobs: torch.Tensor   # [B] fp32 sum over generated tokens (incl. EOS)
+    no_speech_prob: torch.Tensor  # [B] fp32 (zeros unless no_speech_token_id set)
+
+
+def _process_scores(scores, gen_idx: int, ts_state, cfg: WhisperConfig,
+                    opts: GenerationOptions, prompt_len: int):
+    scores = L.force_tokens(scores, gen_idx, opts.forced_decoder_ids, prompt_len)
+    scores = L.suppress_tokens_at_begin(scores, gen_idx, opts.begin_suppress_tokens)
+    scores = L.suppress_tokens(scores, opts.suppress_tokens)
+    scores = L.min_new_tokens(scores, gen_idx, opts.min_new_tokens,
+                              cfg.eos_token_id)
+    if opts.return_timestamps:
+        scores = L.timestamp_rules(scores, gen_idx, ts_state, cfg,
+                                   opts.max_initial_timestamp_index)
+    return scores
+
+
+@torch.no_grad()
+def generate(dec_params: Dict[str, Any], cfg: WhisperConfig,
+             cross: Dict[str, Any], prompt_ids: torch.Tensor,
+             opts: GenerationOptions,
+             dtype: torch.dtype = torch.float32) -> GenerateOutput:
+    """Greedily extend ``prompt_ids`` [B, P] by up to max_new_tokens.
+
+    ``cross`` is the precomputed cross-attention K/V (:func:`...models.cross_kv`).
+    The prompt must already contain decoder_start/lang/task tokens;
+    ``opts.forced_decoder_ids`` is also honoured.  (Left-padded prompts,
+    JAX's ``pad_len``/``sot_slot``, come with sequential long-form.)
+    """
+    if opts.do_sample:
+        raise NotImplementedError("sampling comes with the sequential "
+                                  "long-form slice; use greedy")
+    b, p = prompt_ids.shape
+    total = p + opts.max_new_tokens
+    if total > cfg.max_target_positions:
+        raise ValueError(f"prompt({p}) + max_new({opts.max_new_tokens}) "
+                         f"exceeds {cfg.max_target_positions}")
+    device = prompt_ids.device
+    prompt_ids = prompt_ids.long()
+    cache = init_cache(cfg, b, dtype=dtype, max_len=total, device=device)
+    prefill_logits, cache = decode(dec_params, cfg, prompt_ids, cross=cross,
+                                   cache=cache, pos_offset=0, dtype=dtype)
+
+    # <|nospeech|> probability from the raw logits at the SOT position
+    if opts.no_speech_token_id is not None:
+        probs0 = torch.softmax(prefill_logits[:, 0].float(), dim=-1)
+        no_speech_prob = probs0[:, opts.no_speech_token_id]
+    else:
+        no_speech_prob = torch.zeros((b,), dtype=torch.float32, device=device)
+
+    tokens = torch.full((b, total), cfg.pad_token_id, dtype=torch.long,
+                        device=device)
+    tokens[:, :p] = prompt_ids
+    last_logits = prefill_logits[:, -1].float()
+    ts = L.TimestampState.init(b, device)
+    finished = torch.zeros((b,), dtype=torch.bool, device=device)
+    sum_logprobs = torch.zeros((b,), dtype=torch.float32, device=device)
+    seq_len = torch.full((b,), p, dtype=torch.long, device=device)
+
+    cur = p
+    while cur < total:
+        gen_idx = cur - p
+        scores = _process_scores(last_logits, gen_idx, ts, cfg, opts, p)
+        nxt = torch.argmax(scores, dim=-1)
+        logp = torch.log_softmax(scores, dim=-1)
+        tok_logp = logp.gather(1, nxt[:, None])[:, 0]
+
+        was_finished = finished
+        nxt = torch.where(was_finished, cfg.pad_token_id, nxt)
+        sum_logprobs = sum_logprobs + torch.where(was_finished, 0.0, tok_logp)
+        finished = was_finished | (nxt == cfg.eos_token_id)
+        seq_len = torch.where(was_finished, seq_len, cur + 1)
+        tokens[:, cur] = nxt
+        ts = ts.update(nxt, cfg.timestamp_begin)
+        cur += 1
+        if cur >= total or bool(finished.all()):
+            break
+        lg, cache = decode(dec_params, cfg, nxt[:, None], cross=cross,
+                           cache=cache, pos_offset=cur - 1, dtype=dtype)
+        last_logits = lg[:, -1].float()
+
+    return GenerateOutput(sequences=tokens, seq_len=seq_len,
+                          sum_logprobs=sum_logprobs,
+                          no_speech_prob=no_speech_prob)
+
+
+# ----------------------------------------------------------------------
+# Convenience wrapper (an entry point)
+# ----------------------------------------------------------------------
+
+
+@torch.no_grad()
+def encode_and_generate(params: Dict[str, Any], cfg: WhisperConfig,
+                        mel, prompt_ids, opts: GenerationOptions,
+                        dtype: torch.dtype = torch.float32,
+                        device="cuda") -> GenerateOutput:
+    """mel [B, n_mels, 3000] + prompt [B, P] -> GenerateOutput, on ``device``
+    (where ``params`` must already live)."""
+    dev = resolve_device(device)
+    if params["decoder"]["tok_emb"].device.type != dev.type:
+        raise ValueError(f"params live on {params['decoder']['tok_emb'].device}"
+                         f", not on {dev}")
+    mel = torch.as_tensor(mel).to(dev)
+    prompt_ids = torch.as_tensor(prompt_ids).to(dev)
+    enc = encode(params["encoder"], cfg, mel, dtype=dtype)
+    cross = cross_kv(params["decoder"], cfg, enc)
+    return generate(params["decoder"], cfg, cross, prompt_ids, opts,
+                    dtype=dtype)

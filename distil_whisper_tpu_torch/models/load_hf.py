@@ -1,0 +1,158 @@
+"""HF checkpoint -> the port's param tree.
+
+Loads ``model.safetensors`` (single or sharded) or ``pytorch_model.bin`` from
+a local HF Whisper checkpoint directory into the stacked-layer layout of
+:mod:`.whisper`, with the same key maps as ``distil_whisper_tpu.models.load_hf``.
+The safetensors format is read here directly (an 8-byte header length, a JSON
+header, raw little-endian buffers), so no ``safetensors`` package is needed.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import WhisperConfig
+from ..device import resolve_device
+from .convert import params_from_numpy
+from .params import unflatten_paths
+
+Params = Dict[str, Any]
+
+# (hf tail, ours tail, needs transpose) for linear/ln leaves inside a layer
+_LAYER_MAP = [
+    ("self_attn.q_proj.weight", "self_attn.q.kernel", True),
+    ("self_attn.q_proj.bias", "self_attn.q.bias", False),
+    ("self_attn.k_proj.weight", "self_attn.k.kernel", True),
+    ("self_attn.k_proj.bias", "self_attn.k.bias", False),  # absent in Whisper
+    ("self_attn.v_proj.weight", "self_attn.v.kernel", True),
+    ("self_attn.v_proj.bias", "self_attn.v.bias", False),
+    ("self_attn.out_proj.weight", "self_attn.out.kernel", True),
+    ("self_attn.out_proj.bias", "self_attn.out.bias", False),
+    ("self_attn_layer_norm.weight", "self_attn_ln.scale", False),
+    ("self_attn_layer_norm.bias", "self_attn_ln.bias", False),
+    ("encoder_attn.q_proj.weight", "cross_attn.q.kernel", True),
+    ("encoder_attn.q_proj.bias", "cross_attn.q.bias", False),
+    ("encoder_attn.k_proj.weight", "cross_attn.k.kernel", True),
+    ("encoder_attn.k_proj.bias", "cross_attn.k.bias", False),
+    ("encoder_attn.v_proj.weight", "cross_attn.v.kernel", True),
+    ("encoder_attn.v_proj.bias", "cross_attn.v.bias", False),
+    ("encoder_attn.out_proj.weight", "cross_attn.out.kernel", True),
+    ("encoder_attn.out_proj.bias", "cross_attn.out.bias", False),
+    ("encoder_attn_layer_norm.weight", "cross_attn_ln.scale", False),
+    ("encoder_attn_layer_norm.bias", "cross_attn_ln.bias", False),
+    ("fc1.weight", "fc1.kernel", True),
+    ("fc1.bias", "fc1.bias", False),
+    ("fc2.weight", "fc2.kernel", True),
+    ("fc2.bias", "fc2.bias", False),
+    ("final_layer_norm.weight", "final_ln.scale", False),
+    ("final_layer_norm.bias", "final_ln.bias", False),
+]
+
+_TOP_MAP = [
+    ("model.encoder.embed_positions.weight", "encoder.pos_emb"),
+    ("model.encoder.layer_norm.weight", "encoder.ln_post.scale"),
+    ("model.encoder.layer_norm.bias", "encoder.ln_post.bias"),
+    ("model.decoder.embed_tokens.weight", "decoder.tok_emb"),
+    ("model.decoder.embed_positions.weight", "decoder.pos_emb"),
+    ("model.decoder.layer_norm.weight", "decoder.ln.scale"),
+    ("model.decoder.layer_norm.bias", "decoder.ln.bias"),
+]
+
+_SAFETENSORS_DTYPES = {
+    "F64": np.float64, "F32": np.float32, "F16": np.float16,
+    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+    "U8": np.uint8, "BOOL": np.bool_,
+}
+
+
+def read_safetensors(path: Path) -> Dict[str, np.ndarray]:
+    """All tensors of one ``.safetensors`` file as numpy arrays (BF16 is
+    widened to float32, which holds every bf16 value exactly)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out: Dict[str, np.ndarray] = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        raw = data[begin:end]
+        if info["dtype"] == "BF16":
+            bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
+            arr = bits.view(np.float32)
+        elif info["dtype"] in _SAFETENSORS_DTYPES:
+            arr = np.frombuffer(raw, np.dtype(_SAFETENSORS_DTYPES[info["dtype"]])
+                                .newbyteorder("<"))
+        else:
+            raise ValueError(f"{path}: unsupported safetensors dtype "
+                             f"{info['dtype']} for {name}")
+        out[name] = arr.reshape(info["shape"])
+    return out
+
+
+def _read_state_dict(path: Path) -> Dict[str, np.ndarray]:
+    """Read all tensors from a local HF checkpoint dir as numpy arrays."""
+    single = path / "model.safetensors"
+    index = path / "model.safetensors.index.json"
+    if single.exists():
+        return read_safetensors(single)
+    if index.exists():
+        with open(index) as f:
+            shard_names = sorted(set(json.load(f)["weight_map"].values()))
+        out: Dict[str, np.ndarray] = {}
+        for name in shard_names:
+            out.update(read_safetensors(path / name))
+        return out
+    torch_bin = path / "pytorch_model.bin"
+    if torch_bin.exists():
+        sd = torch.load(str(torch_bin), map_location="cpu", weights_only=True)
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+                for k, v in sd.items()}
+    raise FileNotFoundError(f"no model.safetensors / pytorch_model.bin in {path}")
+
+
+def params_from_state_dict(sd: Dict[str, np.ndarray], cfg: WhisperConfig,
+                           device="cpu",
+                           dtype: torch.dtype = torch.float32) -> Params:
+    """HF state dict (numpy) -> stacked param tree of tensors on ``device``."""
+    flat: Dict[str, np.ndarray] = {}
+    sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    for hf, ours in _TOP_MAP:
+        hf = hf.removeprefix("model.")
+        if hf in sd:
+            flat[ours] = np.asarray(sd[hf])
+    # conv stem: HF (out, in, k) -> (k, in, out)
+    for name in ("conv1", "conv2"):
+        flat[f"encoder.{name}.kernel"] = np.asarray(
+            sd[f"encoder.{name}.weight"]).transpose(2, 1, 0)
+        flat[f"encoder.{name}.bias"] = np.asarray(sd[f"encoder.{name}.bias"])
+    for side, n_layers in (("encoder", cfg.encoder_layers),
+                           ("decoder", cfg.decoder_layers)):
+        for hf_tail, our_tail, transpose in _LAYER_MAP:
+            # Keys absent for a side are skipped wholesale: cross-attn in the
+            # encoder, k_proj.bias everywhere (Whisper k has no bias).
+            keys = [f"{side}.layers.{i}.{hf_tail}" for i in range(n_layers)]
+            if not all(k in sd for k in keys):
+                continue
+            per_layer = [np.asarray(sd[k]) for k in keys]
+            flat[f"{side}.layers.{our_tail}"] = np.stack(
+                [w.T if transpose else w for w in per_layer])
+    return params_from_numpy(unflatten_paths(flat), device, dtype)
+
+
+def load_params(checkpoint_dir: str, cfg: Optional[WhisperConfig] = None,
+                dtype: torch.dtype = torch.float32, device="cuda"):
+    """Load (params, cfg) from a local HF checkpoint directory onto
+    ``device``."""
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = WhisperConfig.from_pretrained(checkpoint_dir)
+    sd = _read_state_dict(Path(checkpoint_dir))
+    return params_from_state_dict(sd, cfg, dev, dtype), cfg

@@ -1,0 +1,316 @@
+"""Whisper encoder-decoder in PyTorch.
+
+Counterpart of ``distil_whisper_tpu.models.whisper`` with the same parameter
+tree (stacked ``[L, ...]`` layer weights, ``kernel [in, out]``), the same
+numerics policy (fp32 LayerNorm statistics and softmax, fp32 accumulation in
+every product, bf16 elsewhere in bf16 runs) and the same static-shape
+decoder cache ``[L, B, T, H*hd]`` with heads merged.  The layer loop is a
+Python loop over views of the stacked weights.  The decoder cache is
+updated in place (the JAX function returns a new cache; here the returned
+cache is the same dict, written at ``pos_offset``), which saves a copy of
+the cache per step.
+
+Not in this slice: int8 weights and caches, dropout, remat, per-lane decode
+cursors, cross-attention weights for word timestamps.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..config import WhisperConfig
+from ..ops.attention import mha, causal_mask, decode_attention
+from ..ops.encoder_attention import fused_self_attention
+from .params import layer_slice
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------------
+# Primitives
+# ----------------------------------------------------------------------
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5,
+               fp32: bool = True) -> torch.Tensor:
+    """LayerNorm with fp32 internals, output in x.dtype.  ``fp32=False``
+    keeps the statistics in x.dtype (``fast_approx_activations``).
+
+    PyTorch's layer-norm kernel computes in fp32 for bf16 input (statistics,
+    normalisation and affine) and casts once at the end: the JAX package's
+    fp32 island in one pass."""
+    scale, bias = p["scale"].to(x.dtype), p["bias"].to(x.dtype)
+    if fp32:
+        return F.layer_norm(x, (x.shape[-1],), scale, bias, eps)
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ kernel with fp32 accumulation, cast to x.dtype, then the bias added
+    in x.dtype."""
+    if "kernel_q" in p:
+        raise NotImplementedError("int8 weights come with the int8 slice")
+    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.view(b, t, n_heads, d // n_heads)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, t, h, hd = x.shape
+    return x.reshape(b, t, h * hd)
+
+
+def attention_block(p: Params, x_q: torch.Tensor, x_kv: torch.Tensor,
+                    n_heads: int, mask=None,
+                    f32_attn: bool = True) -> torch.Tensor:
+    """Full (uncached) MHA: project, attend, output-project."""
+    q = _split_heads(dense(p["q"], x_q), n_heads)
+    k = _split_heads(dense(p["k"], x_kv), n_heads)
+    v = _split_heads(dense(p["v"], x_kv), n_heads)
+    return dense(p["out"], _merge_heads(
+        mha(q, k, v, mask, float32_logits=f32_attn)))
+
+
+def mlp_block(fc1: Params, fc2: Params, x: torch.Tensor,
+              exact_gelu: bool = True) -> torch.Tensor:
+    h = F.gelu(dense(fc1, x), approximate="none" if exact_gelu else "tanh")
+    return dense(fc2, h)
+
+
+# ----------------------------------------------------------------------
+# Encoder
+# ----------------------------------------------------------------------
+
+
+def _conv1d(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """x [B, T, C_in], kernel (3, C_in, C_out), SAME-1 padding like torch.
+
+    The three taps are concatenated along channels and multiplied by the
+    kernel reshaped to [3*C_in, C_out]: one product whose fp32 accumulation
+    runs over all taps before the single cast, as the JAX 3-tap sum does."""
+    k = p["kernel"].to(x.dtype)
+    t = x.shape[1]
+    xp = F.pad(x, (0, 0, 1, 1))
+    taps = torch.cat([xp[:, d:d + t:stride] for d in range(3)], dim=-1)
+    y = torch.matmul(taps, k.reshape(-1, k.shape[-1]))
+    return y + p["bias"].to(x.dtype)
+
+
+def _encoder_layer(lp: Params, x: torch.Tensor, n_heads: int,
+                   policy=(True, False, False),
+                   t_real: Optional[int] = None) -> torch.Tensor:
+    f32_attn, fast_act, use_fused = policy
+    r = x
+    x = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
+    if use_fused:
+        # Hand-written kernel (ops/encoder_attention.py): never writes the
+        # [B,H,T,T] logits; q/k/v are [B,H,T,D] views of the projections.
+        x = fused_self_attention(lp["self_attn"], x, n_heads,
+                                 t_real or x.shape[1])
+    else:
+        x = attention_block(lp["self_attn"], x, x, n_heads, f32_attn=f32_attn)
+    x = r + x
+    r = x
+    x = layer_norm(lp["final_ln"], x, fp32=not fast_act)
+    return r + mlp_block(lp["fc1"], lp["fc2"], x, exact_gelu=not fast_act)
+
+
+def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """mel [B, n_mels, 3000] -> encoder states [B, 1500, d].
+
+    With ``cfg.use_flash_encoder`` self-attention goes through the kernel, which
+    takes T = 1500 as it is (the JAX package pads to 1536 for its block
+    grid and slices back; the output is the same)."""
+    x = mel.to(dtype).transpose(1, 2)                        # [B, 3000, n_mels]
+    x = F.gelu(_conv1d(params["conv1"], x, 1))
+    x = F.gelu(_conv1d(params["conv2"], x, 2))               # [B, 1500, d]
+    x = x + params["pos_emb"].to(dtype)
+    policy = (not cfg.fast_bf16_attention, cfg.fast_approx_activations,
+              cfg.use_flash_encoder)
+    for i in range(cfg.encoder_layers):
+        x = _encoder_layer(layer_slice(params["layers"], i), x,
+                           cfg.encoder_attention_heads, policy, x.shape[1])
+    return layer_norm(params["ln_post"], x)
+
+
+# ----------------------------------------------------------------------
+# Decoder (shared path for training, prefill and cached decode)
+# ----------------------------------------------------------------------
+
+
+def init_cache(cfg: WhisperConfig, batch: int,
+               dtype: torch.dtype = torch.float32,
+               max_len: Optional[int] = None, device="cpu") -> Params:
+    """Static-shape self-attention KV cache: [L, B, max_len, H*hd], heads
+    merged (a [.., T, H, hd] view of it is free)."""
+    if cfg.quantize_self_kv:
+        raise NotImplementedError("the int8 self-KV cache comes with the "
+                                  "int8 slice")
+    max_len = max_len or cfg.max_target_positions
+    shape = (cfg.decoder_layers, batch, max_len, cfg.d_model)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cross_kv(params: Params, cfg: WhisperConfig,
+             enc: torch.Tensor) -> Params:
+    """Cross-attention K/V, computed once per utterance: [L, B, 1500, H*hd]."""
+    if cfg.quantize_cross_kv:
+        raise NotImplementedError("int8 cross K/V comes with the int8 slice")
+    ks, vs = [], []
+    for i in range(cfg.decoder_layers):
+        lp = layer_slice(params["layers"], i)["cross_attn"]
+        ks.append(dense(lp["k"], enc))
+        vs.append(dense(lp["v"], enc))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _decoder_layer(lp: Params, x: torch.Tensor, self_k, self_v, ck, cv,
+                   n_heads: int, self_mask, policy=(True, False)):
+    """One decoder layer given head-split K/V for both attentions."""
+    f32_attn, fast_act = policy
+    r = x
+    h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
+    q = _split_heads(dense(lp["self_attn"]["q"], h), n_heads)
+    a = mha(q, self_k, self_v, self_mask, float32_logits=f32_attn)
+    x = r + dense(lp["self_attn"]["out"], _merge_heads(a))
+
+    r = x
+    h = layer_norm(lp["cross_attn_ln"], x, fp32=not fast_act)
+    q = _split_heads(dense(lp["cross_attn"]["q"], h), n_heads)
+    a = mha(q, ck, cv, float32_logits=f32_attn)
+    x = r + dense(lp["cross_attn"]["out"], _merge_heads(a))
+
+    r = x
+    h = layer_norm(lp["final_ln"], x, fp32=not fast_act)
+    return r + mlp_block(lp["fc1"], lp["fc2"], h, exact_gelu=not fast_act)
+
+
+def _cached_layer(lp: Params, x: torch.Tensor, h: torch.Tensor, k_all, v_all,
+                  ck, cv, n_heads: int, self_mask, mask2, merged_fast: bool,
+                  policy):
+    """One decoder layer against merged-layout K/V [B, T, d]; ``h`` is the
+    self-attention LayerNorm of ``x`` (already computed for the new K/V)."""
+    f32_attn, fast_act = policy
+    r = x
+    q = dense(lp["self_attn"]["q"], h)
+    if merged_fast:
+        a = decode_attention(q[:, 0], k_all, v_all, n_heads, mask2)[:, None]
+    else:
+        a = _merge_heads(mha(_split_heads(q, n_heads),
+                             _split_heads(k_all, n_heads),
+                             _split_heads(v_all, n_heads),
+                             self_mask, float32_logits=f32_attn))
+    x = r + dense(lp["self_attn"]["out"], a)
+
+    r = x
+    h = layer_norm(lp["cross_attn_ln"], x, fp32=not fast_act)
+    q = dense(lp["cross_attn"]["q"], h)
+    if merged_fast:
+        a = decode_attention(q[:, 0], ck, cv, n_heads)[:, None]
+    else:
+        a = _merge_heads(mha(_split_heads(q, n_heads), _split_heads(ck, n_heads),
+                             _split_heads(cv, n_heads),
+                             float32_logits=f32_attn))
+    x = r + dense(lp["cross_attn"]["out"], a)
+
+    r = x
+    h = layer_norm(lp["final_ln"], x, fp32=not fast_act)
+    return r + mlp_block(lp["fc1"], lp["fc2"], h, exact_gelu=not fast_act)
+
+
+def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
+           enc: Optional[torch.Tensor] = None,
+           cross: Optional[Params] = None,
+           cache: Optional[Params] = None,
+           pos_offset: int = 0,
+           pad_len: Optional[torch.Tensor] = None,
+           dtype: torch.dtype = torch.float32):
+    """Decoder forward.
+
+    tokens [B, S] at global cache slots ``pos_offset .. pos_offset+S-1``
+    (``pos_offset`` a Python int).  Exactly one of ``enc`` (encoder states,
+    K/V projected on the fly) or ``cross`` (precomputed by :func:`cross_kv`).
+
+    Without ``cache``: full causal self-attention over S (scoring path).
+    With ``cache``: the new
+    keys/values are written into the cache at ``pos_offset`` (in place) and
+    attention spans the whole cache under a causal mask.
+
+    ``pad_len`` [B] marks left-padded prompts: the first ``pad_len[b]`` cache
+    slots are masked out of self-attention and positions shift so the first
+    real token sits at position 0.
+
+    Returns ``(logits [B, S, V] fp32, cache)``; ``cache`` is None uncached.
+    """
+    b, s = tokens.shape
+    n_heads = cfg.decoder_attention_heads
+    device = tokens.device
+    pos_table = params["pos_emb"].to(dtype)
+    x = params["tok_emb"].to(dtype)[tokens]
+    if pad_len is None:
+        start = min(max(pos_offset, 0), pos_table.shape[0] - s)
+        x = x + pos_table[start:start + s]
+    else:
+        slots = pos_offset + torch.arange(s, device=device)[None, :]
+        positions = torch.clamp(slots - pad_len[:, None].long(), 0,
+                                cfg.max_target_positions - 1)
+        x = x + pos_table[positions]
+
+    if cache is not None:
+        tk = cache["k"].shape[2]
+        self_mask = causal_mask(s, tk, pos_offset, device=device)
+    else:
+        tk = s
+        self_mask = causal_mask(s, s, 0, device=device)
+    if pad_len is not None:
+        key_slots = torch.arange(tk, device=device)[None, None, None, :]
+        self_mask = self_mask & (key_slots >= pad_len[:, None, None, None])
+
+    policy = (not cfg.fast_bf16_attention, cfg.fast_approx_activations)
+    f32_attn, fast_act = policy
+    if cross is None:
+        if enc is None:
+            raise ValueError("decode() needs enc or cross")
+        cross = cross_kv(params, cfg, enc.to(dtype))
+    # bf16 single-token steps use the merged-layout decode_attention; prefill
+    # (S>1) and fp32-parity runs take the exact einsum path on head-split
+    # views of the same buffers
+    merged_fast = cache is not None and s == 1 and not f32_attn
+    mask2 = self_mask[:, 0, 0, :] if merged_fast else None
+
+    for i in range(cfg.decoder_layers):
+        lp = layer_slice(params["layers"], i)
+        ck, cv = cross["k"][i].to(dtype), cross["v"][i].to(dtype)
+        h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
+        k = dense(lp["self_attn"]["k"], h)
+        v = dense(lp["self_attn"]["v"], h)
+        if cache is None:
+            x = _decoder_layer(lp, x, _split_heads(k, n_heads),
+                               _split_heads(v, n_heads),
+                               _split_heads(ck, n_heads),
+                               _split_heads(cv, n_heads), n_heads,
+                               self_mask, policy)
+        else:
+            cache["k"][i, :, pos_offset:pos_offset + s] = k
+            cache["v"][i, :, pos_offset:pos_offset + s] = v
+            x = _cached_layer(lp, x, h, cache["k"][i].to(dtype),
+                              cache["v"][i].to(dtype), ck, cv, n_heads,
+                              self_mask, mask2, merged_fast, policy)
+
+    y = layer_norm(params["ln"], x)
+    # fp32 logits (the tied embedding, fp32 accumulation) as in JAX
+    logits = torch.matmul(y.float(), params["tok_emb"].float().T)
+    return logits, cache

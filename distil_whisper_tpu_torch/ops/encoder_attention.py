@@ -1,0 +1,131 @@
+"""Whisper encoder self-attention: the CUDA kernel's wrapper, its plain
+version, and the fused self-attention block around it.
+
+The kernel (``csrc/encoder_attention.cu``) replaces the Pallas TPU kernel of
+``distil_whisper_tpu/ops/encoder_attention.py``: non-causal attention that
+never writes the [B, H, T, T] logits or probabilities to device memory.  It
+streams keys with an online softmax (the TPU kernel held a whole score row in
+VMEM; a block's shared memory cannot), so it computes the same function with
+different rounding.  It takes the real length T and masks the ragged edges
+itself: ``encode`` needs no pad-to-block copy.
+
+:func:`encoder_attention` launches the kernel for CUDA tensors (bf16 only)
+and runs :func:`encoder_attention_plain` for CPU tensors; anything else
+raises.  ``encoder_attention.launches`` counts kernel launches.
+
+Not ported: the TPU-only ``exp_impl`` and ``fused_qkv`` knobs (measured dead
+on the TPU); the int8 and QAT branches of ``fused_self_attention`` come with
+the int8 slice; the backward (einsum recompute) comes with training.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+
+
+def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, t_real: int) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch.  q/k/v [B, H, T, D].
+
+    fp32 scores scaled by D^-0.5 after the product, keys >= t_real set to
+    -inf, fp32 softmax statistics, the UNnormalised probabilities cast to the
+    v dtype for p.v (fp32 accumulation), one division by the fp32 row sum.
+    """
+    d = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (d ** -0.5)
+    if t_real < k.shape[2]:
+        s[..., t_real:] = float("-inf")
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = torch.sum(p, dim=-1, keepdim=True)
+    pv = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return (pv / denom).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.load("encoder_attention")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dw_encoder_attention.argtypes = (
+        [p, p, p, p, i, i, i, i, ctypes.c_float] + [ll] * 12 + [p])
+    lib.dw_encoder_attention.restype = ctypes.c_int
+    return lib
+
+
+def _check_operand(name: str, x: torch.Tensor, shape) -> None:
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"encoder_attention kernel takes bf16, got {name} "
+                         f"{x.dtype} (fp32 runs use the einsum path)")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"encoder_attention: {name} shape {tuple(x.shape)} "
+                         f"!= {tuple(shape)}")
+    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) \
+            or x.data_ptr() % 16:
+        raise ValueError(f"encoder_attention: {name} needs unit stride along "
+                         "D, 16-byte aligned rows and base")
+
+
+def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      t_real: int) -> torch.Tensor:
+    """Whisper encoder self-attention.  q/k/v [B, H, T, 64]; keys >= t_real
+    are masked.  Returns [B, H, T, 64] in q.dtype, laid out like q (a
+    [B, H, T, D] view of a [B, T, H, D] buffer stays one)."""
+    if q.device.type == "cpu":
+        return encoder_attention_plain(q, k, v, t_real)
+    if q.device.type != "cuda":
+        raise ValueError(f"encoder_attention: unsupported device {q.device}")
+    b, h, t, d = q.shape
+    if d != 64:
+        raise ValueError(f"encoder_attention kernel takes head dim 64, got {d}")
+    if not 1 <= t_real <= t:
+        raise ValueError(f"encoder_attention: t_real {t_real} not in [1, {t}]")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"encoder_attention: {name} on {x.device}")
+        _check_operand(name, x, q.shape)
+    out = torch.empty_like(q)
+    _check_operand("out", out, q.shape)
+    scale_log2 = d ** -0.5 * math.log2(math.e)
+    err = _lib().dw_encoder_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t,
+        t_real, scale_log2, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"encoder attention kernel launch failed "
+                           f"(cudaError {err})")
+    encoder_attention.launches += 1
+    return out
+
+
+encoder_attention.launches = 0
+
+
+def fused_self_attention(p_attn, x_ln: torch.Tensor, n_heads: int,
+                         t_real: int) -> torch.Tensor:
+    """Post-LN hidden states [B, T, d_model] -> self-attention block output
+    [B, T, d_model] through :func:`encoder_attention`.
+
+    q/k/v are projected as [B, T, d_model] (fp32 accumulation, cast, then the
+    bias added in the working dtype, as ``dense``) and handed to the kernel
+    as [B, H, T, D] views; the kernel writes its output in the same layout, so
+    the out-projection reads [B, T, d_model] with no copy."""
+    b, t, dm = x_ln.shape
+    d = dm // n_heads
+
+    def proj(p):
+        y = torch.matmul(x_ln, p["kernel"].to(x_ln.dtype))
+        if "bias" in p:
+            y = y + p["bias"].to(y.dtype)
+        return y.view(b, t, n_heads, d).transpose(1, 2)          # [B, H, T, D]
+
+    a = encoder_attention(proj(p_attn["q"]), proj(p_attn["k"]),
+                          proj(p_attn["v"]), t_real)
+    a = a.transpose(1, 2).reshape(b, t, dm)
+    y = torch.matmul(a, p_attn["out"]["kernel"].to(a.dtype))
+    return y + p_attn["out"]["bias"].to(y.dtype)

@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's main path spends its time on one GPU.
+
+    python3 scripts/torch_profile_main_path.py [--batch 16] [--max-new 128]
+                                               [--trace-dir profile_traces]
+
+distil-large-v3 at full width, random weights from a seed, bf16, a batch of
+30 s synthetic windows, greedy with a fixed token budget.  The stages of
+``WhisperPipeline`` run one by one, each warm and then once under
+``torch.profiler`` (CPU + CUDA):
+
+    mel       compute_mel (the fused CUDA log-mel kernel)
+    encode    models.whisper.encode (the CUDA encoder-attention kernel)
+    cross_kv  models.whisper.cross_kv
+    generate  generation.generate (prefill + cached greedy steps)
+
+For each stage it prints one JSON line: host wall time (ends in a
+synchronize), the summed device time of its kernels, the device's idle share
+(1 - device / wall), and the kernels taking the most device time.  The
+Chrome traces go to ``--trace-dir``.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_stage(name, fn, out_dir: Path, top: int = 12):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                           # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(out_dir / f"{name}.json"))
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    kernels.sort(key=_device_us, reverse=True)
+    return {"stage": name, "wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "n_kernel_launches": sum(e.count for e in kernels),
+            "top": [{"kernel": e.key[:90], "ms": _device_us(e) / 1e3,
+                     "count": e.count} for e in kernels[:top]]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=128)
+    ap.add_argument("--trace-dir", default=str(ROOT / "profile_traces"))
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device visible", file=sys.stderr)
+        return 1
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import GenerationOptions, generate
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.ops import _build
+
+    _build.build_all()
+    out_dir = Path(args.trace_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dtype = torch.bfloat16
+    cfg = PRESETS["distil-large-v3"].replace(fast_bf16_attention=True,
+                                             use_flash_encoder=True)
+    params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+    rng = np.random.default_rng(1)
+    wavs = (0.1 * rng.standard_normal((args.batch, cfg.n_samples))
+            ).astype(np.float32)
+    # v3 prompt: <|startoftranscript|><|en|><|transcribe|><|notimestamps|>
+    prompt = torch.tensor([[50258, 50259, 50360, 50364]] * args.batch,
+                          device="cuda")
+    opts = GenerationOptions.from_config(cfg, max_new_tokens=args.max_new,
+                                         no_speech_token_id=50363)
+    state = {}
+
+    def mel():
+        state["mel"] = compute_mel(wavs, cfg, device="cuda").to(dtype)
+
+    def encode():
+        state["enc"] = W.encode(params["encoder"], cfg, state["mel"],
+                                dtype=dtype)
+
+    def cross():
+        state["cross"] = W.cross_kv(params["decoder"], cfg, state["enc"])
+
+    def gen():
+        state["out"] = generate(params["decoder"], cfg, state["cross"],
+                                prompt, opts, dtype=dtype)
+
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "torch": torch.__version__, "batch": args.batch,
+                      "max_new_tokens": args.max_new}), flush=True)
+    with torch.no_grad():
+        for name, fn in (("mel", mel), ("encode", encode),
+                         ("cross_kv", cross), ("generate", gen)):
+            row = profile_stage(name, fn, out_dir)
+            if name == "generate":
+                steps = int(state["out"].seq_len.max()) - prompt.shape[1]
+                row["decode_steps"] = steps
+                row["wall_ms_per_step"] = row["wall_ms"] / max(steps, 1)
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,106 @@
+"""Port attention ops vs the JAX package (CPU, fp32).
+
+The port's ``encoder_attention`` on a CPU tensor is the CUDA kernel's plain
+version (online-softmax kernel, whole-row plain version: same function); it
+is held against the JAX Pallas kernel in interpret mode.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from torch_port_helpers import torch_params
+from distil_whisper_tpu.config import PRESETS as JPRESETS
+from distil_whisper_tpu.models import init_params as j_init_params
+from distil_whisper_tpu.ops import attention as jattn
+from distil_whisper_tpu.ops import encoder_attention as jenc
+from distil_whisper_tpu_torch.models.params import layer_slice
+from distil_whisper_tpu_torch.ops import attention as tattn
+from distil_whisper_tpu_torch.ops import encoder_attention as tenc
+
+
+def _rand(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("t_real", [256, 200])
+def test_encoder_attention_matches_pallas_interpret(t_real):
+    rng = np.random.default_rng(1)
+    q, k, v = (_rand(rng, (2, 4, 256, 64)) for _ in range(3))
+    golden = np.asarray(jenc.encoder_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), t_real, 128, "f32",
+        True))
+    ours = tenc.encoder_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), t_real).numpy()
+    np.testing.assert_allclose(ours[:, :, :t_real], golden[:, :, :t_real],
+                               atol=2e-5, rtol=1e-4)
+    assert tenc.encoder_attention.launches == 0
+
+
+def test_fused_self_attention_matches_pallas_interpret():
+    cfg = JPRESETS["test-tiny"]
+    jp = j_init_params(cfg, jax.random.PRNGKey(0))
+    jlp = jax.tree.map(lambda x: x[0], jp["encoder"]["layers"])["self_attn"]
+    tlp = layer_slice(torch_params(jp)["encoder"]["layers"], 0)["self_attn"]
+    rng = np.random.default_rng(3)
+    x = _rand(rng, (2, 256, 64))
+    golden = np.asarray(jenc.fused_self_attention(
+        jlp, jnp.asarray(x), 4, t_real=256, block_q=128, interpret=True))
+    ours = tenc.fused_self_attention(tlp, torch.from_numpy(x), 4,
+                                     t_real=256).numpy()
+    np.testing.assert_allclose(ours, golden, atol=3e-5, rtol=1e-4)
+    assert tenc.encoder_attention.launches == 0
+
+
+def test_plain_version_casts_unnormalised_probs():
+    """bf16 operands: the plain version rounds exp(s - m) to bf16 before p.v
+    and divides by the fp32 sum afterwards (the TPU kernel's order)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(_rand(rng, (1, 2, 64, 64))).bfloat16()
+               for _ in range(3))
+    out = tenc.encoder_attention_plain(q, k, v, 50)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * 64 ** -0.5
+    s[..., 50:] = float("-inf")
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    ref = (torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), v.float())
+           / p.sum(-1, keepdim=True)).bfloat16()
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_matches_jax(causal):
+    rng = np.random.default_rng(5)
+    q, k, v = _rand(rng, (2, 7, 4, 16)), _rand(rng, (2, 9, 4, 16)), \
+        _rand(rng, (2, 9, 4, 16))
+    mask = rng.random((2, 1, 7, 9)) > 0.3
+    mask[..., 0] = True
+    jm = None if causal else jnp.asarray(mask)
+    tm = tattn.causal_mask(7, 9, 0) if causal else torch.from_numpy(mask)
+    golden = np.asarray(jattn.mha(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jm, causal=causal))
+    ours = tattn.mha(torch.from_numpy(q), torch.from_numpy(k),
+                     torch.from_numpy(v), tm).numpy()
+    np.testing.assert_allclose(ours, golden, atol=1e-5, rtol=1e-5)
+
+
+def test_decode_attention_matches_jax():
+    rng = np.random.default_rng(6)
+    q, k, v = _rand(rng, (3, 64)), _rand(rng, (3, 20, 64)), \
+        _rand(rng, (3, 20, 64))
+    mask = np.arange(20)[None, :] <= np.array([[5], [12], [19]])
+    golden = np.asarray(jattn.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 4, jnp.asarray(mask)))
+    ours = tattn.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), 4,
+                                  torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(ours, golden, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+def test_causal_mask_matches_jax(offset):
+    golden = np.asarray(jattn.causal_mask(4, 10, offset))
+    ours = tattn.causal_mask(4, 10, offset).numpy()
+    np.testing.assert_array_equal(ours, golden)

@@ -1,0 +1,114 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and no silent
+move to the CPU when the card is missing."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import distil_whisper_tpu_torch
+
+PKG = Path(distil_whisper_tpu_torch.__file__).resolve().parent
+ROOT = PKG.parent
+# the JAX package's name as a whole word: ``distil_whisper_tpu_torch`` starts
+# with it and must not match
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|distil_whisper_tpu)\b(?!_)",
+    re.MULTILINE)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield path, ".".join(parts)
+
+
+def test_pattern_tells_the_packages_apart():
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from distil_whisper_tpu.config import X")
+    assert FORBIDDEN.search("    import distil_whisper_tpu")
+    assert not FORBIDDEN.search("from distil_whisper_tpu_torch import config")
+    assert not FORBIDDEN.search("import jaxtyping_like_name")
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", None])
+def test_no_source_imports_jax_or_the_jax_package(script):
+    paths = [ROOT / script] if script else [p for p, _ in _modules()]
+    for path in paths:
+        hits = FORBIDDEN.findall(path.read_text())
+        assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+_BLOCKED = """
+import sys
+sys.modules["jax"] = None
+sys.modules["distil_whisper_tpu"] = None
+import importlib
+for name in {modules!r}:
+    importlib.import_module(name)
+import numpy as np, torch
+torch.set_num_threads(2)
+from distil_whisper_tpu_torch.config import PRESETS
+from distil_whisper_tpu_torch.models import init_params
+from distil_whisper_tpu_torch.generation import (GenerationOptions,
+                                                  encode_and_generate)
+cfg = PRESETS["test-tiny"].replace(use_flash_encoder=True)
+params = init_params(cfg, seed=0, device="cpu")
+mel = np.random.default_rng(0).standard_normal((1, 80, 3000)).astype("float32")
+opts = GenerationOptions.from_config(cfg, max_new_tokens=4)
+out = encode_and_generate(params, cfg, mel, [[50258, 50259, 50359, 50363]],
+                          opts, device="cpu")
+assert out.sequences.shape == (1, 8), out.sequences.shape
+assert not any(m == "jax" or m.startswith(("jax.", "distil_whisper_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("OK", len({modules!r}))
+"""
+
+
+def test_imports_and_runs_with_jax_blocked():
+    modules = [name for _, name in _modules()]
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED.format(modules=modules)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == f"OK {len(modules)}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the CUDA default is valid here")
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import (GenerationOptions,
+                                                      encode_and_generate)
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+    cfg = PRESETS["test-tiny"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        WhisperPipeline(None, dtype=torch.float32, cfg=cfg, params={},
+                        tokenizer=object())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compute_mel(np.zeros(16000, np.float32), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        encode_and_generate(params, cfg, np.zeros((1, 80, 3000), np.float32),
+                            [[50258]], GenerationOptions())
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on CUDA never reaches a plain
+    version."""
+    from distil_whisper_tpu_torch.audio.mel_kernel import log10_mel_fused
+    from distil_whisper_tpu_torch.ops.encoder_attention import encoder_attention
+    meta = torch.empty((1, 4, 128, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        encoder_attention(meta, meta, meta, 128)
+    with pytest.raises(ValueError, match="unsupported device"):
+        log10_mel_fused(torch.empty((1, 16000), device="meta"), 80)
