@@ -56,8 +56,8 @@ class WhisperConfig:
     # generation.  Validate WER before enabling in production.
     quantize_self_kv: bool = False
     # OPT-IN W8A8 int8 encoder (per-channel weights + dynamic per-token
-    # activations on the projection/MLP matmuls).  Not ported yet: the port
-    # refuses configs that set any quantize_* flag.
+    # activations on the projection/MLP matmuls; the MLP through the fused
+    # int8 kernel on the card, ops/int8_mlp.py).
     quantize_encoder: bool = False
     # OPT-IN W8A8 int8 decoder projections/MLP: low-batch decode is
     # weight-read bound, so int8 weights nearly halve the per-token floor

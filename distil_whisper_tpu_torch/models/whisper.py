@@ -10,8 +10,14 @@ updated in place (the JAX function returns a new cache; here the returned
 cache is the same dict, written at ``pos_offset``), which saves a copy of
 the cache per step.
 
-Not in this slice: int8 weights and caches, dropout, remat, per-lane decode
-cursors, cross-attention weights for word timestamps.
+The int8 lane follows the tree as JAX does: ``kernel_q`` leaves take the
+W8A8 product (``ops/quant.py``), the encoder MLP takes the fused int8 kernel
+(``ops/int8_mlp.py``) on the card, int8 self-KV caches and cross K/V carry
+fp32 scales beside them and are dequantized per layer to the working dtype,
+and ``tok_emb_q`` gives int8 logits at batch >= 8.
+
+Not in this slice: dropout, remat, per-lane decode cursors, cross-attention
+weights for word timestamps.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import torch.nn.functional as F
 from ..config import WhisperConfig
 from ..ops.attention import mha, causal_mask, decode_attention
 from ..ops.encoder_attention import fused_self_attention
+from ..ops.int8_mlp import fused_int8_mlp, mlp_supported
+from ..ops.quant import dense_int8, int_mm, quantize_acts, symmetric_int8
 from .params import layer_slice
 
 Params = Dict[str, Any]
@@ -54,7 +62,8 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ kernel with fp32 accumulation, cast to x.dtype, then the bias added
     in x.dtype."""
     if "kernel_q" in p:
-        raise NotImplementedError("int8 weights come with the int8 slice")
+        # int8 weights (ops/quant.py): W8A8 product, fp32 rescale epilogue
+        return dense_int8(p, x)
     y = torch.matmul(x, p["kernel"].to(x.dtype))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
@@ -84,6 +93,12 @@ def attention_block(p: Params, x_q: torch.Tensor, x_kv: torch.Tensor,
 
 def mlp_block(fc1: Params, fc2: Params, x: torch.Tensor,
               exact_gelu: bool = True) -> torch.Tensor:
+    if ("kernel_q" in fc1 and exact_gelu and x.is_cuda
+            and x.dtype == torch.bfloat16 and mlp_supported(fc1, x)):
+        # the fused int8 MLP kernel (ops/int8_mlp.py), JAX's choice on the
+        # TPU; elsewhere (CPU, fp32, decode-sized row counts) the unfused
+        # dense_int8 -> gelu -> dense_int8, JAX's choice off the TPU
+        return fused_int8_mlp(fc1, fc2, x)
     h = F.gelu(dense(fc1, x), approximate="none" if exact_gelu else "tanh")
     return dense(fc2, h)
 
@@ -154,27 +169,104 @@ def init_cache(cfg: WhisperConfig, batch: int,
                dtype: torch.dtype = torch.float32,
                max_len: Optional[int] = None, device="cpu") -> Params:
     """Static-shape self-attention KV cache: [L, B, max_len, H*hd], heads
-    merged (a [.., T, H, hd] view of it is free)."""
-    if cfg.quantize_self_kv:
-        raise NotImplementedError("the int8 self-KV cache comes with the "
-                                  "int8 slice")
+    merged (a [.., T, H, hd] view of it is free).
+
+    With ``cfg.quantize_self_kv`` K/V are stored int8 (``k_q``, ``v_q``)
+    with an fp32 absmax scale per (layer, batch, token) (``k_scale``,
+    ``v_scale`` [L, B, max_len])."""
     max_len = max_len or cfg.max_target_positions
     shape = (cfg.decoder_layers, batch, max_len, cfg.d_model)
+    if cfg.quantize_self_kv:
+        return {"k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _self_kv_quantize(x: torch.Tensor):
+    """[B, S, d] -> (int8 [B, S, d], fp32 scale [B, S]), per-token absmax
+    with the scale floor 1e-8."""
+    x32 = x.float()
+    q, scale = symmetric_int8(x32, x32.abs().amax(dim=-1, keepdim=True), 1e-8)
+    return q, scale[..., 0]
+
+
+def _cache_write(cache: Params, name: str, i: int, pos: int,
+                 kv: torch.Tensor) -> None:
+    """Write new K or V [B, S, d] of layer ``i`` at ``pos``, in place."""
+    s = kv.shape[1]
+    if name in cache:
+        cache[name][i, :, pos:pos + s] = kv
+        return
+    q, scale = _self_kv_quantize(kv)
+    cache[f"{name}_q"][i, :, pos:pos + s] = q
+    cache[f"{name}_scale"][i, :, pos:pos + s] = scale
+
+
+def _cache_read(cache: Params, name: str, i: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``i``'s whole K or V as merged [B, T, d] in ``dtype``; an int8
+    cache is dequantized with the scale cast to ``dtype`` first, as JAX."""
+    if name in cache:
+        return cache[name][i].to(dtype)
+    return (cache[f"{name}_q"][i].to(dtype)
+            * cache[f"{name}_scale"][i][..., None].to(dtype))
+
+
 def cross_kv(params: Params, cfg: WhisperConfig,
              enc: torch.Tensor) -> Params:
-    """Cross-attention K/V, computed once per utterance: [L, B, 1500, H*hd]."""
-    if cfg.quantize_cross_kv:
-        raise NotImplementedError("int8 cross K/V comes with the int8 slice")
-    ks, vs = [], []
+    """Cross-attention K/V, computed once per utterance: [L, B, 1500, H*hd].
+
+    With ``cfg.quantize_cross_kv`` K/V are stored int8 with an fp32 absmax
+    scale per (layer, batch, head), kept as a [B, 1, d] vector so that the
+    dequant is one elementwise multiply; each layer is quantized as it is
+    projected."""
+    h = cfg.decoder_attention_heads
+    quantize = cfg.quantize_cross_kv
+
+    def q8(x):
+        b, t, d = x.shape
+        x32 = x.float()
+        amax = x32.abs().view(b, t, h, d // h).amax(dim=(1, 3))      # [B, H]
+        amax = amax.repeat_interleave(d // h, dim=-1)[:, None]        # [B,1,d]
+        return symmetric_int8(x32, amax, 1e-8)
+
+    parts = []
     for i in range(cfg.decoder_layers):
         lp = layer_slice(params["layers"], i)["cross_attn"]
-        ks.append(dense(lp["k"], enc))
-        vs.append(dense(lp["v"], enc))
-    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+        k, v = dense(lp["k"], enc), dense(lp["v"], enc)
+        parts.append((*q8(k), *q8(v)) if quantize else (k, v))
+    names = ("k_q", "k_scale", "v_q", "v_scale") if quantize else ("k", "v")
+    return {n: torch.stack([p[j] for p in parts]) for j, n in enumerate(names)}
+
+
+def _cross_read(cross: Params, i: int, dtype: torch.dtype):
+    """Layer ``i``'s cross K and V as merged [B, T, d] in ``dtype``."""
+    if "k" in cross:
+        return cross["k"][i].to(dtype), cross["v"][i].to(dtype)
+    return (cross["k_q"][i].to(dtype) * cross["k_scale"][i].to(dtype),
+            cross["v_q"][i].to(dtype) * cross["v_scale"][i].to(dtype))
+
+
+def _int8_logits(params: Params, y: torch.Tensor) -> torch.Tensor:
+    """W8A8 logits against the int8 copy of the tied embedding: per-token
+    activation scale, per-vocab-row weight scale, fp32 rescale, as JAX.
+
+    The vocabulary is the left (row) operand of the int8 product and the
+    b*s tokens the right one: cuBLASLt asks the right operand's width to be
+    a multiple of 8, which 51866 is not, so the tokens are padded with zero
+    rows to a multiple of 8 instead of padding the vocabulary."""
+    b, s, d = y.shape
+    m = b * s
+    yq, ys = quantize_acts(y.reshape(m, d))
+    m8 = -(-m // 8) * 8
+    if m8 != m:
+        yq = torch.cat([yq, yq.new_zeros(m8 - m, d)])
+    lt = int_mm(params["tok_emb_q"], yq.T)[:, :m]                 # [V, m]
+    logits = lt.T.float() * ys * params["tok_emb_scale"][:, 0]
+    return logits.reshape(b, s, -1)
 
 
 def _decoder_layer(lp: Params, x: torch.Tensor, self_k, self_v, ck, cv,
@@ -270,7 +362,7 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
         x = x + pos_table[positions]
 
     if cache is not None:
-        tk = cache["k"].shape[2]
+        tk = (cache["k"] if "k" in cache else cache["k_q"]).shape[2]
         self_mask = causal_mask(s, tk, pos_offset, device=device)
     else:
         tk = s
@@ -293,7 +385,7 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
 
     for i in range(cfg.decoder_layers):
         lp = layer_slice(params["layers"], i)
-        ck, cv = cross["k"][i].to(dtype), cross["v"][i].to(dtype)
+        ck, cv = _cross_read(cross, i, dtype)
         h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
         k = dense(lp["self_attn"]["k"], h)
         v = dense(lp["self_attn"]["v"], h)
@@ -304,13 +396,18 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
                                _split_heads(cv, n_heads), n_heads,
                                self_mask, policy)
         else:
-            cache["k"][i, :, pos_offset:pos_offset + s] = k
-            cache["v"][i, :, pos_offset:pos_offset + s] = v
-            x = _cached_layer(lp, x, h, cache["k"][i].to(dtype),
-                              cache["v"][i].to(dtype), ck, cv, n_heads,
-                              self_mask, mask2, merged_fast, policy)
+            _cache_write(cache, "k", i, pos_offset, k)
+            _cache_write(cache, "v", i, pos_offset, v)
+            x = _cached_layer(lp, x, h, _cache_read(cache, "k", i, dtype),
+                              _cache_read(cache, "v", i, dtype), ck, cv,
+                              n_heads, self_mask, mask2, merged_fast, policy)
 
     y = layer_norm(params["ln"], x)
-    # fp32 logits (the tied embedding, fp32 accumulation) as in JAX
-    logits = torch.matmul(y.float(), params["tok_emb"].float().T)
+    if "tok_emb_q" in params and b >= 8:
+        # int8 logits (cfg.quantize_lm_head), gated on the batch as in JAX
+        # so that prefill and steps of one generation share numerics
+        logits = _int8_logits(params, y)
+    else:
+        # fp32 logits (the tied embedding, fp32 accumulation) as in JAX
+        logits = torch.matmul(y.float(), params["tok_emb"].float().T)
     return logits, cache

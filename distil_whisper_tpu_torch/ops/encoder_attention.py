@@ -14,8 +14,8 @@ and runs :func:`encoder_attention_plain` for CPU tensors; anything else
 raises.  ``encoder_attention.launches`` counts kernel launches.
 
 Not ported: the TPU-only ``exp_impl`` and ``fused_qkv`` knobs (measured dead
-on the TPU); the int8 and QAT branches of ``fused_self_attention`` come with
-the int8 slice; the backward (einsum recompute) comes with training.
+on the TPU); the QAT branch of ``fused_self_attention`` and the backward
+(einsum recompute) come with training.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import math
 import torch
 
 from . import _build
+from .quant import dense_int8, quantize_acts
 
 
 def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -117,15 +118,26 @@ def fused_self_attention(p_attn, x_ln: torch.Tensor, n_heads: int,
     the out-projection reads [B, T, d_model] with no copy."""
     b, t, dm = x_ln.shape
     d = dm // n_heads
+    quantized = "kernel_q" in p_attn["q"]
+    if quantized:
+        # W8A8 (ops/quant.py): one activation quantization shared by q/k/v
+        xq, xs = quantize_acts(x_ln)
 
     def proj(p):
-        y = torch.matmul(x_ln, p["kernel"].to(x_ln.dtype))
-        if "bias" in p:
-            y = y + p["bias"].to(y.dtype)
+        if quantized:
+            y = dense_int8(p, x_ln, xq, xs)
+        else:
+            y = torch.matmul(x_ln, p["kernel"].to(x_ln.dtype))
+            if "bias" in p:
+                y = y + p["bias"].to(y.dtype)
         return y.view(b, t, n_heads, d).transpose(1, 2)          # [B, H, T, D]
 
     a = encoder_attention(proj(p_attn["q"]), proj(p_attn["k"]),
                           proj(p_attn["v"]), t_real)
     a = a.transpose(1, 2).reshape(b, t, dm)
+    if quantized:
+        # JAX scales the out-projection's input per (b, t) over (h, k): the
+        # same elements as a per-row scale of the merged [B, T, d] row
+        return dense_int8(p_attn["out"], a)
     y = torch.matmul(a, p_attn["out"]["kernel"].to(a.dtype))
     return y + p_attn["out"]["bias"].to(y.dtype)

@@ -10,6 +10,9 @@ chunks are batched together; rows are independent) and returns one result
 per file.  JAX pads a ragged last batch to its compiled shape; PyTorch runs
 the rows that exist.
 
+With ``cfg.quantize_*`` set it runs the int8 lane: W8A8 encoder and
+decoder projections, int8 self-KV cache and cross K/V, int8 logits.
+
 Not in this slice: the device mesh, beam search, word timestamps and
 speculative decoding.
 """
@@ -28,6 +31,7 @@ from .device import resolve_device
 from .generation import GenerationOptions, encode_and_generate
 from .models import load_params
 from .models.whisper import cross_kv, decode, encode, init_cache
+from .ops.quant import maybe_quantize_encoder
 from .tokenizer import WhisperTokenizer
 
 
@@ -43,11 +47,10 @@ class WhisperPipeline:
         if params is None or cfg is None:
             params, cfg = load_params(checkpoint, cfg, dtype=dtype,
                                       device=self.device)
-        if (cfg.quantize_encoder or cfg.quantize_decoder
-                or cfg.quantize_lm_head or cfg.quantize_cross_kv
-                or cfg.quantize_self_kv):
-            raise NotImplementedError("int8 inference comes with the int8 "
-                                      "slice of the port")
+        # the int8 lane (cfg.quantize_*): weights are quantized once here;
+        # the cache and cross-K/V flags reach init_cache and cross_kv
+        # through cfg
+        params = maybe_quantize_encoder(params, cfg)
         if dtype == torch.bfloat16:
             cfg = cfg.replace(fast_bf16_attention=True, use_flash_encoder=True)
         self.params = params

@@ -3,14 +3,18 @@
 
     python3 scripts/torch_profile_main_path.py [--batch 16] [--max-new 128]
                                                [--trace-dir profile_traces]
+                                               [--int8]
 
 distil-large-v3 at full width, random weights from a seed, bf16, a batch of
-30 s synthetic windows, greedy with a fixed token budget.  The stages of
-``WhisperPipeline`` run one by one, each warm and then once under
-``torch.profiler`` (CPU + CUDA):
+30 s synthetic windows, greedy with a fixed token budget.  ``--int8`` sets
+all five ``quantize_*`` flags (W8A8 encoder and decoder, int8 self-KV and
+cross K/V, int8 logits), quantizing the weights as ``WhisperPipeline``
+does.  The stages of ``WhisperPipeline`` run one by one, each warm and then
+once under ``torch.profiler`` (CPU + CUDA):
 
     mel       compute_mel (the fused CUDA log-mel kernel)
-    encode    models.whisper.encode (the CUDA encoder-attention kernel)
+    encode    models.whisper.encode (the CUDA encoder-attention kernel; with
+              --int8 also the int8 MLP kernel)
     cross_kv  models.whisper.cross_kv
     generate  generation.generate (prefill + cached greedy steps)
 
@@ -67,6 +71,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=128)
     ap.add_argument("--trace-dir", default=str(ROOT / "profile_traces"))
+    ap.add_argument("--int8", action="store_true",
+                    help="the int8 lane: all five quantize_* flags")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -80,6 +86,7 @@ def main() -> int:
     from distil_whisper_tpu_torch.models import init_params
     from distil_whisper_tpu_torch.models import whisper as W
     from distil_whisper_tpu_torch.ops import _build
+    from distil_whisper_tpu_torch.ops.quant import maybe_quantize_encoder
 
     _build.build_all()
     out_dir = Path(args.trace_dir)
@@ -88,6 +95,11 @@ def main() -> int:
     cfg = PRESETS["distil-large-v3"].replace(fast_bf16_attention=True,
                                              use_flash_encoder=True)
     params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+    if args.int8:
+        cfg = cfg.replace(quantize_encoder=True, quantize_decoder=True,
+                          quantize_lm_head=True, quantize_cross_kv=True,
+                          quantize_self_kv=True)
+        params = maybe_quantize_encoder(params, cfg)
     rng = np.random.default_rng(1)
     wavs = (0.1 * rng.standard_normal((args.batch, cfg.n_samples))
             ).astype(np.float32)
@@ -114,6 +126,7 @@ def main() -> int:
 
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "torch": torch.__version__, "batch": args.batch,
+                      "int8": args.int8,
                       "max_new_tokens": args.max_new}), flush=True)
     with torch.no_grad():
         for name, fn in (("mel", mel), ("encode", encode),

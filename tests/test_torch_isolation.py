@@ -112,3 +112,15 @@ def test_kernel_wrappers_refuse_other_devices():
         encoder_attention(meta, meta, meta, 128)
     with pytest.raises(ValueError, match="unsupported device"):
         log10_mel_fused(torch.empty((1, 16000), device="meta"), 80)
+    from distil_whisper_tpu_torch.ops.int8_decode_attention import (
+        int8_decode_attention)
+    from distil_whisper_tpu_torch.ops.int8_mlp import fused_int8_mlp
+    fc = {"kernel_q": torch.empty((128, 512), dtype=torch.int8, device="meta"),
+          "kernel_scale": torch.empty((1, 512), device="meta")}
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_int8_mlp(fc, fc, torch.empty((300, 128), device="meta"))
+    kv = torch.empty((1, 64, 128), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_decode_attention(torch.empty((1, 128), device="meta"), kv,
+                              torch.empty((1, 2), device="meta"), kv,
+                              torch.empty((1, 2), device="meta"), 2)
