@@ -8,7 +8,11 @@
    ptxas resource report.
 2. Holds every kernel against its plain PyTorch version on the card at the
    shapes of the main path (TF32 off), and times kernel, plain version, the
-   bound of the card and one PyTorch library call as a yardstick.
+   bound of the card and one PyTorch library call as a yardstick (CUDA
+   events around back-to-back launches).  Encoder attention is held and
+   timed both contiguous and as the main path's [B, H, T, 64] views of
+   [B, T, 1280] projections, and held on ragged shapes (T 1536 with 1500
+   live keys; B 3, H 5, T 200, 77 live keys).
 3. Drives the main path at the full width of distil-large-v3 (random weights
    from a seed, bf16): a ``WhisperPipeline`` transcribes a batch of 16
    synthetic 30 s windows short-form (greedy, 128-token budget), again for
@@ -59,21 +63,25 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 3) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``reps`` calls
+    launched back to back, so that the host's launch work overlaps the
+    device's, over ``reps``; the median of ``rounds`` such runs, after
+    warm-up."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -125,7 +133,7 @@ def phase_build():
     _build.build_all()
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if any(w in ln for w in ("registers", "spill", "arning"))]
              for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": round(seconds, 3),
           "sources": list(_build.SOURCES), "ptxas": ptxas})
@@ -136,9 +144,12 @@ def phase_kernels():
     import torch
     from distil_whisper_tpu_torch.audio import mel_kernel
     from distil_whisper_tpu_torch.audio.mel import compress, whisper_mel_filters
-    from distil_whisper_tpu_torch.ops import encoder_attention as ea
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
+
+    def add(row):
+        rows.append(row)
+        emit({"phase": "kernel", **row})
 
     # -- fused log-mel: 16 x 30 s windows, 128 mels ------------------------
     b, n, m = 16, 480000, 128
@@ -161,37 +172,75 @@ def phase_kernels():
         power = spec[..., :-1].abs() ** 2
         return torch.log10(torch.clamp(filters.T @ power, min=1e-10))
 
+    # the kernel's work: the folded DFT (201 bins x 199 folded rows, re and
+    # im, a frame) and the mel projection over each 8-mel group's band of
+    # nonzero filter rows; the dense DFT and dense projection beside it
     frames = n // 160
-    ops = b * frames * (2 * 402 * 400 + 2 * 201 * m)
-    n_bytes = 4 * (b * n + 402 * 400 + 201 * m + b * m * frames)
+    bands = mel_kernel.filter_bands(whisper_mel_filters(m))
+    band_rows = int((bands[:, 1] - bands[:, 0]).sum())
+    ops = b * frames * (2 * 2 * 201 * 199 + 2 * 8 * band_rows)
+    ops_dense = b * frames * (2 * 402 * 400 + 2 * 201 * m)
+    n_bytes = 4 * (b * n + 2 * 200 * 201 + 201 * m + b * m * frames)
     bound_ms, bound_by = bound(n_bytes, ops, FP32_CUDA_CORE)
-    rows.append({
+    ms = cuda_ms(lambda: mel_kernel.log10_mel_fused(audio, m))
+    add({
         "name": "log_mel", "route": "cuda",
         "source": "distil_whisper_tpu_torch/csrc/mel.cu",
         "replaces": "distil_whisper_tpu/audio/mel_pallas.py:34",
         "max_abs_err": err, "max_abs_err_log10": err_raw, "tolerance": 2e-4,
-        "ms": cuda_ms(lambda: mel_kernel.log10_mel_fused(audio, m)),
+        "ms": ms, "tflops": ops / ms / 1e9,
         "plain_ms": cuda_ms(lambda: mel_kernel.log10_mel_plain(audio, m)),
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms_dense": bound(n_bytes, ops_dense, FP32_CUDA_CORE)[0],
         "library_ms": cuda_ms(library_mel), "shape": [b, n, m]})
     del audio, out, ref
 
-    # -- encoder attention: (16, 20, 1500, 64) bf16, t_real 1500 -------------
-    b, h, t, d = 16, 20, 1500, 64
-    q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    out = ea.encoder_attention(q, k, v, t)
-    ref = ea.encoder_attention_plain(q, k, v, t)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    # Both round the same fp32 result to bf16, but the kernel's online
-    # softmax rounds p to bf16 against a running max and sums in another
-    # order: a few bf16 ulps (2^-8 relative) apart, inside atol/rtol 1e-2.
-    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
-    del ref
-    torch.cuda.empty_cache()
+    add(kernel_row_encoder_attention(gen))
+    add(kernel_row_int8_mlp(gen))
+    add(kernel_row_int8_decode_attention(gen))
+    return rows
 
-    def library_attention():
+
+def kernel_row_encoder_attention(gen):
+    """Encoder attention at (16, 20, 1500, 64) bf16 in two layouts:
+    contiguous [B, H, T, 64], and the main path's [B, H, T, 64] views of
+    three [B, T, 1280] projections; plus ragged cases against the plain
+    version (T 1536 with 1500 live keys, as the JAX package pads, and a
+    small odd shape), which hold TMA's zero fill and the -inf key mask of
+    partial tiles."""
+    import torch
+    from distil_whisper_tpu_torch.ops import encoder_attention as ea
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def check(q, k, v, t_real):
+        out = ea.encoder_attention(q, k, v, t_real)
+        ref = ea.encoder_attention_plain(q, k, v, t_real)
+        torch.cuda.synchronize()
+        # Both round the same fp32 result to bf16, but the kernel's online
+        # softmax rounds p to bf16 against a running max and sums in another
+        # order: a few bf16 ulps (2^-8 relative) apart, inside atol/rtol 1e-2.
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+        err = (out.float() - ref.float()).abs().max().item()
+        del out, ref
+        torch.cuda.empty_cache()
+        return err
+
+    b, h, t, d = 16, 20, 1500, 64
+    q, k, v = (rand(b, h, t, d) for _ in range(3))
+    err = check(q, k, v, t)
+    qm, km, vm = (rand(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+                  for _ in range(3))
+    err_main = check(qm, km, vm, t)
+    ragged = []
+    for shape, t_real in (((16, 20, 1536, 64), 1500), ((3, 5, 200, 64), 77)):
+        qr, kr, vr = (rand(*shape) for _ in range(3))
+        ragged.append({"shape": list(shape), "t_real": t_real,
+                       "max_abs_err": check(qr, kr, vr, t_real)})
+        del qr, kr, vr
+
+    def sdpa(q, k, v):
         # all 1500 keys are live (t_real == T), so the key mask is all-true
         # and SDPA may take its fastest backend
         return torch.nn.functional.scaled_dot_product_attention(q, k, v)
@@ -199,22 +248,24 @@ def phase_kernels():
     ops = 4 * b * h * t * t * d
     n_bytes = 4 * b * h * t * d * 2
     bound_ms, bound_by = bound(n_bytes, ops, BF16_TENSOR)
-    rows.append({
+    ms = cuda_ms(lambda: ea.encoder_attention(q, k, v, t))
+    ms_main = cuda_ms(lambda: ea.encoder_attention(qm, km, vm, t))
+    row = {
         "name": "encoder_attention", "route": "cuda",
         "source": "distil_whisper_tpu_torch/csrc/encoder_attention.cu",
         "replaces": "distil_whisper_tpu/ops/encoder_attention.py:57",
         "max_abs_err": err, "tolerance": 1e-2,
-        "ms": cuda_ms(lambda: ea.encoder_attention(q, k, v, t)),
+        "ms": ms, "tflops": ops / ms / 1e9,
         "plain_ms": cuda_ms(lambda: ea.encoder_attention_plain(q, k, v, t)),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": cuda_ms(library_attention), "shape": [b, h, t, d]})
-    del q, k, v, out
+        "library_ms": cuda_ms(lambda: sdpa(q, k, v)),
+        "ms_main_layout": ms_main, "tflops_main_layout": ops / ms_main / 1e9,
+        "library_ms_main_layout": cuda_ms(lambda: sdpa(qm, km, vm)),
+        "max_abs_err_main_layout": err_main, "ragged": ragged,
+        "shape": [b, h, t, d]}
+    del q, k, v, qm, km, vm
     torch.cuda.empty_cache()
-    rows.append(kernel_row_int8_mlp(gen))
-    rows.append(kernel_row_int8_decode_attention(gen))
-    for row in rows:
-        emit({"phase": "kernel", **row})
-    return rows
+    return row
 
 
 def kernel_row_int8_mlp(gen):

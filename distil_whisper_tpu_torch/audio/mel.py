@@ -101,6 +101,29 @@ def stft_basis(n_fft: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
+def folded_stft_basis(n_fft: int) -> np.ndarray:
+    """The windowed DFT basis folded on the window's symmetry:
+    ``(2, n_fft//2, n_freq)``, [cos rows ; -sin rows] over k.
+
+    The periodic Hann window has w[n] = w[n_fft - n] and w[0] = 0, so with
+    a[n] = x[n] + x[n_fft - n] and d[n] = x[n] - x[n_fft - n] the real and
+    imaginary parts of a frame's DFT are ``a' @ basis[0]`` and
+    ``d' @ basis[1]``, where row 0 of both operands is the middle sample
+    x[n_fft/2] (row 0 of the basis is column n_fft/2 of :func:`stft_basis`)
+    and row n = 1 .. n_fft/2 - 1 is a[n] or d[n].  Half the multiply-adds of
+    the dense basis; built in float64 and cast to float32, as
+    :func:`stft_basis`.
+    """
+    half = n_fft // 2
+    n = np.concatenate([[half], np.arange(1, half)]).astype(np.float64)
+    k = np.arange(half + 1, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * n[:, None] * k / n_fft
+    win = hann_window(n_fft).astype(np.float64)[n.astype(np.int64), None]
+    basis = np.stack([np.cos(ang), -np.sin(ang)]) * win[None]
+    return basis.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
 def whisper_mel_filters(num_mel_bins: int, n_fft: int = 400,
                         sampling_rate: int = 16000) -> np.ndarray:
     """The exact filter bank Whisper uses: 0..8 kHz, slaney/slaney. (201, n_mels)."""

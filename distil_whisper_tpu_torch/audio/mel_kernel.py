@@ -4,7 +4,10 @@ The kernel (``csrc/mel.cu``) replaces the Pallas TPU kernel of
 ``distil_whisper_tpu/audio/mel_pallas.py``: framing -> windowed-DFT -> power
 -> mel projection -> log10 in one pass, so neither the [T, 400] frame matrix
 nor the [T, 402] spectrum reaches device memory.  The per-sample max clamp and
-(x+4)/4 scaling are a cheap epilogue (``mel.compress``), as in JAX.
+(x+4)/4 scaling are a cheap epilogue (``mel.compress``), as in JAX.  The
+kernel folds the DFT on the Hann window's symmetry (``mel.folded_stft_basis``)
+and multiplies each group of 8 mel filters over its band of nonzero bins only
+(:func:`filter_bands`): the same function as the plain version.
 
 :func:`log10_mel_fused` launches the kernel for a CUDA tensor and runs
 :func:`log10_mel_plain` (the same arithmetic in plain PyTorch) for a CPU
@@ -17,14 +20,17 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..config import WhisperConfig
 from ..ops import _build
-from .mel import compress, pad_or_trim, stft_basis, whisper_mel_filters
+from .mel import (compress, folded_stft_basis, pad_or_trim, stft_basis,
+                  whisper_mel_filters)
 
 _N_FFT = 400
 _HOP = 160
+_BINS_PADDED = 208          # the kernel's 201 bins in 26 groups of 8
 
 
 def log10_mel_plain(audio: torch.Tensor, num_mel_bins: int, n_fft: int = 400,
@@ -50,20 +56,36 @@ def log10_mel_plain(audio: torch.Tensor, num_mel_bins: int, n_fft: int = 400,
     return torch.log10(torch.clamp(mel, min=1e-10)).transpose(1, 2)
 
 
+def filter_bands(filters: np.ndarray, group: int = 8) -> np.ndarray:
+    """``[n_mels // group, 2]`` int32: for each group of ``group`` mel
+    filters, the half-open range of bins where any of them is nonzero (the
+    kernel multiplies over these rows only; the others add exact zeros)."""
+    n_bins, n_mels = filters.shape
+    nz = filters.reshape(n_bins, n_mels // group, group).any(axis=2)  # [bin, g]
+    lo = np.where(nz.any(axis=0), nz.argmax(axis=0), 0)
+    hi = np.where(nz.any(axis=0), n_bins - nz[::-1].argmax(axis=0), 0)
+    return np.stack([lo, hi], axis=1).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=8)
 def _device_constants(num_mel_bins: int, device: torch.device):
-    """(basis transposed to [400, 402], filters [201, n_mels]) on ``device``:
-    the transpose makes the kernel's per-bin basis reads coalesced."""
-    basis_t = torch.from_numpy(stft_basis(_N_FFT).T.copy()).to(device)
-    filters = torch.from_numpy(whisper_mel_filters(num_mel_bins)).to(device)
-    return basis_t, filters
+    """(folded basis [2, 200, 208], filters [201, n_mels], bands
+    [n_mels / 8, 2]) on ``device``: the basis's 201 bins are padded with
+    zero columns to 26 groups of 8."""
+    folded = folded_stft_basis(_N_FFT)
+    basis = np.zeros(folded.shape[:2] + (_BINS_PADDED,), np.float32)
+    basis[..., :folded.shape[2]] = folded
+    filters = whisper_mel_filters(num_mel_bins)
+    return (torch.from_numpy(basis).to(device),
+            torch.from_numpy(filters).to(device),
+            torch.from_numpy(filter_bands(filters)).to(device))
 
 
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = _build.load("mel")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dw_log_mel.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.dw_log_mel.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.dw_log_mel.restype = ctypes.c_int
     return lib
 
@@ -81,14 +103,17 @@ def log10_mel_fused(audio: torch.Tensor, num_mel_bins: int) -> torch.Tensor:
     if audio.shape[1] <= _N_FFT // 2:
         raise ValueError("log10_mel_fused: reflect padding needs more than "
                          f"{_N_FFT // 2} samples")
+    if num_mel_bins % 8:
+        raise ValueError("log10_mel_fused: the kernel takes a multiple of 8 "
+                         f"mel bins, got {num_mel_bins}")
     audio = audio.contiguous()
     b, n = audio.shape
     n_frames = n // _HOP
-    basis_t, filters = _device_constants(num_mel_bins, audio.device)
+    basis, filters, bands = _device_constants(num_mel_bins, audio.device)
     out = torch.empty((b, num_mel_bins, n_frames), dtype=torch.float32,
                       device=audio.device)
     err = _lib().dw_log_mel(
-        audio.data_ptr(), basis_t.data_ptr(), filters.data_ptr(),
+        audio.data_ptr(), basis.data_ptr(), filters.data_ptr(), bands.data_ptr(),
         out.data_ptr(), b, n, n_frames, num_mel_bins,
         torch.cuda.current_stream(audio.device).cuda_stream)
     if err != 0:

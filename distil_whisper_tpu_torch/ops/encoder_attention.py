@@ -6,8 +6,10 @@ The kernel (``csrc/encoder_attention.cu``) replaces the Pallas TPU kernel of
 never writes the [B, H, T, T] logits or probabilities to device memory.  It
 streams keys with an online softmax (the TPU kernel held a whole score row in
 VMEM; a block's shared memory cannot), so it computes the same function with
-different rounding.  It takes the real length T and masks the ragged edges
-itself: ``encode`` needs no pad-to-block copy.
+different rounding.  It loads q/k/v by TMA through 4-D tensor maps whose
+geometry :func:`_tma_geometry` computes from the caller's strides, so it
+takes the real length T (TMA zero-fills the ragged edge) and [B, H, T, 64]
+views of [B, T, H*64] projections: ``encode`` needs no pad or copy.
 
 :func:`encoder_attention` launches the kernel for CUDA tensors (bf16 only)
 and runs :func:`encoder_attention_plain` for CPU tensors; anything else
@@ -59,6 +61,27 @@ def _lib():
     return lib
 
 
+def _tma_geometry(x: torch.Tensor):
+    """``(dims, byte_strides)`` of the 4-D tensor map through which the
+    kernel loads ``x`` [B, H, T, D]: dims ``(D, T, H, B)``, innermost first,
+    and the byte strides of T, H and B.  Raises ``ValueError`` on a layout
+    TMA cannot take (D not unit-stride, a base or a stride that is not a
+    multiple of 16 bytes)."""
+    if x.ndim != 4:
+        raise ValueError(f"encoder_attention: want [B, H, T, D], got "
+                         f"{tuple(x.shape)}")
+    b, h, t, d = x.shape
+    size = x.element_size()
+    strides = (x.stride(2) * size, x.stride(1) * size, x.stride(0) * size)
+    if x.stride(3) != 1 or x.data_ptr() % 16 or any(
+            s % 16 or not 0 < s < 2 ** 40 for s in strides):
+        raise ValueError("encoder_attention: TMA needs unit stride along D, "
+                         "a 16-byte aligned base and T/H/B strides that are "
+                         f"multiples of 16 bytes; got strides {x.stride()} "
+                         f"(elements), base {x.data_ptr():#x}")
+    return (d, t, h, b), strides
+
+
 def _check_operand(name: str, x: torch.Tensor, shape) -> None:
     if x.dtype != torch.bfloat16:
         raise ValueError(f"encoder_attention kernel takes bf16, got {name} "
@@ -66,10 +89,6 @@ def _check_operand(name: str, x: torch.Tensor, shape) -> None:
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"encoder_attention: {name} shape {tuple(x.shape)} "
                          f"!= {tuple(shape)}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) \
-            or x.data_ptr() % 16:
-        raise ValueError(f"encoder_attention: {name} needs unit stride along "
-                         "D, 16-byte aligned rows and base")
 
 
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,12 +110,12 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"encoder_attention: {name} on {x.device}")
         _check_operand(name, x, q.shape)
     out = torch.empty_like(q)
-    _check_operand("out", out, q.shape)
+    strides = [s for x in (q, k, v, out) for s in _tma_geometry(x)[1]]
     scale_log2 = d ** -0.5 * math.log2(math.e)
     err = _lib().dw_encoder_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t,
-        t_real, scale_log2, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream)
+        t_real, scale_log2, *strides,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder attention kernel launch failed "
                            f"(cudaError {err})")

@@ -70,6 +70,38 @@ def test_plain_version_casts_unnormalised_probs():
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
 
 
+def test_tma_geometry_contiguous():
+    x = torch.empty(2, 3, 50, 64, dtype=torch.bfloat16)
+    dims, strides = tenc._tma_geometry(x)
+    assert dims == (64, 50, 3, 2)
+    assert strides == (128, 50 * 128, 3 * 50 * 128)
+
+
+def test_tma_geometry_projection_view():
+    """The main path hands the kernel [B, H, T, 64] views of [B, T, H*64]
+    projections: T advances by a whole projection row."""
+    y = torch.empty(2, 50, 20 * 64, dtype=torch.bfloat16)
+    x = y.view(2, 50, 20, 64).transpose(1, 2)
+    dims, strides = tenc._tma_geometry(x)
+    assert dims == (64, 50, 20, 2)
+    assert strides == (2560, 128, 50 * 2560)
+    assert tenc._tma_geometry(torch.empty_like(x))[1] == strides
+
+
+@pytest.mark.parametrize("layout", ["base", "t_stride", "d_stride"])
+def test_tma_geometry_rejects_what_tma_cannot_take(layout):
+    if layout == "base":          # base 2 bytes past a 16-byte boundary
+        x = torch.empty(2 * 3 * 50 * 64 + 1, dtype=torch.bfloat16)[1:]
+        x = x.view(2, 3, 50, 64)
+    elif layout == "t_stride":    # rows 392 bytes apart
+        buf = torch.empty(2 * 50 * 196, dtype=torch.bfloat16)
+        x = buf.as_strided((2, 3, 50, 64), (50 * 196, 64, 196, 1))
+    else:                         # D not contiguous
+        x = torch.empty(2, 3, 64, 64, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="TMA"):
+        tenc._tma_geometry(x)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_mha_matches_jax(causal):
     rng = np.random.default_rng(5)

@@ -69,3 +69,67 @@ def test_fused_wrapper_on_cpu_is_plain_version():
         mel_kernel.log10_mel_fused(audio, 80).numpy(),
         mel_kernel.log10_mel_plain(audio, 80).numpy())
     assert mel_kernel.log10_mel_fused.launches == 0
+
+
+def test_folded_basis_reproduces_dense_dft():
+    """The folded basis (the CUDA kernel's DFT) gives the dense basis's
+    re/im of random frames, in float64 up to rounding."""
+    folded = tmel.folded_stft_basis(400).astype(np.float64)
+    dense = tmel.stft_basis(400).astype(np.float64)
+    assert folded.shape == (2, 200, 201)
+    x = np.random.default_rng(3).standard_normal((64, 400))
+    n = np.arange(1, 200)
+    mid = x[:, 200:201]
+    a = np.concatenate([mid, x[:, n] + x[:, 400 - n]], axis=1)
+    d = np.concatenate([mid, x[:, n] - x[:, 400 - n]], axis=1)
+    spec = x @ dense.T
+    np.testing.assert_allclose(a @ folded[0], spec[:, :201], rtol=0, atol=1e-10)
+    np.testing.assert_allclose(d @ folded[1], spec[:, 201:], rtol=0, atol=1e-10)
+
+
+def _log10_mel_folded(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """The kernel's formulation in float32: fold each frame on the window's
+    symmetry, then two products with the folded basis."""
+    n_frames = audio.shape[-1] // 160
+    x = torch.nn.functional.pad(audio[:, None], (200, 200), mode="reflect")[:, 0]
+    frames = x.unfold(-1, 400, 160)[:, :n_frames]
+    n = torch.arange(1, 200)
+    mid = frames[..., 200:201]
+    a = torch.cat([mid, frames[..., n] + frames[..., 400 - n]], dim=-1)
+    d = torch.cat([mid, frames[..., n] - frames[..., 400 - n]], dim=-1)
+    basis = torch.from_numpy(tmel.folded_stft_basis(400))
+    power = (a @ basis[0]) ** 2 + (d @ basis[1]) ** 2
+    mel = power @ torch.from_numpy(tmel.whisper_mel_filters(n_mels))
+    return torch.log10(torch.clamp(mel, min=1e-10)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_folded_log_mel_matches_plain(n_mels):
+    """In float32, log-mel through the folded DFT is within the kernel's
+    tolerance (2e-4 after compress) of the plain version's dense DFT."""
+    rng = np.random.default_rng(5)
+    audio = torch.from_numpy(
+        (0.2 * rng.standard_normal((2, 5 * 16000))).astype(np.float32))
+    ours = tmel.compress(_log10_mel_folded(audio, n_mels))
+    ref = tmel.compress(mel_kernel.log10_mel_plain(audio, n_mels))
+    assert ours.shape == ref.shape == (2, n_mels, 500)
+    torch.testing.assert_close(ours, ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_filter_bands_cover_every_nonzero_weight(n_mels):
+    """The kernel multiplies each group of 8 mels over its band of bins only:
+    every weight outside the band is zero, and the band's ends are not."""
+    filters = tmel.whisper_mel_filters(n_mels)
+    bands = mel_kernel.filter_bands(filters)
+    assert bands.shape == (n_mels // 8, 2) and bands.dtype == np.int32
+    for g, (lo, hi) in enumerate(bands):
+        block = filters[:, 8 * g:8 * g + 8]
+        assert 0 <= lo < hi <= filters.shape[0]
+        assert not block[:lo].any() and not block[hi:].any()
+        assert block[lo].any() and block[hi - 1].any()
+    # band-limited products are the dense products
+    power = np.random.default_rng(7).random((6, filters.shape[0])).astype(np.float32)
+    banded = np.concatenate([power[:, lo:hi] @ filters[lo:hi, 8 * g:8 * g + 8]
+                             for g, (lo, hi) in enumerate(bands)], axis=1)
+    np.testing.assert_allclose(banded, power @ filters, rtol=1e-6, atol=0)
