@@ -9,10 +9,15 @@
 2. Holds every kernel against its plain PyTorch version on the card at the
    shapes of the main path (TF32 off), and times kernel, plain version, the
    bound of the card and one PyTorch library call as a yardstick (CUDA
-   events around back-to-back launches).  Encoder attention is held and
+   events around back-to-back launches; for decode attention, around the
+   replay of a CUDA graph of 20 calls, since at tens of microseconds the
+   host's launch work would be timed).  Encoder attention is held and
    timed both contiguous and as the main path's [B, H, T, 64] views of
    [B, T, 1280] projections, and held on ragged shapes (T 1536 with 1500
-   live keys; B 3, H 5, T 200, 77 live keys).
+   live keys; B 3, H 5, T 200, 77 live keys); the int8 MLP also at one
+   window (1500 rows) and at the gate's 300 rows; decode attention also at
+   T 32 and 8192 and with one mask row for the batch.  Each row carries
+   its source's ptxas report.
 3. Drives the main path at the full width of distil-large-v3 (random weights
    from a seed, bf16): a ``WhisperPipeline`` transcribes a batch of 16
    synthetic 30 s windows short-form (greedy, 128-token budget), again for
@@ -85,6 +90,39 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 3) -> float:
     return statistics.median(times)
 
 
+def cuda_graph_ms(fn, reps: int = 20, rounds: int = 3) -> float:
+    """Device time of one call of ``fn`` without the host's launch work:
+    ``reps`` calls captured in one CUDA graph, the graph replayed between
+    CUDA events, over ``reps``; the median of ``rounds`` replays, after
+    warm-up.  For kernels of tens of microseconds, where back-to-back
+    launches from Python would time the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes, t_ops = n_bytes / MEM_BW * 1e3, n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -133,7 +171,8 @@ def phase_build():
     _build.build_all()
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if any(w in ln for w in ("registers", "spill", "arning"))]
+                    if any(w in ln for w in ("registers", "spill", "arning",
+                                             "Performance"))]
              for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": round(seconds, 3),
           "sources": list(_build.SOURCES), "ptxas": ptxas})
@@ -192,7 +231,8 @@ def phase_kernels():
         "plain_ms": cuda_ms(lambda: mel_kernel.log10_mel_plain(audio, m)),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_ms_dense": bound(n_bytes, ops_dense, FP32_CUDA_CORE)[0],
-        "library_ms": cuda_ms(library_mel), "shape": [b, n, m]})
+        "library_ms": cuda_ms(library_mel), "shape": [b, n, m],
+        "ptxas": ptxas_report("mel")})
     del audio, out, ref
 
     add(kernel_row_encoder_attention(gen))
@@ -262,15 +302,26 @@ def kernel_row_encoder_attention(gen):
         "ms_main_layout": ms_main, "tflops_main_layout": ops / ms_main / 1e9,
         "library_ms_main_layout": cuda_ms(lambda: sdpa(qm, km, vm)),
         "max_abs_err_main_layout": err_main, "ragged": ragged,
-        "shape": [b, h, t, d]}
+        "shape": [b, h, t, d], "ptxas": ptxas_report("encoder_attention")}
     del q, k, v, qm, km, vm
     torch.cuda.empty_cache()
     return row
 
 
+def ptxas_report(source: str):
+    """The ptxas lines (registers, shared memory, spills) of one source's
+    build in this process."""
+    from distil_whisper_tpu_torch.ops import _build
+    return [ln.strip() for ln in _build.build_logs.get(source, "").splitlines()
+            if any(w in ln for w in ("registers", "spill", "smem", "arning",
+                                     "Performance"))]
+
+
 def kernel_row_int8_mlp(gen):
-    """The fused W8A8 MLP at the encoder's shape: 16 x 1500 rows, d 1280,
-    ffn 5120, bf16 x, int8 weights quantized by the port."""
+    """The fused W8A8 MLP at the encoder's shape (16 x 1500 rows, d 1280,
+    ffn 5120, bf16 x, int8 weights quantized by the port), and held on one
+    window (1500 rows) and at the gate's minimum (300 rows: ragged to every
+    tile)."""
     import torch
     import torch.nn.functional as F
     from distil_whisper_tpu_torch.ops import int8_mlp
@@ -284,17 +335,24 @@ def kernel_row_int8_mlp(gen):
     fc1 = quantize_dense({"kernel": rand(d, f, std=0.03), "bias": rand(f, std=0.01)})
     fc2 = quantize_dense({"kernel": rand(f, d, std=0.03), "bias": rand(d, std=0.01)})
     x = rand(m, d, std=1.0).to(torch.bfloat16)
-    out = int8_mlp.fused_int8_mlp(fc1, fc2, x)
-    ref = int8_mlp.fused_int8_mlp_plain(fc1, fc2, x)
-    torch.cuda.synchronize()
-    diff = out.float() - ref.float()
-    err, rel = diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
-    # integer products are exact and the fp32 epilogues round as the plain
-    # version's; expf's last ulp can still move a requantization quantum,
-    # and a moved quantum can move a bf16 rounding of the output
-    if not (rel <= 1e-3 and torch.isfinite(out).all()):
-        raise AssertionError(f"int8 MLP kernel disagrees: relative L2 {rel}")
-    del out, ref, diff
+
+    def check(xr):
+        out = int8_mlp.fused_int8_mlp(fc1, fc2, xr)
+        ref = int8_mlp.fused_int8_mlp_plain(fc1, fc2, xr)
+        torch.cuda.synchronize()
+        diff = out.float() - ref.float()
+        err, rel = diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
+        # integer products are exact and the fp32 epilogues round as the
+        # plain version's; expf's last ulp can still move a requantization
+        # quantum, and a moved quantum can move a bf16 rounding of the output
+        if not (rel <= 1e-3 and torch.isfinite(out).all()):
+            raise AssertionError(f"int8 MLP kernel disagrees at M "
+                                 f"{xr.shape[0]}: relative L2 {rel}")
+        return err, rel
+
+    err, rel = check(x)
+    shapes = [{"m": mr, **dict(zip(("max_abs_err", "rel_l2_err"), check(x[:mr])))}
+              for mr in (1500, 300)]
 
     def library_mlp():
         # the unfused composition the port runs where the kernel does not:
@@ -309,12 +367,13 @@ def kernel_row_int8_mlp(gen):
     ops = 4 * m * d * f
     n_bytes = 2 * m * d * 2 + 2 * d * f + 4 * 2 * (f + d)
     bound_ms, bound_by = bound(n_bytes, ops, INT8_TENSOR)
+    ms = cuda_ms(lambda: int8_mlp.fused_int8_mlp(fc1, fc2, x))
     row = {
         "name": "int8_mlp", "route": "cuda",
         "source": "distil_whisper_tpu_torch/csrc/int8_mlp.cu",
         "replaces": "distil_whisper_tpu/ops/int8_mlp.py:55",
         "max_abs_err": err, "rel_l2_err": rel, "tolerance": "rel_l2 1e-3",
-        "ms": cuda_ms(lambda: int8_mlp.fused_int8_mlp(fc1, fc2, x)),
+        "ms": ms, "tops": ops / ms / 1e9, "bound_share": bound_ms / ms,
         "plain_ms": cuda_ms(lambda: int8_mlp.fused_int8_mlp_plain(fc1, fc2, x),
                             reps=3, warmup=1),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -325,7 +384,8 @@ def kernel_row_int8_mlp(gen):
         "int_mm_fc1_ms": {
             "output_major": cuda_ms(lambda: torch._int_mm(xq, fc1["kernel_q"])),
             "row_major": cuda_ms(lambda: torch._int_mm(xq, w1_row_major))},
-        "shape": [m, d, f]}
+        "shape": [m, d, f], "other_shapes": shapes,
+        "ptxas": ptxas_report("int8_mlp")}
     del x, xq, w1, w2, fc1, fc2, w1_row_major
     torch.cuda.empty_cache()
     return row
@@ -334,13 +394,14 @@ def kernel_row_int8_mlp(gen):
 def kernel_row_int8_decode_attention(gen):
     """int8 decode attention at the cross-attention shape (B 16, T 1536 with
     1500 live keys, per-head scales) and the self-cache shape (T 448,
-    per-token scales, per-row masks)."""
+    per-token scales, per-row masks), and held at T 32 and T 8192 and with
+    one mask row shared by the batch."""
     import torch
     import torch.nn.functional as F
     from distil_whisper_tpu_torch.ops import int8_decode_attention as ida
     b, d, h = 16, 1280, 20
 
-    def case(t, per_head, mask):
+    def case(t, per_head, mask, timed=True):
         q = torch.randn(b, d, generator=gen, device="cuda").to(torch.bfloat16)
         kq, vq = (torch.randint(-127, 128, (b, t, d), generator=gen,
                                 device="cuda", dtype=torch.int8)
@@ -359,6 +420,11 @@ def kernel_row_int8_decode_attention(gen):
         if not err <= 2 ** -7 * scale:
             raise AssertionError(f"int8 decode attention disagrees at T {t}: "
                                  f"max abs err {err} (output scale {scale})")
+        row = {"max_abs_err": err, "tolerance": "max abs 2^-7 x max |out|",
+               "shape": [b, t, d], "scales": "per_head" if per_head else "per_token",
+               "mask_rows": mask.shape[0]}
+        if not timed:
+            return row
 
         def dequant(xq, s):
             s = s.repeat_interleave(d // h, dim=1)[:, None] if per_head else s[..., None]
@@ -373,23 +439,35 @@ def kernel_row_int8_decode_attention(gen):
 
         n_bytes = 2 * b * t * d + 2 * 2 * b * d + 2 * 4 * ks.numel() + mask.numel()
         bound_ms, bound_by = bound(n_bytes, 4 * b * t * d, INT8_TENSOR)
-        return {"max_abs_err": err, "tolerance": "max abs 2^-7 x max |out|",
-                "ms": cuda_ms(lambda: ida.int8_decode_attention(
-                    q, kq, ks, vq, vs, h, mask), reps=20),
-                "plain_ms": cuda_ms(lambda: ida.int8_decode_attention_plain(
+        # device times from CUDA graphs: at tens of microseconds a call,
+        # back-to-back launches from Python time the host (kept beside)
+        kernel = lambda: ida.int8_decode_attention(q, kq, ks, vq, vs, h, mask)
+        ms = cuda_graph_ms(kernel)
+        return {**row, "ms": ms, "gb_per_s": n_bytes / ms / 1e6,
+                "bound_share": bound_ms / ms,
+                "plain_ms": cuda_graph_ms(lambda: ida.int8_decode_attention_plain(
                     q, kq, ks, vq, vs, h, mask), reps=5),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": cuda_ms(library, reps=20),
-                "shape": [b, t, d], "scales": "per_head" if per_head else "per_token"}
+                "library_ms": cuda_graph_ms(library),
+                "ms_host_launched": cuda_ms(kernel, reps=20),
+                "library_ms_host_launched": cuda_ms(library, reps=20)}
 
-    cross = case(1536, True, torch.arange(1536, device="cuda")[None] < 1500)
+    def prefix(t, live):
+        return torch.arange(t, device="cuda")[None] < live
+
+    cross = case(1536, True, prefix(1536, 1500))
     lens = torch.randint(1, 448, (b, 1), generator=gen, device="cuda")
-    self_cache = case(448, False, torch.arange(448, device="cuda")[None] < lens)
+    self_cache = case(448, False, prefix(448, lens))
+    held = [case(32, False, prefix(32, torch.randint(1, 33, (b, 1), generator=gen,
+                                                     device="cuda")), timed=False),
+            case(8192, True, prefix(8192, 8000)),
+            case(448, False, prefix(448, 300), timed=False)]    # shared mask row
     torch.cuda.empty_cache()
     return {"name": "int8_decode_attention", "route": "cuda",
             "source": "distil_whisper_tpu_torch/csrc/int8_decode_attention.cu",
             "replaces": "distil_whisper_tpu/ops/int8_decode_attention.py:70",
-            **cross, "self_cache": self_cache}
+            **cross, "self_cache": self_cache, "other_shapes": held,
+            "ptxas": ptxas_report("int8_decode_attention")}
 
 
 def _wrappers():

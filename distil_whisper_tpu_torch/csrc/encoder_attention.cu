@@ -41,11 +41,10 @@
 //   as the TPU kernel's whole-row softmax, with another rounding.  Held to the
 //   plain version at atol/rtol 1e-2 in bf16 on the card.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -70,55 +69,6 @@ struct Barriers {
   uint64_t k_empty[STAGES], v_empty[STAGES];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// ---- mbarriers ------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  return done != 0;
-}
-// Waits for the phase of the given parity to complete.  A wait that lasts
-// ~2^34 clocks (seconds) can only be a broken pipeline: trap, so the launch
-// fails with an error instead of hanging the device.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(addr, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
-// ---- TMA ------------------------------------------------------------------
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // ---- named barriers for the consumers' turns at the tensor cores ----------
 // Consumer c waits on barrier 1 + c; the consumer before it in the round
 // arrives there when it has issued its products.  Two warpgroups each.
@@ -127,33 +77,6 @@ __device__ __forceinline__ void bar_sync(int id) {
 }
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
-
-// ---- wgmma ----------------------------------------------------------------
-// Shared-memory matrix descriptor: 128-byte swizzle, 8-row groups 1024 B
-// apart (SBO); the leading offset is unused when one 16-wide K slice (or,
-// for V, the 64-wide N) lies inside one 128-byte swizzle atom.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Pins the registers' definitions before (and uses after) the point where it
-// stands: the compiler may otherwise sink a multiply into a wgmma's operand
-// past wgmma.fence, which makes ptxas serialize the wgmmas.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
 #define DW_F8(i)                                                       \
@@ -458,32 +381,6 @@ encoder_attention_kernel(__grid_constant__ const CUtensorMap qmap,
 }
 
 // ---- host side --------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // dims (64, T, H, B); byte strides of T, H and B; boxes of 64 x rows.
 int make_map(CUtensorMap* map, const void* ptr, int T, int H, int B,
              long long st, long long sh, long long sb, int rows) {

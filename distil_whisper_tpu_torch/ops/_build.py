@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library with a plain C interface, loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds).  Libraries land in ``_build/`` beside the
-package (git-ignored), named by the hash of their source and flags, so an
-edited source rebuilds and an unchanged one is reused.  A library is written
+package (git-ignored), named by the hash of their source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and an
+unchanged one is reused.  A library is written
 to a temporary name and renamed into place, so concurrent processes never load
 a half-written file.
 
@@ -51,10 +52,14 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def _lib_path(name: str, src_dir: Path = SRC_DIR) -> Path:
+    """The library of ``<src_dir>/<name>.cu``, named by the hash of the
+    source, every header beside it (``*.cuh``) and the flags."""
+    digest = hashlib.sha256()
+    for path in [src_dir / f"{name}.cu", *sorted(src_dir.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple:

@@ -22,6 +22,11 @@ scale, ``k_row`` 1) or per token [B, T] (the self cache: ``k_head`` 1).  The
 block-diagonal q operand and the head-selector matrix of the TPU kernel are
 layout devices of the TPU's matrix unit and are not carried over.
 
+On the card each (b, h) is a thread-block cluster of CTAs that split T
+(:func:`_cluster_split` chooses the split); they load their K/V slices by
+TMA and reduce the softmax statistics and the p.V partials through
+distributed shared memory.
+
 :func:`int8_decode_attention` launches the kernel for CUDA tensors (bf16 q,
 head dim 64) and runs :func:`int8_decode_attention_plain` for CPU tensors;
 anything else raises.  ``int8_decode_attention.launches`` counts launches.
@@ -110,9 +115,25 @@ def _lib():
     lib = _build.load("int8_decode_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dw_int8_decode_attention.argtypes = [p, p, p, p, p, i, i, p, ll, p,
-                                             i, i, i, ctypes.c_float, p]
+                                             i, i, i, ctypes.c_float, i, i,
+                                             i, p]
     lib.dw_int8_decode_attention.restype = ctypes.c_int
     return lib
+
+
+def _cluster_split(t: int):
+    """``(cl, slice, box_rows)``: the kernel's cluster of ``cl`` CTAs a
+    (batch row, head), CTA r taking key rows [r * slice, min((r + 1) *
+    slice, T)), loaded in TMA boxes of ``box_rows`` <= 256 rows.  ``slice``
+    is a multiple of ``box_rows``, and ``box_rows`` of 8 (whole warps of
+    four threads a row); the last CTAs may get fewer rows, or none.  cl
+    grows with T: 2 below 1024 keys, 4 below 4096, else 8 (the fastest of
+    2, 4 and 8 at T 448 and 1536 on the H100)."""
+    cl = 2 if t < 1024 else 4 if t < 4096 else 8
+    rows = -(-t // cl)
+    boxes = -(-rows // 256)
+    slice_ = -(-rows // (8 * boxes)) * 8 * boxes
+    return cl, slice_, slice_ // boxes
 
 
 def int8_decode_attention(q: torch.Tensor, kq: torch.Tensor,
@@ -160,7 +181,7 @@ def int8_decode_attention(q: torch.Tensor, kq: torch.Tensor,
         q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), int(k_per_head), int(v_per_head), mask_ptr,
         mask_bstride, out.data_ptr(), b, n_heads, t, 64 ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *_cluster_split(t), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 decode attention kernel launch failed "
                            f"(cudaError {err})")

@@ -22,9 +22,15 @@ the function as a kernel chain (see the note in the source): a row
 quantizer, fc1 with the gelu and the per-(row, chunk) requantization in its
 epilogue (int8 h and its scales go to device memory), and fc2, which
 applies the chunk scales inside its K loop and accumulates in fp32 in chunk
-order.  :func:`fused_int8_mlp` launches it for CUDA tensors (bf16 only) and
-runs :func:`fused_int8_mlp_plain` for CPU tensors; anything else raises.
-``fused_int8_mlp.launches`` counts launches of the chain.
+order.  Both products are one Hopper GEMM (TMA into an mbarrier ring, int8
+``wgmma``, a producer warp and two consumer warpgroups, CTA pairs that
+multicast the activation tile, a persistent grid).  What the kernels need
+from the host is computed here: the tensor maps' geometry
+(:func:`_tma_geometry`) and the persistent tile schedule
+(:func:`tile_grid`, :func:`tile_schedule`).  :func:`fused_int8_mlp` launches the chain for
+CUDA tensors (bf16 only) and runs :func:`fused_int8_mlp_plain` for CPU
+tensors; anything else raises.  ``fused_int8_mlp.launches`` counts launches
+of the chain.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ from . import _build
 from .quant import int_mm, quantize_acts, symmetric_int8
 
 CHUNK_F = 512          # ffn columns per requantization chunk (JAX chunk_f)
+TILE_M = 128           # rows of an output tile (csrc/int8_mlp.cu TM)
+# columns of a CTA pair's output tile: fc1 one ffn chunk, fc2 2 x 128
+TILE_N = {"fc1": CHUNK_F, "fc2": 256}
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -99,10 +108,57 @@ def fused_int8_mlp_plain(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = _build.load("int8_mlp")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dw_int8_mlp.argtypes = [p] * 7 + [p] * 4 + [p, i, i, i, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dw_int8_mlp.argtypes = ([p] * 7 + [p] * 4 + [p, i, i, i] + [ll] * 5
+                                + [i, i, p])
     lib.dw_int8_mlp.restype = ctypes.c_int
     return lib
+
+
+def _tma_geometry(operands):
+    """``{name: (dims, row_bytes)}`` of the 2-D tensor maps (and x's rows)
+    through which the kernels read ``operands``: a dict of the row-major
+    matrices x [M, D] bf16, xq [M, D] int8, hq [M, F] int8, and the weights
+    as their output-major views w1q [F, D], w2q [D, F] (int8; ``kernel_q.T``).
+    dims are (columns, rows), innermost first, in elements.  Raises
+    ``ValueError`` on what TMA cannot take: a stride along the columns, a
+    base or row stride that is not a multiple of 16 bytes."""
+    geometry = {}
+    for name, t in operands.items():
+        if t.ndim != 2 or t.stride(1) != 1:
+            raise ValueError(f"fused_int8_mlp: {name} must be a row-major "
+                             f"matrix, got strides {tuple(t.stride())}")
+        row_bytes = t.stride(0) * t.element_size()
+        if t.data_ptr() % 16 or row_bytes % 16 or \
+                row_bytes < t.shape[1] * t.element_size():
+            raise ValueError(f"fused_int8_mlp: TMA needs a 16-byte aligned "
+                             f"base and row stride for {name}; got base "
+                             f"{t.data_ptr():#x}, rows {row_bytes} bytes apart")
+        geometry[name] = ((t.shape[1], t.shape[0]), row_bytes)
+    return geometry
+
+
+def tile_grid(m: int, n: int, product: str, n_sm: int):
+    """``(n_clusters, row_blocks, col_blocks)`` of one product of the chain
+    (``n`` its output width: F for fc1, D for fc2): output tiles of
+    ``TILE_M`` rows by ``TILE_N[product]`` columns (fc2's last
+    block half empty where D is an odd multiple of 128), and a persistent
+    grid of one CTA pair for every two SMs, or one a tile when there are
+    fewer tiles."""
+    row_blocks = -(-m // TILE_M)
+    col_blocks = -(-n // TILE_N[product])
+    return max(1, min(row_blocks * col_blocks, n_sm // 2)), row_blocks, col_blocks
+
+
+def tile_schedule(m: int, n: int, product: str, n_sm: int):
+    """The tiles as the kernel walks them: ``tiles[c]`` lists the
+    (row block, column block) pairs that CTA pair ``c`` computes, in order.
+    Tiles are numbered column block fastest; pair c takes tiles c,
+    c + n_clusters, ..."""
+    n_clusters, row_blocks, col_blocks = tile_grid(m, n, product, n_sm)
+    n_tiles = row_blocks * col_blocks
+    return [[divmod(t, col_blocks) for t in range(c, n_tiles, n_clusters)]
+            for c in range(n_clusters)]
 
 
 def fused_int8_mlp(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
@@ -121,14 +177,11 @@ def fused_int8_mlp(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
                          f"d % 128 == 0, got {tuple(x.shape)}")
     xm = x.reshape(-1, d)
     m = xm.shape[0]
-    # the kernel reads x by rows and each weight by output columns
-    # (output-major, ops/quant.py::output_major)
-    for name, t in (("x", xm), ("fc1.kernel_q", w1q.T), ("fc2.kernel_q", w2q.T)):
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"fused_int8_mlp: {name} must be a row-major, "
-                             f"16-byte aligned tensor on {x.device}")
     if w1q.dtype != torch.int8 or w2q.dtype != torch.int8:
         raise ValueError("fused_int8_mlp: weights must be int8")
+    for name, t in (("fc1.kernel_q", w1q), ("fc2.kernel_q", w2q)):
+        if t.device != x.device:
+            raise ValueError(f"fused_int8_mlp: {name} on {t.device}")
     w1s, b1, w2s, b2 = (t.contiguous() for t in (w1s, b1, w2s, b2))
     out = torch.empty_like(xm)
     # scratch of the kernel chain: int8 x and its row scales, int8 gelu
@@ -137,11 +190,19 @@ def fused_int8_mlp(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
     xs = torch.empty((m,), dtype=torch.float32, device=x.device)
     hq = torch.empty((m, f), dtype=torch.int8, device=x.device)
     hs = torch.empty((m, f // CHUNK_F), dtype=torch.float32, device=x.device)
+    # the kernels read x by rows and each weight by output columns
+    # (output-major, ops/quant.py::output_major)
+    geo = _tma_geometry({"x": xm, "xq": xq, "hq": hq, "w1q": w1q.T,
+                         "w2q": w2q.T})
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    clusters = [tile_grid(m, n, p, n_sm)[0]
+                for p, n in (("fc1", f), ("fc2", d))]
     err = _lib().dw_int8_mlp(
         xm.data_ptr(), w1q.data_ptr(), w1s.data_ptr(), b1.data_ptr(),
         w2q.data_ptr(), w2s.data_ptr(), b2.data_ptr(),
         xq.data_ptr(), xs.data_ptr(), hq.data_ptr(), hs.data_ptr(),
         out.data_ptr(), m, d, f,
+        *(geo[k][1] for k in ("x", "w1q", "w2q", "xq", "hq")), *clusters,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 MLP kernel launch failed (cudaError {err})")

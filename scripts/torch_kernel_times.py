@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the log-mel and encoder-attention kernels of one checkout of the
-PyTorch port on the GPU, at the main path's shapes.
+"""Time the hand-written kernels of one checkout of the PyTorch port on the
+GPU, at the main path's shapes.
 
     python3 scripts/torch_kernel_times.py [--root CHECKOUT] [--tag NAME]
 
@@ -13,9 +13,17 @@ its own process, because both packages share one name.
 Times are CUDA events around 10 calls launched back to back, over 10, the
 median of 3 such runs after warm-up (as ``chip_smoke.py``): log-mel on
 16 x 30 s of audio at 128 mels, encoder attention at (16, 20, 1500, 64) bf16
-contiguous and as [B, H, T, 64] views of [B, T, 1280] projections, and the
-PyTorch calls that compute the same functions.  Prints one JSON line with
-the ptxas report of both kernels and the card's name and power limit.
+contiguous and as [B, H, T, 64] views of [B, T, 1280] projections, the int8
+MLP at the encoder's shape (x [24000, 1280] bf16, ffn 5120), int8 decode
+attention at the cross shape (B 16, T 1536, 1500 live keys, per-head scales)
+and the self-cache shape (T 448, per-token scales, per-row masks; device
+time from a CUDA graph of 20 calls, since at tens of microseconds
+back-to-back launches from Python time the host), and the PyTorch calls
+beside each: SDPA, the ``torch.stft`` composition, the
+``torch._int_mm`` composition and bf16 ``F.linear``-gelu-``F.linear``, SDPA
+on dequantized bf16 K/V.  Inputs come from one seed, so every checkout sees
+the same numbers.  Prints one JSON line with the ptxas report of every
+kernel and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -46,6 +54,94 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 3) -> float:
     return statistics.median(times)
 
 
+def cuda_graph_ms(fn, reps: int = 20, rounds: int = 3) -> float:
+    """Device time of one call without the host's launch work: ``reps``
+    calls captured in a CUDA graph, replayed between CUDA events (as
+    ``chip_smoke.py``)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def int8_mlp_times(gen, cuda_ms):
+    import torch
+    import torch.nn.functional as F
+    from distil_whisper_tpu_torch.ops import int8_mlp
+    from distil_whisper_tpu_torch.ops.quant import dense_int8, quantize_dense
+    m, d, f = 16 * 1500, 1280, 5120
+
+    def rand(*shape, std):
+        return std * torch.randn(*shape, generator=gen, device="cuda")
+
+    fc1 = quantize_dense({"kernel": rand(d, f, std=0.03), "bias": rand(f, std=0.01)})
+    fc2 = quantize_dense({"kernel": rand(f, d, std=0.03), "bias": rand(d, std=0.01)})
+    x = rand(m, d, std=1.0).to(torch.bfloat16)
+    w1 = (fc1["kernel_q"].float() * fc1["kernel_scale"]).T.to(torch.bfloat16).contiguous()
+    w2 = (fc2["kernel_q"].float() * fc2["kernel_scale"]).T.to(torch.bfloat16).contiguous()
+    b1, b2 = fc1["bias"].to(torch.bfloat16), fc2["bias"].to(torch.bfloat16)
+    return {
+        "int8_mlp_ms": cuda_ms(lambda: int8_mlp.fused_int8_mlp(fc1, fc2, x)),
+        "int_mm_composition_ms": cuda_ms(
+            lambda: dense_int8(fc2, F.gelu(dense_int8(fc1, x)))),
+        "bf16_linear_gelu_linear_ms": cuda_ms(
+            lambda: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2))}
+
+
+def int8_decode_attention_times(gen):
+    import torch
+    import torch.nn.functional as F
+    from distil_whisper_tpu_torch.ops import int8_decode_attention as ida
+    b, d, h = 16, 1280, 20
+    out = {}
+    for name, t, per_head in (("cross", 1536, True), ("self", 448, False)):
+        q = torch.randn(b, d, generator=gen, device="cuda").to(torch.bfloat16)
+        kq, vq = (torch.randint(-127, 128, (b, t, d), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        shape = (b, h) if per_head else (b, t)
+        ks, vs = (0.01 * (0.5 + torch.rand(shape, generator=gen, device="cuda"))
+                  for _ in range(2))
+        live = (torch.full((1, 1), 1500, device="cuda") if per_head else
+                torch.randint(1, t, (b, 1), generator=gen, device="cuda"))
+        mask = torch.arange(t, device="cuda")[None] < live
+
+        def dequant(xq, s):
+            s = s.repeat_interleave(d // h, dim=1)[:, None] if per_head else s[..., None]
+            return (xq.to(torch.bfloat16) * s.to(torch.bfloat16)).view(
+                b, t, h, d // h).transpose(1, 2)
+
+        kd, vd = dequant(kq, ks), dequant(vq, vs)
+        qh, am = q.view(b, h, 1, d // h), mask.view(mask.shape[0], 1, 1, t)
+        # device time: graph replay (host launches would dominate)
+        out[f"int8_decode_attention_{name}_ms"] = cuda_graph_ms(
+            lambda: ida.int8_decode_attention(q, kq, ks, vq, vs, h, mask))
+        out[f"sdpa_dequantized_{name}_ms"] = cuda_graph_ms(
+            lambda: F.scaled_dot_product_attention(qh, kd, vd, attn_mask=am))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -61,7 +157,7 @@ def main() -> int:
     from distil_whisper_tpu_torch.audio.mel import whisper_mel_filters
     from distil_whisper_tpu_torch.ops import _build
     from distil_whisper_tpu_torch.ops import encoder_attention as ea
-    _build.build_all(["mel", "encoder_attention"])
+    _build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"tag": args.tag, "root": args.root,
            "ptxas": {name: [ln.strip() for ln in log.splitlines()
@@ -94,6 +190,9 @@ def main() -> int:
     out["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     out["sdpa_main_layout_ms"] = cuda_ms(
         lambda: F.scaled_dot_product_attention(qm, km, vm))
+    del q, k, v, qm, km, vm
+    out.update(int8_mlp_times(gen, cuda_ms))
+    out.update(int8_decode_attention_times(gen))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
