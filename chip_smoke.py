@@ -130,12 +130,14 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
 
 def synthetic_tokenizer(tmp: Path):
     """A byte-level tokenizer with the large-v3 special-token layout
-    (<|notimestamps|> 50364, timestamps from 50365): no download needed."""
+    (<|notimestamps|> 50364, timestamps from 50365): no download needed.
+    The ids past the 256 bytes decode to " w<id>", a word each (a leading
+    "Ġ" is the byte-level space), so that word timestamps see many words."""
     from distil_whisper_tpu_torch.tokenizer import LANGUAGES, WhisperTokenizer
     from distil_whisper_tpu_torch.tokenizer.bpe import bytes_to_unicode
     units = list(bytes_to_unicode().values())
     vocab = {u: i for i, u in enumerate(units)}
-    vocab.update({f"[unused{i}]": i for i in range(len(units), 50257)})
+    vocab.update({f"Ġw{i}": i for i in range(len(units), 50257)})
     added = {"<|endoftext|>": 50257, "<|startoftranscript|>": 50258}
     added.update({f"<|{code}|>": 50259 + i for i, code in enumerate(LANGUAGES)})
     nxt = 50259 + len(LANGUAGES)
@@ -232,6 +234,7 @@ def phase_kernels():
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_ms_dense": bound(n_bytes, ops_dense, FP32_CUDA_CORE)[0],
         "library_ms": cuda_ms(library_mel), "shape": [b, n, m],
+        "long_file": mel_long_file(gen, m),
         "ptxas": ptxas_report("mel")})
     del audio, out, ref
 
@@ -239,6 +242,51 @@ def phase_kernels():
     add(kernel_row_int8_mlp(gen))
     add(kernel_row_int8_decode_attention(gen))
     return rows
+
+
+def mel_long_file(gen, m: int):
+    """The mel kernel on whole files, as sequential long-form computes them
+    (``compute_mel(..., pad_to_chunk=False)``): one 70 s file (1,120,000
+    samples, 7000 frames) and a ragged length that is no multiple of the
+    hop, held against the plain version on the compressed features (the
+    max - 8 clamp over the whole file) at the 30 s tolerance, and the 70 s
+    file timed against its bound and the ``torch.stft`` composition."""
+    import torch
+    from distil_whisper_tpu_torch.audio import mel_kernel
+    from distil_whisper_tpu_torch.audio.mel import compress, whisper_mel_filters
+    rows = []
+    for n in (1_120_000, 1_120_000 - 77):
+        audio = 0.2 * torch.randn(1, n, generator=gen, device="cuda")
+        out = mel_kernel.log10_mel_fused(audio, m)
+        ref = mel_kernel.log10_mel_plain(audio, m)
+        torch.cuda.synchronize()
+        err = (compress(out) - compress(ref)).abs().max().item()
+        if not (out.shape == (1, m, n // 160) and err <= 2e-4
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"mel kernel disagrees on a {n}-sample "
+                                 f"file: {tuple(out.shape)}, max abs err {err}")
+        rows.append({"samples": n, "frames": n // 160, "max_abs_err": err})
+    audio = 0.2 * torch.randn(1, 1_120_000, generator=gen, device="cuda")
+    n, frames = audio.shape[1], audio.shape[1] // 160
+    window = torch.hann_window(400, device="cuda")
+    filters = torch.from_numpy(whisper_mel_filters(m)).cuda()
+
+    def library_mel():
+        spec = torch.stft(audio, 400, 160, window=window, center=True,
+                          pad_mode="reflect", return_complex=True)
+        return torch.log10(torch.clamp(filters.T @ (spec[..., :-1].abs() ** 2),
+                                       min=1e-10))
+
+    bands = mel_kernel.filter_bands(whisper_mel_filters(m))
+    band_rows = int((bands[:, 1] - bands[:, 0]).sum())
+    ops = frames * (2 * 2 * 201 * 199 + 2 * 8 * band_rows)
+    n_bytes = 4 * (n + 2 * 200 * 201 + 201 * m + m * frames)
+    bound_ms, bound_by = bound(n_bytes, ops, FP32_CUDA_CORE)
+    return {"held": rows, "tolerance": 2e-4, "timed_shape": [1, n, m],
+            "ms": cuda_ms(lambda: mel_kernel.log10_mel_fused(audio, m)),
+            "plain_ms": cuda_ms(lambda: mel_kernel.log10_mel_plain(audio, m)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms(library_mel)}
 
 
 def kernel_row_encoder_attention(gen):
@@ -682,9 +730,227 @@ def phase_int8_main_path(tok, bf16):
     return counts
 
 
-def phase_small_reference():
+def _segment_keys(results):
+    return [[(s["tokens"], round(s["start"], 6), round(s["end"], 6),
+              s["temperature"]) for s in r["segments"]] for r in results]
+
+
+def phase_longform_path(tok, bf16):
+    """Beam search, word timestamps and sequential long-form at the full
+    width of distil-large-v3, on the main path's bf16 weights; then the
+    beam run again in the int8 lane.  Each path's launches are counted from
+    0 just before it and read just after."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import (
+        GenerationOptions, SequentialOptions, SequentialTranscriber,
+        beam_search, generate)
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+
+    cfg = PRESETS["distil-large-v3"]
+    dtype, params, clips = torch.bfloat16, bf16["params"], bf16["clips"]
+    pipe = WhisperPipeline(None, dtype=dtype, batch_size=16,
+                           max_new_tokens=128, params=params, cfg=cfg,
+                           tokenizer=tok, device="cuda")
+    pcfg, k = pipe.cfg, 5
+    launches, report = {}, {}
+    bf16_path = {"log_mel": 1, "encoder_attention": cfg.encoder_layers,
+                 "int8_mlp": 0, "int8_decode_attention": 0}
+
+    # -- 1. beam search: 16 windows x 5 beams = 80 decode rows -------------
+    def beam_run(p):
+        return p(clips, language="en", generate_kwargs={"num_beams": k})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = beam_run(pipe)
+    torch.cuda.synchronize()
+    beam_first_s = time.perf_counter() - t0
+    launches["beam"] = read_counts()
+    if launches["beam"] != bf16_path:
+        raise AssertionError(f"beam path launches {launches['beam']}")
+    t0 = time.perf_counter()
+    second = beam_run(pipe)
+    torch.cuda.synchronize()
+    beam_warm_s = time.perf_counter() - t0
+    if first != second:
+        raise AssertionError("two beam runs of the same batch gave other "
+                             "tokens")
+    beam_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the decode loop alone, on the main path's encoder states
+    cross = W.cross_kv(params["decoder"], pcfg, bf16["enc"])
+    prompt = torch.tensor([tok.prompt_ids(language="en")] * 16, device="cuda")
+    opts = GenerationOptions.from_config(pcfg, max_new_tokens=128,
+                                         no_speech_token_id=tok.no_speech)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = beam_search(params["decoder"], pcfg, cross, prompt, opts,
+                      num_beams=k, dtype=dtype)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    total = prompt.shape[1] + opts.max_new_tokens
+    texts = [tok.decode(out.sequences[j, :out.seq_len[j]].tolist())
+             for j in range(16)]
+    if texts != [r["text"] for r in first]:
+        raise AssertionError("beam pipeline and beam_search() disagree")
+    one = beam_search(params["decoder"], pcfg, cross, prompt, opts,
+                      num_beams=1, dtype=dtype)
+    greedy = generate(params["decoder"], pcfg, cross, prompt, opts,
+                      dtype=dtype)
+    # one beam follows the argmax path while no row emits EOS (the random
+    # model emits none; EOS would end greedy rows and not the beam)
+    if (greedy.sequences == pcfg.eos_token_id).any() or not torch.equal(
+            one.sequences, greedy.sequences):
+        raise AssertionError("beam_search(num_beams=1) differs from "
+                             "generate()")
+    report["beam"] = {
+        "windows": 16, "num_beams": k, "decode_rows": 16 * k,
+        "max_new_tokens": 128, "first_call_s": beam_first_s,
+        "warm_call_s": beam_warm_s, "audio_s_per_s": 16 * 30.0 / beam_warm_s,
+        "search_s": search_s,
+        # every hypothesis ran the whole budget, so the loop took 128 steps
+        "full_budget": bool((out.seq_len == total).all()),
+        "ms_per_beam_step": search_s * 1e3 / opts.max_new_tokens,
+        "peak_mem_gib": beam_peak}
+    emit({"phase": "longform_path.beam", "launches": launches["beam"],
+          **report["beam"]})
+    del cross, out, one, greedy
+
+    # -- 2. word timestamps on the ~70 s file ------------------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    words = pipe(bf16["long_clip"], language="en", return_timestamps="word")
+    torch.cuda.synchronize()
+    words_s = time.perf_counter() - t0
+    launches["word_timestamps"] = read_counts()
+    if launches["word_timestamps"] != bf16_path:
+        raise AssertionError(f"word-timestamp launches "
+                             f"{launches['word_timestamps']}")
+    spans = [c["timestamp"] for c in words["chunks"]]
+    duration = len(bf16["long_clip"]) / 16000
+    if len(spans) < 10 or any(
+            not 0.0 <= a <= b <= duration + 0.02 for a, b in spans) or any(
+            spans[i + 1][0] < spans[i][0] for i in range(len(spans) - 1)):
+        raise AssertionError(f"word times out of order or range: {spans[:8]}")
+    report["word_timestamps"] = {"audio_s": duration, "seconds": words_s,
+                                 "words": len(spans),
+                                 "first_words": words["chunks"][:3]}
+    emit({"phase": "longform_path.word_timestamps",
+          "launches": launches["word_timestamps"],
+          **report["word_timestamps"]})
+
+    # -- 3. sequential long-form: the six-rung ladder over 16 files --------
+    lengths = [40.0 + 35.0 * i / 15 for i in range(16)]
+    files = [a[:int(sec * 16000)] for a, sec in
+             zip(synthetic_audio(16, 75.0, seed=7), lengths)]
+    audio_s = sum(len(a) for a in files) / 16000
+    reset_counts()
+    feats = [compute_mel(a, pcfg, pad_to_chunk=False, device="cuda")[0]
+             for a in files]
+    torch.cuda.synchronize()
+    feature_counts = read_counts()
+    if feature_counts["log_mel"] != len(files):
+        raise AssertionError(f"whole-file features launched the mel kernel "
+                             f"{feature_counts['log_mel']} times for "
+                             f"{len(files)} files")
+    tr = SequentialTranscriber(params, pcfg, tok, SequentialOptions(),
+                               language="en", batch_size=16, dtype=dtype,
+                               device="cuda")
+    calls = []
+    run_window = tr._run_window
+
+    def counted(mels, prompts, pads, temperature, generator):
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        result = run_window(mels, prompts, pads, temperature, generator)
+        calls.append((temperature, len(mels), time.perf_counter() - c0))
+        return result
+
+    tr._run_window = counted
+    reset_counts()
+    t0 = time.perf_counter()
+    seq1 = tr.transcribe(feats, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    seq_counts = read_counts()
+    encode_calls = len(calls)
+    if (seq_counts["encoder_attention"] != cfg.encoder_layers * encode_calls
+            or seq_counts["log_mel"] or seq_counts["int8_mlp"]):
+        raise AssertionError(f"sequential launches {seq_counts} for "
+                             f"{encode_calls} encode calls")
+    launches["sequential"] = {
+        **seq_counts, "log_mel": feature_counts["log_mel"]}
+    rows = {}
+    rung_s = {}
+    for t, n, sec in calls:
+        rows[t] = rows.get(t, 0) + n
+        rung_s.setdefault(t, []).append(sec)
+    temps = list(SequentialOptions().temperatures)
+    accepted = {t: rows.get(t, 0) - rows.get(temps[i + 1], 0)
+                if i + 1 < len(temps) else rows.get(t, 0)
+                for i, t in enumerate(temps)}
+    seq_rerun = tr.transcribe(feats, generator=torch.Generator().manual_seed(0))
+    if _segment_keys(seq1) != _segment_keys(seq_rerun):
+        raise AssertionError("the same generator seed gave other segments")
+    greedy_tr = SequentialTranscriber(
+        params, pcfg, tok, SequentialOptions(temperatures=(0.0,)),
+        language="en", batch_size=16, dtype=dtype, device="cuda")
+    t0 = time.perf_counter()
+    g1 = greedy_tr.transcribe(feats)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    if _segment_keys(g1) != _segment_keys(greedy_tr.transcribe(feats)):
+        raise AssertionError("temperature 0 gave other segments on a rerun")
+    report["sequential"] = {
+        "files": len(files), "file_s": [round(x, 3) for x in lengths],
+        "audio_s": audio_s, "windows": rows.get(temps[0], 0),
+        "encode_calls": encode_calls, "window_rows_per_rung": rows,
+        "accepted_windows_by_temperature": accepted,
+        "segments": sum(len(r["segments"]) for r in seq1),
+        "seconds": seq_s, "audio_s_per_s": audio_s / seq_s,
+        "seconds_per_rung": {t: sum(v) / len(v) for t, v in rung_s.items()},
+        "greedy_only": {"seconds": greedy_s, "audio_s_per_s": audio_s / greedy_s,
+                        "segments": sum(len(r["segments"]) for r in g1)}}
+    emit({"phase": "longform_path.sequential",
+          "launches": launches["sequential"], **report["sequential"]})
+    del feats, tr, greedy_tr
+
+    # -- 4. the int8 lane: the same beam run with the five int8 flags ------
+    qpipe = WhisperPipeline(None, dtype=dtype, batch_size=16,
+                            max_new_tokens=128, params=params,
+                            cfg=cfg.replace(**INT8_FLAGS), tokenizer=tok,
+                            device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    qfirst = beam_run(qpipe)
+    torch.cuda.synchronize()
+    qbeam_s = time.perf_counter() - t0
+    launches["int8_beam"] = read_counts()
+    # the encoder's 32 layers, and the decoder's prefill: 80 rows x 4 prompt
+    # tokens pass the kernel's 256-row gate (one launch a decoder layer)
+    expected = {**bf16_path,
+                "int8_mlp": cfg.encoder_layers + cfg.decoder_layers}
+    if launches["int8_beam"] != expected:
+        raise AssertionError(f"int8 beam launches {launches['int8_beam']}")
+    if beam_run(qpipe) != qfirst:
+        raise AssertionError("two int8 beam runs gave other tokens")
+    del qpipe
+    torch.cuda.empty_cache()
+    emit({"phase": "longform_path", "model": "distil-large-v3",
+          "dtype": "bf16", "launches": launches, "int8_beam_first_call_s":
+          qbeam_s})
+    return launches
+
+
+def phase_small_reference(tok):
     """A small model on the card against the CPU: fp32 greedy tokens
-    identical, bf16 fused (kernel) encoder close to the fp32 CPU encoder.
+    identical, bf16 fused (kernel) encoder close to the fp32 CPU encoder;
+    then the int8 lane and the long-form paths on the same small model.
     test-tiny widened to heads of 64, the kernel's head dim."""
     import numpy as np
     import torch
@@ -717,6 +983,63 @@ def phase_small_reference():
     if not same or not rel < 2e-2:
         raise AssertionError("the card disagrees with the CPU on test-tiny")
     small_reference_int8(cfg, mel, prompt)
+    small_reference_longform(cfg, mel, tok)
+
+
+def small_reference_longform(cfg, mel, tok):
+    """The widened test-tiny with the synthetic tokenizer's vocabulary, fp32
+    on the card against the CPU at the same weights: beam tokens identical,
+    sequential segments at temperature 0 identical (the same whole-file
+    features on both sides), word-timestamp token times equal."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.generation import (
+        GenerationOptions, SequentialOptions, SequentialTranscriber,
+        encode_and_beam_search)
+    from distil_whisper_tpu_torch.generation.word_timestamps import (
+        default_alignment_heads, extract_token_timestamps)
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.models.params import tree_paths, unflatten_paths
+
+    scfg = cfg.replace(vocab_size=51866)       # the tokenizer's layout
+    cpu = init_params(scfg, seed=6, device="cpu")
+    gpu = unflatten_paths({p: x.cuda() for p, x in tree_paths(cpu).items()})
+    prompt = [tok.prompt_ids(language="en", no_timestamps=False)] * 2
+    opts = GenerationOptions.from_config(scfg, max_new_tokens=24,
+                                         return_timestamps=True,
+                                         no_speech_token_id=tok.no_speech)
+    a = encode_and_beam_search(cpu, scfg, mel, prompt, opts, num_beams=3,
+                               device="cpu")
+    b = encode_and_beam_search(gpu, scfg, mel, prompt, opts, num_beams=3,
+                               device="cuda")
+    beam_same = torch.equal(a.sequences, b.sequences.cpu())
+
+    files = [x[:int(sec * 16000)] for x, sec in
+             zip(synthetic_audio(2, 62.0, seed=9), (62.0, 45.0))]
+    feats = [compute_mel(x, scfg, pad_to_chunk=False, device="cpu")[0].numpy()
+             for x in files]
+    sopts = SequentialOptions(temperatures=(0.0,), max_new_tokens=48)
+    segs = [_segment_keys(SequentialTranscriber(
+        params, scfg, tok, sopts, language="en", batch_size=2,
+        device=device).transcribe(feats))
+        for params, device in ((cpu, "cpu"), (gpu, "cuda"))]
+
+    heads = default_alignment_heads(scfg)
+    times = [extract_token_timestamps(
+        params, scfg, a.sequences, a.seq_len, len(prompt[0]), heads,
+        enc=W.encode(params["encoder"], scfg, torch.from_numpy(mel).to(device)),
+        num_frames=[3000, 2000]) for params, device in ((cpu, "cpu"),
+                                                        (gpu, "cuda"))]
+    emit({"phase": "small_reference_longform", "fp32_beam_identical": beam_same,
+          "fp32_sequential_segments_identical": segs[0] == segs[1],
+          "sequential_segments": sum(len(r) for r in segs[0]),
+          "fp32_word_times_equal": bool(np.array_equal(*times)),
+          "word_times_max_abs_diff": float(np.abs(times[0] - times[1]).max())})
+    if not (beam_same and segs[0] == segs[1] and np.array_equal(*times)):
+        raise AssertionError("the card disagrees with the CPU on the "
+                             "long-form paths of test-tiny")
 
 
 def small_reference_int8(cfg, mel, prompt):
@@ -803,11 +1126,14 @@ def main() -> int:
     with torch.no_grad():
         bf16 = phase_main_path(tok)
         counts = phase_int8_main_path(tok, bf16)
+        longform = phase_longform_path(tok, bf16)
         del bf16
         torch.cuda.empty_cache()
-        phase_small_reference()
+        phase_small_reference(tok)
     for row in rows:
         row["launches"] = counts[row["name"]]
+        row["launches_by_path"] = {path: c[row["name"]]
+                                   for path, c in longform.items()}
     emit({"kernels": rows})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

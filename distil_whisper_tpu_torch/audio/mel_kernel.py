@@ -128,7 +128,8 @@ log10_mel_fused.launches = 0
 def log_mel_spectrogram_fused(audio: torch.Tensor, cfg: WhisperConfig,
                               pad_to_chunk: bool = True) -> torch.Tensor:
     """Drop-in for ``mel.log_mel_spectrogram`` through the fused kernel:
-    audio [T] or [B, T] -> [B, n_mels, 3000]."""
+    audio [T] or [B, T] -> [B, n_mels, 3000], or [B, n_mels, T // 160]
+    without ``pad_to_chunk``."""
     if (cfg.n_fft, cfg.hop_length) != (_N_FFT, _HOP):
         raise ValueError("the fused mel kernel is built for n_fft 400, hop 160")
     if audio.ndim == 1:

@@ -1,11 +1,13 @@
-"""Autoregressive greedy generation with the Whisper logits rules.
+"""Autoregressive generation (greedy and sampling) with the Whisper logits
+rules.
 
 Counterpart of ``distil_whisper_tpu.generation.generate``: a static token
 budget, a static-shape KV cache, and the processor stack of :mod:`.logits`.
 JAX's ``lax.while_loop`` is a Python loop with the same stop rule (stop when
 the budget is spent or every row has emitted EOS); the decode of a step
-whose logits would never be read is skipped.  Sampling (``do_sample``) comes
-with the sequential long-form slice.
+whose logits would never be read is skipped.  Sampling draws from an
+explicit ``torch.Generator`` (JAX splits a threefry key per step; the two
+cannot give the same draws, only the same distribution).
 
 Everything returned is fixed-shape; host-side code slices with ``seq_len``.
 """
@@ -66,21 +68,43 @@ def _process_scores(scores, gen_idx: int, ts_state, cfg: WhisperConfig,
     return scores
 
 
+def _select(scores: torch.Tensor, temperature: float,
+            generator: Optional[torch.Generator],
+            opts: GenerationOptions) -> torch.Tensor:
+    """Greedy or temperature (+ top-k) sampling over processed scores."""
+    if not opts.do_sample:
+        return torch.argmax(scores, dim=-1)
+    s = scores.float() / max(float(temperature), 1e-6)
+    if opts.top_k > 0:
+        kth = torch.topk(s, opts.top_k, dim=-1).values[:, -1:]
+        s = s.masked_fill(s < kth, L.NEG_INF)
+    return torch.multinomial(torch.softmax(s, dim=-1), 1,
+                             generator=generator)[:, 0]
+
+
 @torch.no_grad()
 def generate(dec_params: Dict[str, Any], cfg: WhisperConfig,
              cross: Dict[str, Any], prompt_ids: torch.Tensor,
              opts: GenerationOptions,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             pad_len: Optional[torch.Tensor] = None,
+             sot_slot: Optional[int] = None,
              dtype: torch.dtype = torch.float32) -> GenerateOutput:
-    """Greedily extend ``prompt_ids`` [B, P] by up to max_new_tokens.
+    """Extend ``prompt_ids`` [B, P] by up to max_new_tokens, greedily or,
+    with ``opts.do_sample``, by sampling at ``temperature`` with draws from
+    ``generator`` (a generator on the prompt's device; seeded with 0 when
+    not given).
 
     ``cross`` is the precomputed cross-attention K/V (:func:`...models.cross_kv`).
     The prompt must already contain decoder_start/lang/task tokens;
-    ``opts.forced_decoder_ids`` is also honoured.  (Left-padded prompts,
-    JAX's ``pad_len``/``sot_slot``, come with sequential long-form.)
+    ``opts.forced_decoder_ids`` is also honoured.
+
+    ``pad_len`` [B] marks left-padded prompt slots (condition-on-prev
+    prompts of different lengths in one batch, cf. ``models.whisper.decode``).
+    The <|nospeech|> probability is read at the <|startoftranscript|> slot:
+    ``sot_slot`` when given, else ``pad_len[b]``, else 0.
     """
-    if opts.do_sample:
-        raise NotImplementedError("sampling comes with the sequential "
-                                  "long-form slice; use greedy")
     b, p = prompt_ids.shape
     total = p + opts.max_new_tokens
     if total > cfg.max_target_positions:
@@ -88,13 +112,24 @@ def generate(dec_params: Dict[str, Any], cfg: WhisperConfig,
                          f"exceeds {cfg.max_target_positions}")
     device = prompt_ids.device
     prompt_ids = prompt_ids.long()
+    if opts.do_sample and generator is None:
+        # never the global RNG; the JAX package's default key is PRNGKey(0)
+        generator = torch.Generator(device=device).manual_seed(0)
     cache = init_cache(cfg, b, dtype=dtype, max_len=total, device=device)
     prefill_logits, cache = decode(dec_params, cfg, prompt_ids, cross=cross,
-                                   cache=cache, pos_offset=0, dtype=dtype)
+                                   cache=cache, pos_offset=0, pad_len=pad_len,
+                                   dtype=dtype)
 
     # <|nospeech|> probability from the raw logits at the SOT position
     if opts.no_speech_token_id is not None:
-        probs0 = torch.softmax(prefill_logits[:, 0].float(), dim=-1)
+        if sot_slot is not None:
+            sot_logits = prefill_logits[:, sot_slot]
+        elif pad_len is None:
+            sot_logits = prefill_logits[:, 0]
+        else:
+            sot_logits = prefill_logits[torch.arange(b, device=device),
+                                        pad_len.long()]
+        probs0 = torch.softmax(sot_logits.float(), dim=-1)
         no_speech_prob = probs0[:, opts.no_speech_token_id]
     else:
         no_speech_prob = torch.zeros((b,), dtype=torch.float32, device=device)
@@ -112,7 +147,7 @@ def generate(dec_params: Dict[str, Any], cfg: WhisperConfig,
     while cur < total:
         gen_idx = cur - p
         scores = _process_scores(last_logits, gen_idx, ts, cfg, opts, p)
-        nxt = torch.argmax(scores, dim=-1)
+        nxt = _select(scores, temperature, generator, opts)
         logp = torch.log_softmax(scores, dim=-1)
         tok_logp = logp.gather(1, nxt[:, None])[:, 0]
 
@@ -127,7 +162,8 @@ def generate(dec_params: Dict[str, Any], cfg: WhisperConfig,
         if cur >= total or bool(finished.all()):
             break
         lg, cache = decode(dec_params, cfg, nxt[:, None], cross=cross,
-                           cache=cache, pos_offset=cur - 1, dtype=dtype)
+                           cache=cache, pos_offset=cur - 1, pad_len=pad_len,
+                           dtype=dtype)
         last_logits = lg[:, -1].float()
 
     return GenerateOutput(sequences=tokens, seq_len=seq_len,
@@ -140,20 +176,30 @@ def generate(dec_params: Dict[str, Any], cfg: WhisperConfig,
 # ----------------------------------------------------------------------
 
 
+def check_params_device(params: Dict[str, Any], dev: torch.device) -> None:
+    if params["decoder"]["tok_emb"].device.type != dev.type:
+        raise ValueError(f"params live on {params['decoder']['tok_emb'].device}"
+                         f", not on {dev}")
+
+
 @torch.no_grad()
 def encode_and_generate(params: Dict[str, Any], cfg: WhisperConfig,
                         mel, prompt_ids, opts: GenerationOptions,
+                        temperature: float = 0.0,
+                        generator: Optional[torch.Generator] = None,
+                        pad_len=None, sot_slot: Optional[int] = None,
                         dtype: torch.dtype = torch.float32,
                         device="cuda") -> GenerateOutput:
     """mel [B, n_mels, 3000] + prompt [B, P] -> GenerateOutput, on ``device``
     (where ``params`` must already live)."""
     dev = resolve_device(device)
-    if params["decoder"]["tok_emb"].device.type != dev.type:
-        raise ValueError(f"params live on {params['decoder']['tok_emb'].device}"
-                         f", not on {dev}")
+    check_params_device(params, dev)
     mel = torch.as_tensor(mel).to(dev)
     prompt_ids = torch.as_tensor(prompt_ids).to(dev)
+    if pad_len is not None:
+        pad_len = torch.as_tensor(pad_len).to(dev)
     enc = encode(params["encoder"], cfg, mel, dtype=dtype)
     cross = cross_kv(params["decoder"], cfg, enc)
     return generate(params["decoder"], cfg, cross, prompt_ids, opts,
-                    dtype=dtype)
+                    temperature=temperature, generator=generator,
+                    pad_len=pad_len, sot_slot=sot_slot, dtype=dtype)

@@ -16,13 +16,15 @@ W8A8 product (``ops/quant.py``), the encoder MLP takes the fused int8 kernel
 fp32 scales beside them and are dequantized per layer to the working dtype,
 and ``tok_emb_q`` gives int8 logits at batch >= 8.
 
-Not in this slice: dropout, remat, per-lane decode cursors, cross-attention
-weights for word timestamps.
+:func:`cross_attention_probs` yields the fp32 cross-attention
+probabilities of a teacher-forced pass layer by layer (DTW word timestamps).
+
+Not in this slice: dropout, remat, per-lane decode cursors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -270,8 +272,11 @@ def _int8_logits(params: Params, y: torch.Tensor) -> torch.Tensor:
 
 
 def _decoder_layer(lp: Params, x: torch.Tensor, self_k, self_v, ck, cv,
-                   n_heads: int, self_mask, policy=(True, False)):
-    """One decoder layer given head-split K/V for both attentions."""
+                   n_heads: int, self_mask, policy=(True, False),
+                   output_cross_probs: bool = False):
+    """One decoder layer given head-split K/V for both attentions; with
+    ``output_cross_probs`` returns ``(y, fp32 cross-attention probs
+    [B, H, S, Tk])``."""
     f32_attn, fast_act = policy
     r = x
     h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
@@ -282,12 +287,16 @@ def _decoder_layer(lp: Params, x: torch.Tensor, self_k, self_v, ck, cv,
     r = x
     h = layer_norm(lp["cross_attn_ln"], x, fp32=not fast_act)
     q = _split_heads(dense(lp["cross_attn"]["q"], h), n_heads)
-    a = mha(q, ck, cv, float32_logits=f32_attn)
+    a = mha(q, ck, cv, float32_logits=f32_attn,
+            return_probs=output_cross_probs)
+    if output_cross_probs:
+        a, cross_probs = a
     x = r + dense(lp["cross_attn"]["out"], _merge_heads(a))
 
     r = x
     h = layer_norm(lp["final_ln"], x, fp32=not fast_act)
-    return r + mlp_block(lp["fc1"], lp["fc2"], h, exact_gelu=not fast_act)
+    y = r + mlp_block(lp["fc1"], lp["fc2"], h, exact_gelu=not fast_act)
+    return (y, cross_probs) if output_cross_probs else y
 
 
 def _cached_layer(lp: Params, x: torch.Tensor, h: torch.Tensor, k_all, v_all,
@@ -411,3 +420,53 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
         # fp32 logits (the tied embedding, fp32 accumulation) as in JAX
         logits = torch.matmul(y.float(), params["tok_emb"].float().T)
     return logits, cache
+
+
+def cross_attention_probs(params: Params, cfg: WhisperConfig,
+                          tokens: torch.Tensor,
+                          enc: Optional[torch.Tensor] = None,
+                          cross: Optional[Params] = None,
+                          dtype: torch.dtype = torch.float32,
+                          ) -> Iterator[Tuple[int, torch.Tensor]]:
+    """``(layer, fp32 cross-attention probabilities [B, H, S, Tk])`` of a
+    teacher-forced decoder pass over ``tokens`` [B, S], one layer at a time,
+    so that a caller can keep a few heads and stop after the last layer it
+    needs.
+
+    Cross-attention rows depend only on the decoder state at their own
+    position, so this one pass gives the per-step cross-attentions that
+    cached generation sees (the input of the DTW word-timestamp alignment).
+    """
+    b, s = tokens.shape
+    n_heads = cfg.decoder_attention_heads
+    x = params["tok_emb"].to(dtype)[tokens.long()]
+    x = x + params["pos_emb"].to(dtype)[:s]
+    if cross is None:
+        if enc is None:
+            raise ValueError("cross_attention_probs() needs enc or cross")
+        cross = cross_kv(params, cfg, enc.to(dtype))
+    mask = causal_mask(s, s, 0, device=tokens.device)
+    policy = (not cfg.fast_bf16_attention, cfg.fast_approx_activations)
+    for i in range(cfg.decoder_layers):
+        lp = layer_slice(params["layers"], i)
+        ck, cv = _cross_read(cross, i, dtype)
+        h = layer_norm(lp["self_attn_ln"], x)
+        k = _split_heads(dense(lp["self_attn"]["k"], h), n_heads)
+        v = _split_heads(dense(lp["self_attn"]["v"], h), n_heads)
+        x, probs = _decoder_layer(lp, x, k, v, _split_heads(ck, n_heads),
+                                  _split_heads(cv, n_heads), n_heads, mask,
+                                  policy, output_cross_probs=True)
+        yield i, probs
+
+
+def cross_attention_weights(params: Params, cfg: WhisperConfig,
+                            tokens: torch.Tensor,
+                            enc: Optional[torch.Tensor] = None,
+                            cross: Optional[Params] = None,
+                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """fp32 cross-attention probabilities [L, B, H, S, Tk] of a
+    teacher-forced decoder pass over ``tokens`` [B, S] (every layer; the
+    word-timestamp path keeps only its heads, through
+    :func:`cross_attention_probs`)."""
+    return torch.stack([p for _, p in cross_attention_probs(
+        params, cfg, tokens, enc=enc, cross=cross, dtype=dtype)])

@@ -18,7 +18,7 @@ NEG_INF = -1e9  # large-negative mask fill that is bf16-safe
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
-        float32_logits: bool = True) -> torch.Tensor:
+        float32_logits: bool = True, return_probs: bool = False):
     """Scaled dot-product attention (einsum formulation).
 
     q: [B, Tq, H, D]   k, v: [B, Tk, H, D]   mask: broadcastable to [B, H, Tq, Tk]
@@ -27,6 +27,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``float32_logits=True``: logits and softmax in fp32 over the model-dtype
     operands (exact products, fp32 sums).  ``float32_logits=False`` (the bf16
     inference fast path): logits and softmax stay in the input dtype.
+
+    ``return_probs``: also return the fp32 probabilities [B, H, Tq, Tk] (the
+    softmax of the logits taken in fp32), as JAX's ``return_probs`` does for
+    the cross-attention DTW alignment.
     """
     dtype = q.dtype
     scale = q.shape[-1] ** -0.5
@@ -38,8 +42,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
-    return out.to(dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dtype)
+    if return_probs:
+        return out, torch.softmax(logits.float(), dim=-1)
+    return out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

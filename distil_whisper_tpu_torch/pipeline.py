@@ -1,9 +1,12 @@
 """User-facing ASR pipeline: short-form + chunked long-form transcription.
 
-Counterpart of ``distil_whisper_tpu.pipeline.WhisperPipeline`` on the greedy
-path: audio -> strided 30 s chunks (stride = chunk/6 by default) -> batched
-log-mel -> encode + greedy generate -> timestamp/LCS merge of overlapping
-chunks (``WhisperTokenizer.decode_asr``).  It runs on the card by default.
+Counterpart of ``distil_whisper_tpu.pipeline.WhisperPipeline``: audio ->
+strided 30 s chunks (stride = chunk/6 by default) -> batched log-mel ->
+encode + generate (greedy, sampling through ``generate_kwargs``, or beam
+with ``num_beams``) -> timestamp/LCS merge of overlapping chunks
+(``WhisperTokenizer.decode_asr``), or with ``return_timestamps="word"`` the
+cross-attention DTW alignment of each window and a stride-trimmed word
+list.  It runs on the card by default.
 
 A list of audios is transcribed in shared batches of windows (every file's
 chunks are batched together; rows are independent) and returns one result
@@ -13,8 +16,7 @@ the rows that exist.
 With ``cfg.quantize_*`` set it runs the int8 lane: W8A8 encoder and
 decoder projections, int8 self-KV cache and cross K/V, int8 logits.
 
-Not in this slice: the device mesh, beam search, word timestamps and
-speculative decoding.
+Not in this slice: the device mesh and speculative decoding.
 """
 
 from __future__ import annotations
@@ -28,7 +30,12 @@ from .audio import compute_mel
 from .audio.io import load_audio
 from .config import WhisperConfig
 from .device import resolve_device
-from .generation import GenerationOptions, encode_and_generate
+from .generation import GenerationOptions, beam_search, generate
+from .generation.word_timestamps import (default_alignment_heads,
+                                         load_alignment_heads,
+                                         selected_cross_weights,
+                                         token_timestamps_from_weights,
+                                         words_from_tokens)
 from .models import load_params
 from .models.whisper import cross_kv, decode, encode, init_cache
 from .ops.quant import maybe_quantize_encoder
@@ -42,7 +49,10 @@ class WhisperPipeline:
                  batch_size: int = 8, max_new_tokens: int = 128,
                  params=None, cfg: Optional[WhisperConfig] = None,
                  tokenizer: Optional[WhisperTokenizer] = None,
-                 device="cuda"):
+                 speculative_method: Optional[str] = None, device="cuda"):
+        if speculative_method is not None:
+            raise NotImplementedError("speculative decoding comes with a "
+                                      "later slice of the port")
         self.device = resolve_device(device)
         if params is None or cfg is None:
             params, cfg = load_params(checkpoint, cfg, dtype=dtype,
@@ -59,6 +69,8 @@ class WhisperPipeline:
         self.dtype = dtype
         self.batch_size = batch_size
         self.max_new_tokens = max_new_tokens
+        self._checkpoint = checkpoint
+        self._align_heads = None
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -111,27 +123,76 @@ class WhisperPipeline:
         return chunks
 
     # ------------------------------------------------------------------
+    def _alignment_heads(self):
+        """The checkpoint's alignment heads, else the top half of the
+        decoder."""
+        if self._align_heads is None:
+            try:
+                self._align_heads = load_alignment_heads(self._checkpoint,
+                                                         self.cfg)
+            except (TypeError, OSError):
+                self._align_heads = default_alignment_heads(self.cfg)
+        return self._align_heads
+
+    @torch.no_grad()
+    def _decode_batch(self, mels: torch.Tensor, prompts: List[List[int]],
+                      opts: GenerationOptions, num_beams: int,
+                      length_penalty: float,
+                      num_frames: Optional[List[int]] = None):
+        """One batch of windows: encode, cross K/V, generate or beam search,
+        and with ``num_frames`` (word timestamps) the alignment pass over the
+        chosen tokens, sharing the cross K/V.  Returns host arrays
+        ``(sequences, seq_len, token_times or None)``.
+
+        Sampling (``opts.do_sample``) runs at temperature 0 with a generator
+        seeded with 0, as the JAX pipeline passes a fixed key."""
+        cfg, dec = self.cfg, self.params["decoder"]
+        prompt_ids = torch.tensor(prompts, dtype=torch.long, device=self.device)
+        enc = encode(self.params["encoder"], cfg, mels, dtype=self.dtype)
+        cross = cross_kv(dec, cfg, enc)
+        if num_beams > 1:
+            out = beam_search(dec, cfg, cross, prompt_ids, opts,
+                              num_beams=num_beams,
+                              length_penalty=length_penalty, dtype=self.dtype)
+        else:
+            out = generate(dec, cfg, cross, prompt_ids, opts, temperature=0.0,
+                           dtype=self.dtype)
+        seqs = out.sequences.cpu().numpy()
+        lens = out.seq_len.cpu().numpy()
+        if num_frames is None:
+            return seqs, lens, None
+        # crop the attention columns to each window's real mel frames before
+        # the DTW (num_frames // 2 inside): final tokens must not align into
+        # the zero-padded tail past the audio
+        sel = selected_cross_weights(dec, cfg, out.sequences[:, :-1],
+                                     self._alignment_heads(), cross=cross,
+                                     dtype=self.dtype)
+        times = token_timestamps_from_weights(
+            sel.float().cpu().numpy(), num_input_ids=len(prompts[0]),
+            seq_lens=lens, num_frames=num_frames)
+        return seqs, lens, times
+
+    # ------------------------------------------------------------------
     def __call__(self, audio, chunk_length_s: float = 30.0,
                  stride_length_s=None, batch_size: Optional[int] = None,
                  language: Optional[str] = None, task: str = "transcribe",
-                 return_timestamps: bool = False,
+                 return_timestamps=False,
                  return_language: bool = False,
                  max_new_tokens: Optional[int] = None,
                  generate_kwargs: Optional[dict] = None):
         """Transcribe one audio (path, bytes, array or HF-style dict) into
         ``{"text": ..., ("chunks": ...)}``, or a list of audios into a list
-        of such results."""
-        if return_timestamps == "word":
-            raise NotImplementedError("word timestamps come with a later "
-                                      "slice of the port")
+        of such results.  ``return_timestamps`` is False, True (segment
+        timestamps) or ``"word"``; ``generate_kwargs`` may hold
+        ``num_beams`` and ``length_penalty`` (beam search) and any
+        :class:`GenerationOptions` field (``do_sample``, ``top_k``, ...)."""
         tok, cfg = self.tokenizer, self.cfg
         batch_size = batch_size or self.batch_size
         max_new = max_new_tokens or self.max_new_tokens
+        word_timestamps = return_timestamps == "word"
         gen_kwargs = dict(generate_kwargs or {})
-        if int(gen_kwargs.pop("num_beams", 1)) > 1:
-            raise NotImplementedError("beam search comes with a later slice "
-                                      "of the port")
-        gen_kwargs.pop("length_penalty", None)
+        num_beams = int(gen_kwargs.pop("num_beams", 1))
+        length_penalty = float(gen_kwargs.pop("length_penalty", 1.0))
 
         many = isinstance(audio, (list, tuple))
         files = [self._chunk(load_audio(a, cfg.sampling_rate), chunk_length_s,
@@ -161,23 +222,86 @@ class WhisperPipeline:
             cfg, max_new_tokens=max_new,
             return_timestamps=bool(return_timestamps),
             no_speech_token_id=tok.no_speech, **gen_kwargs)
+        full = 2 * cfg.max_source_positions
 
         outputs: List[List[Dict[str, Any]]] = [[] for _ in files]
         for i in range(0, len(windows), batch_size):
-            out = encode_and_generate(
-                self.params, cfg, mels[i:i + batch_size],
-                torch.tensor(prompts[i:i + batch_size], dtype=torch.long),
-                opts, dtype=self.dtype, device=self.device)
-            seqs = out.sequences.cpu().numpy()
-            lens = out.seq_len.cpu().numpy()
-            for j in range(len(seqs)):
-                f, c = windows[i + j]
-                outputs[f].append({"tokens": seqs[j][:lens[j]].tolist(),
-                                   "stride": c["stride"]})
+            batch = windows[i:i + batch_size]
+            frames = ([min(int(round(c["stride"][0] * 100)), full)
+                       for _, c in batch] if word_timestamps else None)
+            seqs, lens, times = self._decode_batch(
+                mels[i:i + batch_size], prompts[i:i + batch_size], opts,
+                num_beams, length_penalty, frames)
+            for j, (f, c) in enumerate(batch):
+                entry = {"tokens": seqs[j][:lens[j]].tolist(),
+                         "stride": c["stride"]}
+                if times is not None:
+                    entry["token_times"] = times[j][:lens[j]]
+                    entry["start_s"] = c["start_s"]
+                outputs[f].append(entry)
 
-        results = [self._assemble(o, return_timestamps, return_language)
-                   for o in outputs]
+        if word_timestamps:
+            results = [self._assemble_words(o, prompt_len=len(prompts[0]))
+                       for o in outputs]
+        else:
+            results = [self._assemble(o, return_timestamps, return_language)
+                       for o in outputs]
         return results if many else results[0]
+
+    def transcribe_words_batch(self, wavs: List[np.ndarray],
+                               languages: Optional[List[Optional[str]]] = None,
+                               task: str = "transcribe",
+                               max_new_tokens: Optional[int] = None,
+                               ) -> List[Dict[str, Any]]:
+        """Word-timestamp transcription of many short (<= 30 s) audios in
+        shared batches; row for row the result of
+        ``self(wav, return_timestamps="word")``.  Languages may differ per
+        row; missing ones are detected in one batched pass."""
+        tok, cfg = self.tokenizer, self.cfg
+        n = len(wavs)
+        max_new = max_new_tokens or self.max_new_tokens
+        full = 2 * cfg.max_source_positions
+        wav_arr = np.zeros((n, cfg.n_samples), np.float32)
+        n_frames, durs = [], []
+        for j, w in enumerate(wavs):
+            if len(w) > cfg.n_samples:
+                raise ValueError("transcribe_words_batch is single-window "
+                                 f"only (audio {j} exceeds 30 s)")
+            wav_arr[j, :len(w)] = w
+            n_frames.append(min(int(round(len(w) / cfg.sampling_rate * 100)),
+                                full))
+            durs.append(len(w) / cfg.sampling_rate)
+        mels = compute_mel(wav_arr, cfg, device=self.device).to(self.dtype)
+
+        languages = list(languages) if languages else [None] * n
+        if any(l is None for l in languages) and len(tok.lang_to_id) > 1:
+            detected = self.detect_language(mels)
+            languages = [l if l is not None else detected[j]
+                         for j, l in enumerate(languages)]
+        prompts = [tok.prompt_ids(language=languages[j], task=task,
+                                  no_timestamps=False) for j in range(n)]
+        plen = len(prompts[0])
+        if any(len(p) != plen for p in prompts):
+            raise ValueError("prompts of one batch must have one length")
+        opts = GenerationOptions.from_config(
+            cfg, max_new_tokens=max_new, return_timestamps=True,
+            no_speech_token_id=tok.no_speech)
+
+        results: List[Dict[str, Any]] = []
+        for i in range(0, n, self.batch_size):
+            k = min(self.batch_size, n - i)
+            seqs, lens, times = self._decode_batch(
+                mels[i:i + k], prompts[i:i + k], opts, 1, 1.0,
+                n_frames[i:i + k])
+            for j in range(k):
+                entry = {"tokens": seqs[j][:lens[j]].tolist(),
+                         "stride": (durs[i + j], 0.0, 0.0),
+                         "token_times": times[j][:lens[j]],
+                         "start_s": 0.0}
+                res = self._assemble_words([entry], prompt_len=plen)
+                res["language"] = languages[i + j]
+                results.append(res)
+        return results
 
     def _assemble(self, outputs: List[Dict[str, Any]], return_timestamps,
                   return_language) -> Dict[str, Any]:
@@ -196,3 +320,26 @@ class WhisperPipeline:
                                         return_timestamps=return_timestamps,
                                         return_language=return_language)
         return {"text": text, **optional}
+
+    def _assemble_words(self, outputs: List[Dict[str, Any]],
+                        prompt_len: int) -> Dict[str, Any]:
+        """Per-window token times -> one word list with stride trimming:
+        each word belongs to the window whose non-strided core holds its
+        start (left/right strides are 0 on the first/last window)."""
+        tok = self.tokenizer
+        words: List[Dict[str, Any]] = []
+        for o in outputs:
+            dur, left, right = o["stride"]
+            gen_ids = o["tokens"][prompt_len:]
+            gen_times = o["token_times"][prompt_len:len(o["tokens"])]
+            for w in words_from_tokens(tok, gen_ids, gen_times,
+                                       time_offset=0.0):
+                if w["start"] < left - 1e-6 or w["start"] >= dur - right:
+                    continue
+                words.append({
+                    "text": w["word"],
+                    "timestamp": (round(o["start_s"] + w["start"], 2),
+                                  round(o["start_s"] + w["end"], 2)),
+                })
+        text = "".join(w["text"] for w in words)
+        return {"text": text.strip(), "chunks": words}

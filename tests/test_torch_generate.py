@@ -72,10 +72,18 @@ def test_encode_and_generate_token_identical(setup, case):
 
 
 def test_sampling_not_ported_yet(setup):
+    """Sampling is ported now (``tests/test_torch_sampling.py`` holds its
+    distribution); this test keeps its name and checks what the JAX pipeline
+    relies on: sampling at temperature 0 is greedy decoding."""
     _, tp, mel = setup
-    opts = GenerationOptions.from_config(CFG, do_sample=True)
-    with pytest.raises(NotImplementedError):
-        encode_and_generate(tp, CFG, mel, PROMPT, opts, device="cpu")
+    sampled = encode_and_generate(
+        tp, CFG, mel, PROMPT,
+        GenerationOptions.from_config(CFG, max_new_tokens=12, do_sample=True),
+        temperature=0.0, device="cpu")
+    greedy = encode_and_generate(
+        tp, CFG, mel, PROMPT,
+        GenerationOptions.from_config(CFG, max_new_tokens=12), device="cpu")
+    assert torch.equal(sampled.sequences, greedy.sequences)
 
 
 def _scores(seed, b=4):

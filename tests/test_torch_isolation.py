@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, nothing of the JAX package, and no silent
 move to the CPU when the card is missing."""
 
+import ast
 import re
 import subprocess
 import sys
@@ -42,6 +43,57 @@ def test_no_source_imports_jax_or_the_jax_package(script):
     for path in paths:
         hits = FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+# beam, sampling, sequential long-form, word timestamps and the eval CLI
+LONG_FORM_MODULES = (
+    "distil_whisper_tpu_torch.generation.beam",
+    "distil_whisper_tpu_torch.generation.sequential",
+    "distil_whisper_tpu_torch.generation.word_timestamps",
+    "distil_whisper_tpu_torch.tokenizer.normalizers",
+    "distil_whisper_tpu_torch.metrics",
+    "distil_whisper_tpu_torch.metrics.wer",
+    "distil_whisper_tpu_torch.cli",
+    "distil_whisper_tpu_torch.cli.common",
+    "distil_whisper_tpu_torch.cli.run_eval",
+    "distil_whisper_tpu_torch.cli.run_long_form_transcription",
+)
+# the package as a module name: a file path (the kernels line's "replaces")
+# is not an import
+JAX_PACKAGE_WORD = re.compile(r"\bdistil_whisper_tpu\b(?![_/])")
+
+
+def test_long_form_modules_are_checked():
+    assert set(LONG_FORM_MODULES) <= {name for _, name in _modules()}
+
+
+def _code_strings(tree):
+    """String constants of a module that are not docstrings."""
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docstrings.add(id(first.value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docstrings]
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", None])
+def test_no_code_names_the_jax_package(script):
+    """No identifier or string in code (a dynamic import, a ``-m`` command)
+    names the JAX package as a whole word; docstrings and comments may."""
+    paths = [ROOT / script] if script else [p for p, _ in _modules()]
+    for path in paths:
+        tree = ast.parse(path.read_text())
+        names = [n.id for n in ast.walk(tree) if isinstance(n, ast.Name)]
+        names += [n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)]
+        hits = [t for t in _code_strings(tree) + names
+                if JAX_PACKAGE_WORD.search(t)]
+        assert not hits, f"{path.relative_to(ROOT)} names {hits}"
 
 
 _BLOCKED = """

@@ -67,9 +67,15 @@ def test_list_input_matches_one_by_one(pipes, language):
 
 
 def test_not_yet_ported_options_raise(pipes):
+    """Beam search and word timestamps are ported now (held against JAX in
+    tests/test_torch_beam.py and test_torch_word_timestamps.py); speculative
+    decoding, in the pipeline and in sequential long-form, still raises."""
+    from distil_whisper_tpu_torch.generation import SequentialTranscriber
     _, tpipe = pipes
-    audio = _tone(2.0, 6)
     with pytest.raises(NotImplementedError):
-        tpipe(audio, language="en", return_timestamps="word")
+        WhisperPipeline(None, dtype=torch.float32, params=tpipe.params,
+                        cfg=tpipe.cfg, tokenizer=tpipe.tokenizer,
+                        speculative_method="ngram", device="cpu")
     with pytest.raises(NotImplementedError):
-        tpipe(audio, language="en", generate_kwargs={"num_beams": 2})
+        SequentialTranscriber(tpipe.params, tpipe.cfg, tpipe.tokenizer,
+                              speculative_method="draft", device="cpu")

@@ -22,6 +22,13 @@ def to_numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def jax_init_params(cfg, seed: int):
+    """The JAX package's random init under one ``jax.jit``: one compile in
+    place of one per eager op (the test modules clear JAX's caches)."""
+    from distil_whisper_tpu.models import init_params
+    return jax.jit(init_params, static_argnums=0)(cfg, jax.random.PRNGKey(seed))
+
+
 def torch_params(jax_tree, dtype=torch.float32):
     """The port's CPU copy of a JAX param tree."""
     return params_from_numpy(to_numpy_tree(jax_tree), "cpu", dtype)
