@@ -32,13 +32,30 @@
    int8 MLP 32 (one per encoder layer) and int8 decode attention 0 (unwired,
    as in the JAX package); tokens equal on both runs; the int8 encoder close
    to the bf16 encoder.
-5. A small model on the card agrees with the CPU: fp32 tokens identical,
+5. Drives the long-form paths on the main path's weights (beam search,
+   word timestamps, the sequential ladder, the int8 beam run), each path's
+   launches counted from 0 around it.
+6. Drives speculative decoding (``speculative_path``) with large-v3 at full
+   width as the teacher (32 + 32 layers, random bf16 weights from seed 0)
+   and distil-large-v3's 2-layer decoder as its draft (seed 1, on the
+   teacher's encoder states): the teacher's plain greedy and draft
+   speculation through ``WhisperPipeline`` on the 16 windows (launches
+   log-mel 1, encoder attention 32), then the decode loops alone: the
+   draft (rounds, acceptance, the share of tokens equal to greedy's in
+   bf16), ``synthetic_acceptance`` 0.8 against the prefix law and n-gram
+   lookup with ``synthetic_period`` 16 (both synthetic tokens), and the
+   sequential t = 0 rung with the draft on 4 long files against the plain
+   rung.
+7. A small model on the card agrees with the CPU: fp32 tokens identical,
    bf16 fused encoder close; the same model with the int8 flags (fp32 tokens
    and prefill logits against the CPU; the bf16 int8 encoder, through both
-   encoder kernels, close to the fp32 CPU int8 encoder).
-6. Prints the kernels line (launches from the int8 path's short-form run),
-   the card's name and power limit, and last the result line
-   ``{"ok": true, "device": {...}}``.
+   encoder kernels, close to the fp32 CPU int8 encoder); beam, sequential
+   and word-timestamp results; fp32 draft and n-gram speculation on the
+   card equal to the CPU greedy tokens, and the speculative sequential
+   t = 0 rung equal to the plain CPU rung.
+8. Prints the kernels line (launches from the int8 path's short-form run,
+   and per path in ``launches_by_path``), the card's name and power limit,
+   and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises: the script then exits non-zero without a result
 line.  It also exits non-zero without a GPU, and outside the repository.
@@ -248,14 +265,16 @@ def mel_long_file(gen, m: int):
     """The mel kernel on whole files, as sequential long-form computes them
     (``compute_mel(..., pad_to_chunk=False)``): one 70 s file (1,120,000
     samples, 7000 frames) and a ragged length that is no multiple of the
-    hop, held against the plain version on the compressed features (the
-    max - 8 clamp over the whole file) at the 30 s tolerance, and the 70 s
-    file timed against its bound and the ``torch.stft`` composition."""
+    hop, and clips of 160, 170 and 200 samples (one frame, the padding
+    reflected more than once, gathered on the card before the kernel),
+    held against the plain version on the compressed features (the max - 8
+    clamp over the whole file) at the 30 s tolerance, and the 70 s file
+    timed against its bound and the ``torch.stft`` composition."""
     import torch
     from distil_whisper_tpu_torch.audio import mel_kernel
     from distil_whisper_tpu_torch.audio.mel import compress, whisper_mel_filters
     rows = []
-    for n in (1_120_000, 1_120_000 - 77):
+    for n in (1_120_000, 1_120_000 - 77, 160, 170, 200):
         audio = 0.2 * torch.randn(1, n, generator=gen, device="cuda")
         out = mel_kernel.log10_mel_fused(audio, m)
         ref = mel_kernel.log10_mel_plain(audio, m)
@@ -947,6 +966,195 @@ def phase_longform_path(tok, bf16):
     return launches
 
 
+def phase_speculative_path(tok, bf16):
+    """Speculative decoding at full width: large-v3 (32 encoder and 32
+    decoder layers) is the teacher, random bf16 weights from seed 0;
+    distil-large-v3's 2-layer decoder (seed 1) drafts for it on the
+    teacher's encoder states.  On the main path's 16 windows, greedy, 128
+    new tokens, gamma 5: the teacher's plain greedy, draft speculation
+    through ``WhisperPipeline`` (launches counted from 0 around its first
+    call), then the decode loops on the same encoder states: draft,
+    ``synthetic_acceptance`` 0.8 and n-gram lookup with
+    ``synthetic_period`` 16 (both synthetic: their tokens are the oracle's,
+    not the model's); last the sequential t = 0 rung with the draft on 4
+    long files, against the plain t = 0 rung."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import (
+        GenerationOptions, SequentialOptions, SequentialTranscriber, generate)
+    from distil_whisper_tpu_torch.generation import speculative as S
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.models.params import tree_paths
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+
+    cfg, dcfg = PRESETS["large-v3"], PRESETS["distil-large-v3"]
+    dtype, gamma, max_new, n = torch.bfloat16, 5, 128, 16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    teacher = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+    draft = init_params(dcfg, seed=1, device="cuda", dtype=dtype)
+    n_params = sum(x.numel() for x in tree_paths(teacher).values())
+    common = dict(dtype=dtype, batch_size=n, max_new_tokens=max_new,
+                  params=teacher, cfg=cfg, tokenizer=tok, device="cuda")
+    plain = WhisperPipeline(None, **common)
+    spec = WhisperPipeline(None, **common, speculative_method="draft",
+                           assistant=(draft, dcfg), gamma=gamma)
+    clips, audio_s = bf16["clips"], n * 30.0
+    bf16_path = {"log_mel": 1, "encoder_attention": cfg.encoder_layers,
+                 "int8_mlp": 0, "int8_decode_attention": 0}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- 1. the entry point: plain greedy and draft speculation ------------
+    plain(clips, language="en")                                 # warm-up
+    greedy_text, greedy_s = timed(lambda: plain(clips, language="en"))
+    reset_counts()
+    stats0 = dict(spec.spec_stats)
+    spec_text, spec_first_s = timed(lambda: spec(clips, language="en"))
+    launches = read_counts()
+    if launches != bf16_path:
+        raise AssertionError(f"speculative path launches {launches}, "
+                             f"expected {bf16_path}")
+    pipe_stats = {k: spec.spec_stats[k] - stats0[k] for k in stats0}
+    if pipe_stats["drafted"] <= 0:
+        raise AssertionError("the speculative pipeline drafted nothing")
+    spec_text2, spec_s = timed(lambda: spec(clips, language="en"))
+    if spec_text2 != spec_text:
+        raise AssertionError("two speculative runs gave other text")
+    text_equal = sum(a["text"] == b["text"]
+                     for a, b in zip(spec_text, greedy_text))
+
+    # -- 2. the decode loops on the teacher's encoder states ---------------
+    pcfg, dpcfg = spec.cfg, spec.assistant[1]
+    mels = compute_mel(np.stack(clips), pcfg, device="cuda").to(dtype)
+    enc, encode_s = timed(lambda: W.encode(teacher["encoder"], pcfg, mels,
+                                           dtype=dtype))
+    if enc.shape != (n, 1500, cfg.d_model) or not torch.isfinite(enc).all():
+        raise AssertionError(f"bad teacher encoder states {tuple(enc.shape)}")
+    t_cross = W.cross_kv(teacher["decoder"], pcfg, enc)
+    d_cross = W.cross_kv(draft["decoder"], dpcfg, enc)
+    prompt = torch.tensor([tok.prompt_ids(language="en")] * n, device="cuda")
+    opts = GenerationOptions.from_config(pcfg, max_new_tokens=max_new,
+                                         no_speech_token_id=tok.no_speech)
+    p = prompt.shape[1]
+    greedy, gen_s = timed(lambda: generate(teacher["decoder"], pcfg, t_cross,
+                                           prompt, opts, dtype=dtype))
+    steps = int(greedy.seq_len.max()) - p
+    report = {"greedy": {"ms_per_step": gen_s * 1e3 / max(steps, 1),
+                         "decode_s": gen_s, "steps": steps,
+                         "audio_s_per_s": audio_s / (encode_s + gen_s)}}
+
+    def loop_report(name, out, seconds, synthetic):
+        rounds, drafted, accepted = (out.rounds.sum().item(),
+                                     out.drafted.sum().item(),
+                                     out.accepted.sum().item())
+        gen = slice(p, p + max_new)
+        share = (out.sequences[:, gen] == greedy.sequences[:, gen]).float()
+        row = {"synthetic_tokens": synthetic,
+               "rounds_max": int(out.rounds.max()),
+               "rounds": rounds, "drafted": drafted, "accepted": accepted,
+               "acceptance_rate": accepted / max(drafted, 1),
+               "accepted_per_round": accepted / max(rounds, 1),
+               "tokens_per_round": (out.seq_len - p - 1).sum().item()
+               / max(rounds, 1),
+               "decode_s": seconds,
+               "ms_per_round": seconds * 1e3 / max(int(out.rounds.max()), 1),
+               "audio_s_per_s": audio_s / (encode_s + seconds),
+               "share_equal_to_greedy": share.mean().item()}
+        if not bool((out.seq_len > p).all()):
+            raise AssertionError(f"{name}: a lane emitted nothing")
+        report[name] = row
+        return row
+
+    out, sec = timed(lambda: S.speculative_generate_batched(
+        teacher["decoder"], pcfg, draft["decoder"], dpcfg, t_cross, d_cross,
+        prompt, opts, gamma=gamma, dtype=dtype))
+    loop_report("draft", out, sec, False)
+    alpha = 0.8
+    out, sec = timed(lambda: S.speculative_generate_batched(
+        teacher["decoder"], pcfg, draft["decoder"], dpcfg, t_cross, d_cross,
+        prompt, opts, gamma=gamma, dtype=dtype, synthetic_acceptance=alpha))
+    row = loop_report("synthetic_acceptance_0.8", out, sec, True)
+    row["prefix_law_accepted_per_round"] = (alpha * (1 - alpha ** gamma)
+                                            / (1 - alpha))
+    row["prefix_law_tokens_per_round"] = row[
+        "prefix_law_accepted_per_round"] + 1
+    out, sec = timed(lambda: S.ngram_speculative_generate_batched(
+        teacher["decoder"], pcfg, t_cross, prompt, opts, gamma=gamma,
+        max_ngram=3, dtype=dtype, synthetic_period=16))
+    loop_report("ngram_synthetic_period_16", out, sec, True)
+    del t_cross, d_cross, enc
+
+    # -- 3. the sequential t = 0 rung with the draft, 4 long files ---------
+    files = [a[:int(sec * 16000)] for a, sec in
+             zip(synthetic_audio(4, 75.0, seed=7), (40.0, 52.0, 63.0, 75.0))]
+    reset_counts()
+    feats = [compute_mel(a, pcfg, pad_to_chunk=False, device="cuda")[0]
+             for a in files]
+    torch.cuda.synchronize()
+    feature_mels = read_counts()["log_mel"]
+    sopts = SequentialOptions(temperatures=(0.0,))
+    seq_plain = SequentialTranscriber(teacher, pcfg, tok, sopts,
+                                      language="en", batch_size=n,
+                                      dtype=dtype, device="cuda")
+    # the raw (params, cfg) pair, as run_eval passes it: the transcriber
+    # prepares the draft itself
+    seq_spec = SequentialTranscriber(teacher, pcfg, tok, sopts,
+                                     language="en", batch_size=n,
+                                     dtype=dtype, device="cuda",
+                                     speculative_method="draft",
+                                     assistant=(draft, dcfg), gamma=gamma)
+    a, plain_seq_s = timed(lambda: seq_plain.transcribe(feats))
+    reset_counts()
+    b, spec_seq_s = timed(lambda: seq_spec.transcribe(feats))
+    seq_counts = read_counts()
+    if (seq_counts["encoder_attention"] % cfg.encoder_layers
+            or not seq_counts["encoder_attention"] or seq_counts["log_mel"]
+            or feature_mels != len(files)
+            or seq_spec.spec_stats["rounds"] <= 0):
+        raise AssertionError(f"sequential speculative launches {seq_counts} "
+                             f"(features: mel {feature_mels}), "
+                             f"{seq_spec.spec_stats}")
+    ka, kb = _segment_keys(a), _segment_keys(b)
+    seg_pairs = [(x, y) for ra, rb in zip(ka, kb) for x, y in zip(ra, rb)]
+    seq_file_s = sum(len(x) for x in files) / 16000
+    report["sequential_t0_draft"] = {
+        "files": len(files), "audio_s": seq_file_s,
+        "segments": sum(len(r) for r in kb),
+        "plain_segments": sum(len(r) for r in ka),
+        "segments_equal_to_plain": sum(x == y for x, y in seg_pairs),
+        "files_equal_to_plain": sum(ra == rb for ra, rb in zip(ka, kb)),
+        "seconds": spec_seq_s, "plain_seconds": plain_seq_s,
+        "audio_s_per_s": seq_file_s / spec_seq_s,
+        "plain_audio_s_per_s": seq_file_s / plain_seq_s,
+        **{k: v for k, v in seq_spec.spec_stats.items()},
+        "encode_calls": seq_counts["encoder_attention"] // cfg.encoder_layers}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit({"phase": "speculative_path", "teacher": "large-v3",
+          "teacher_params": n_params, "draft_model": "distil-large-v3, seed 1",
+          "dtype": "bf16", "batch": n, "max_new_tokens": max_new,
+          "gamma": gamma, "max_ngram": 3, "launches": launches,
+          "pipeline": {"greedy_warm_s": greedy_s,
+                       "greedy_audio_s_per_s": audio_s / greedy_s,
+                       "draft_first_s": spec_first_s, "draft_warm_s": spec_s,
+                       "draft_audio_s_per_s": audio_s / spec_s,
+                       "texts_equal_to_greedy": text_equal, **pipe_stats},
+          "encode_s": encode_s, **report, "peak_mem_gib": peak})
+    del plain, spec, seq_plain, seq_spec, teacher, draft
+    torch.cuda.empty_cache()
+    return {"speculative": launches,
+            "speculative_sequential": {**seq_counts,
+                                       "log_mel": feature_mels}}
+
+
 def phase_small_reference(tok):
     """A small model on the card against the CPU: fp32 greedy tokens
     identical, bf16 fused (kernel) encoder close to the fp32 CPU encoder;
@@ -984,6 +1192,7 @@ def phase_small_reference(tok):
         raise AssertionError("the card disagrees with the CPU on test-tiny")
     small_reference_int8(cfg, mel, prompt)
     small_reference_longform(cfg, mel, tok)
+    small_reference_speculative(cfg, mel, tok)
 
 
 def small_reference_longform(cfg, mel, tok):
@@ -1040,6 +1249,84 @@ def small_reference_longform(cfg, mel, tok):
     if not (beam_same and segs[0] == segs[1] and np.array_equal(*times)):
         raise AssertionError("the card disagrees with the CPU on the "
                              "long-form paths of test-tiny")
+
+
+def small_reference_speculative(cfg, mel, tok):
+    """The widened test-tiny as a 4-layer teacher with a 2-layer draft (its
+    own weights), fp32: draft and n-gram speculation on the card give the
+    CPU greedy tokens, with timestamps, batched, and a draft equal to the
+    teacher accepts every proposal; the speculative sequential t = 0 rung
+    on the card gives the plain CPU rung's segments."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.generation import (
+        GenerationOptions, SequentialOptions, SequentialTranscriber,
+        encode_and_generate)
+    from distil_whisper_tpu_torch.generation import speculative as S
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.models.params import tree_paths, unflatten_paths
+
+    tcfg = cfg.replace(vocab_size=51866, decoder_layers=4)
+    dcfg = tcfg.replace(decoder_layers=2)
+    cpu = init_params(tcfg, seed=7, device="cpu")
+    gpu = unflatten_paths({p: x.cuda() for p, x in tree_paths(cpu).items()})
+    dgpu = unflatten_paths({p: x.cuda() for p, x in tree_paths(
+        init_params(dcfg, seed=8, device="cpu")).items()})
+    prompt = [tok.prompt_ids(language="en", no_timestamps=False)] * 2
+    opts = GenerationOptions.from_config(tcfg, max_new_tokens=32,
+                                         return_timestamps=True,
+                                         no_speech_token_id=tok.no_speech)
+    golden = encode_and_generate(cpu, tcfg, mel, prompt, opts, device="cpu")
+    enc = W.encode(gpu["encoder"], tcfg, torch.from_numpy(mel).cuda())
+    t_cross = W.cross_kv(gpu["decoder"], tcfg, enc)
+    prompt_t = torch.tensor(prompt, device="cuda")
+    outs = {
+        "draft": S.speculative_generate_batched(
+            gpu["decoder"], tcfg, dgpu["decoder"], dcfg, t_cross,
+            W.cross_kv(dgpu["decoder"], dcfg, enc), prompt_t, opts, gamma=3),
+        "ngram": S.ngram_speculative_generate_batched(
+            gpu["decoder"], tcfg, t_cross, prompt_t, opts, gamma=3),
+        "self_draft": S.speculative_generate_batched(
+            gpu["decoder"], tcfg, gpu["decoder"], tcfg, t_cross, t_cross,
+            prompt_t, opts, gamma=3)}
+    same = {k: bool(torch.equal(o.sequences.cpu(), golden.sequences)
+                    and torch.equal(o.seq_len.cpu(), golden.seq_len))
+            for k, o in outs.items()}
+    # a draft equal to the teacher accepts every proposal: every round but
+    # a lane's last emits gamma + 1 tokens
+    sd = outs["self_draft"]
+    least_rounds = (sd.seq_len.cpu() - len(prompt[0]) - 1 + 3) // 4
+    self_draft_all = bool(torch.equal(sd.rounds.cpu(), least_rounds)
+                          and (sd.drafted - sd.accepted).max() <= 3)
+
+    files = [x[:int(sec * 16000)] for x, sec in
+             zip(synthetic_audio(2, 62.0, seed=9), (62.0, 45.0))]
+    feats = [compute_mel(x, tcfg, pad_to_chunk=False, device="cpu")[0].numpy()
+             for x in files]
+    sopts = SequentialOptions(temperatures=(0.0,), max_new_tokens=48)
+    plain_cpu = _segment_keys(SequentialTranscriber(
+        cpu, tcfg, tok, sopts, language="en", batch_size=2,
+        device="cpu").transcribe(feats))
+    spec_tr = SequentialTranscriber(
+        gpu, tcfg, tok, sopts, language="en", batch_size=2, device="cuda",
+        speculative_method="draft", assistant=(dgpu, dcfg), gamma=3)
+    spec_gpu = _segment_keys(spec_tr.transcribe(feats))
+    emit({"phase": "small_reference_speculative",
+          "fp32_tokens_identical_to_cpu_greedy": same,
+          "generated_tokens": int((golden.seq_len - len(prompt[0])).sum()),
+          **{name: {k: getattr(o, k).tolist()
+                    for k in ("rounds", "drafted", "accepted")}
+             for name, o in outs.items()},
+          "self_draft_accepts_every_proposal": self_draft_all,
+          "fp32_sequential_t0_segments_identical": spec_gpu == plain_cpu,
+          "sequential_segments": sum(len(r) for r in plain_cpu),
+          "sequential_spec_stats": spec_tr.spec_stats})
+    if not (all(same.values()) and self_draft_all and spec_gpu == plain_cpu
+            and spec_tr.spec_stats["rounds"] > 0):
+        raise AssertionError("speculation on the card disagrees with the CPU "
+                             "greedy on test-tiny")
 
 
 def small_reference_int8(cfg, mel, prompt):
@@ -1127,6 +1414,7 @@ def main() -> int:
         bf16 = phase_main_path(tok)
         counts = phase_int8_main_path(tok, bf16)
         longform = phase_longform_path(tok, bf16)
+        longform.update(phase_speculative_path(tok, bf16))
         del bf16
         torch.cuda.empty_cache()
         phase_small_reference(tok)

@@ -33,18 +33,39 @@ _HOP = 160
 _BINS_PADDED = 208          # the kernel's 201 bins in 26 groups of 8
 
 
+def reflect_index(n: int, pad: int) -> np.ndarray:
+    """Indices of numpy's (and ``jnp.pad``'s) reflect padding of ``n``
+    samples by ``pad`` on each side, reflecting again while the pad is not
+    shorter than the input: ``x[reflect_index(n, pad)]`` is the padded
+    signal."""
+    return np.pad(np.arange(n), pad, mode="reflect")
+
+
+def _check_frames(n: int, hop: int) -> int:
+    if n < hop:
+        raise ValueError(f"log-mel of {n} samples: fewer than the hop of "
+                         f"{hop} samples give no frame")
+    return n // hop
+
+
 def log10_mel_plain(audio: torch.Tensor, num_mel_bins: int, n_fft: int = 400,
                     hop: int = 160, sampling_rate: int = 16000) -> torch.Tensor:
     """``log10(max(mel, 1e-10))`` of fp32 audio [B, N] -> [B, n_mels, N // hop].
 
     torch.stft(center=True) semantics: reflect-pad n_fft//2 on both sides; the
     reference drops the final frame, so only ``N // hop`` frames are computed.
-    Frames are gathered, multiplied by the windowed DFT basis, squared into
-    power, projected onto the mel filters and logged — all in fp32.
+    An input of ``n_fft // 2`` samples or fewer is reflected again past its
+    ends (:func:`reflect_index`), as ``jnp.pad`` does.  Frames are gathered,
+    multiplied by the windowed DFT basis, squared into power, projected onto
+    the mel filters and logged — all in fp32.
     """
-    n_frames = audio.shape[-1] // hop
-    x = torch.nn.functional.pad(audio[:, None], (n_fft // 2, n_fft // 2),
-                                mode="reflect")[:, 0]
+    n_frames = _check_frames(audio.shape[-1], hop)
+    if audio.shape[-1] > n_fft // 2:
+        x = torch.nn.functional.pad(audio[:, None], (n_fft // 2, n_fft // 2),
+                                    mode="reflect")[:, 0]
+    else:
+        idx = reflect_index(audio.shape[-1], n_fft // 2)
+        x = audio[:, torch.from_numpy(idx).to(audio.device)]
     frames = x.unfold(-1, n_fft, hop)[:, :n_frames]            # [B, T, n_fft]
     basis = torch.from_numpy(stft_basis(n_fft)).to(audio.device)
     spec = torch.matmul(frames, basis.T)                       # [B, T, 2*n_freq]
@@ -54,6 +75,17 @@ def log10_mel_plain(audio: torch.Tensor, num_mel_bins: int, n_fft: int = 400,
         whisper_mel_filters(num_mel_bins, n_fft, sampling_rate)).to(audio.device)
     mel = torch.matmul(power, filters)                         # [B, T, n_mels]
     return torch.log10(torch.clamp(mel, min=1e-10)).transpose(1, 2)
+
+
+def short_input_index(n: int) -> np.ndarray:
+    """For an input of ``n <= 200`` samples: the indices of ``n_fft // 2 + 1
+    = 201`` samples of its reflect-padded signal, starting at the first
+    input sample, that the kernel takes as its input.  The padded signal is
+    symmetric about the first sample, so the kernel's own single reflection
+    of these 201 samples rebuilds the padded signal's first frame (the only
+    frame of 160-200 samples)."""
+    pad = _N_FFT // 2
+    return reflect_index(n, pad)[pad:2 * pad + 1]
 
 
 def filter_bands(filters: np.ndarray, group: int = 8) -> np.ndarray:
@@ -100,15 +132,17 @@ def log10_mel_fused(audio: torch.Tensor, num_mel_bins: int) -> torch.Tensor:
     if audio.dtype != torch.float32 or audio.ndim != 2:
         raise ValueError("log10_mel_fused wants fp32 audio [B, N], got "
                          f"{audio.dtype} {tuple(audio.shape)}")
-    if audio.shape[1] <= _N_FFT // 2:
-        raise ValueError("log10_mel_fused: reflect padding needs more than "
-                         f"{_N_FFT // 2} samples")
     if num_mel_bins % 8:
         raise ValueError("log10_mel_fused: the kernel takes a multiple of 8 "
                          f"mel bins, got {num_mel_bins}")
+    n_frames = _check_frames(audio.shape[1], _HOP)
+    if audio.shape[1] <= _N_FFT // 2:
+        # the kernel reflects once; repeated reflection is padded on the
+        # card before it (no plain version on a CUDA tensor)
+        idx = torch.from_numpy(short_input_index(audio.shape[1]))
+        audio = audio[:, idx.to(audio.device)]
     audio = audio.contiguous()
     b, n = audio.shape
-    n_frames = n // _HOP
     basis, filters, bands = _device_constants(num_mel_bins, audio.device)
     out = torch.empty((b, num_mel_bins, n_frames), dtype=torch.float32,
                       device=audio.device)

@@ -10,9 +10,15 @@ and output keys, on one GPU (``--device``, default ``cuda``):
   ladder (chosen automatically when any input exceeds 30 s)
 * ``chunked``     — strided-chunk pipeline with timestamp/LCS merge
 
-``--mode speculative``, ``--assistant_checkpoint`` and
-``--speculative_method ngram`` come with speculative decoding in a later
-slice, ``--distributed`` with multi-GPU; they raise here.
+* ``speculative`` — speculative greedy decoding of 30 s windows: a draft
+  model (``--assistant_checkpoint``) or draft-free n-gram lookup
+  (``--speculative_method ngram``) proposes ``--gamma`` tokens a round and
+  the model verifies them; the tokens are greedy decoding's
+
+The sequential and chunked modes speculate too with
+``--assistant_checkpoint`` or ``--speculative_method ngram`` (sequential at
+its temperature-0 rung).  ``--distributed`` comes with multi-GPU; it
+raises here.
 
 Metrics: WER (+I/S/D splits), RTFx = audio-time / transcription-time,
 tokens/s, and the hallucination stats IER/SER/DER + repeated 5-grams.
@@ -39,7 +45,7 @@ from ..generation import (GenerationOptions, SequentialOptions,
                           encode_and_generate, generate)
 from ..metrics import WordErrors, count_repeated_ngrams, process_words
 from ..models import load_params
-from ..models.whisper import cross_kv
+from ..models.whisper import cross_kv, encode
 from ..pipeline import WhisperPipeline
 from ..tokenizer import (BasicTextNormalizer, EnglishTextNormalizer,
                          WhisperTokenizer)
@@ -79,9 +85,13 @@ def parse_args(argv=None):
                    help="draft tokens per speculative round")
     p.add_argument("--speculative_method", default="draft",
                    choices=["draft", "ngram"],
-                   help="speculative decoding comes with a later slice; "
-                        "'ngram' raises")
-    p.add_argument("--max_ngram", type=int, default=3)
+                   help="draft = assistant-model proposals (needs "
+                        "--assistant_checkpoint); ngram = draft-free prompt "
+                        "lookup, proposals copied from the most recent "
+                        "repeat of the last n-gram")
+    p.add_argument("--max_ngram", type=int, default=3,
+                   help="longest n-gram to match for --speculative_method "
+                        "ngram (tried max..1, longest match wins)")
     p.add_argument("--num_beams", type=int, default=1)
     p.add_argument("--noise_snr_db", type=float, default=None,
                    help="mix white noise at this SNR (noise evaluation)")
@@ -124,13 +134,34 @@ def seq_options_from_args(args) -> SequentialOptions:
 
 
 def _refuse_unported(args) -> None:
-    if (args.mode == "speculative" or args.assistant_checkpoint
-            or args.speculative_method == "ngram"):
-        raise NotImplementedError("speculative decoding comes with a later "
-                                  "slice of the port")
     if args.distributed:
         raise NotImplementedError("multi-GPU evaluation comes with a later "
                                   "slice of the port")
+
+
+def _speculation(args, dtype, device):
+    """``(speculative_method, assistant)`` of the flags, with JAX's
+    argument errors: ``--speculative_method ngram`` is draft-free, and the
+    draft method speculates when ``--assistant_checkpoint`` is given (in
+    ``--mode speculative`` it must be).  Speculation verifies greedy
+    tokens, so ``--mode speculative`` refuses ``--num_beams``."""
+    if args.mode == "speculative" and args.num_beams > 1:
+        raise ValueError("--mode speculative decodes greedily; drop "
+                         "--num_beams")
+    if args.speculative_method == "ngram":
+        if args.assistant_checkpoint:
+            raise ValueError(
+                "--speculative_method ngram is draft-free; drop "
+                "--assistant_checkpoint (or use --speculative_method "
+                "draft to use it)")
+        return "ngram", None
+    if args.assistant_checkpoint:
+        return "draft", load_params(args.assistant_checkpoint, dtype=dtype,
+                                    device=device)
+    if args.mode == "speculative":
+        raise ValueError("--mode speculative with --speculative_method draft "
+                         "requires --assistant_checkpoint")
+    return None, None
 
 
 def _precise_tok_per_s(args, pipe, dtype, device):
@@ -166,8 +197,9 @@ def _precise_tok_per_s(args, pipe, dtype, device):
 
 
 def _short(args, pipe, audios, dtype, device):
-    """Batched 30 s windows through generate or beam search: (hypotheses,
-    generated token count)."""
+    """Batched 30 s windows through generate, beam search or, in ``--mode
+    speculative``, the pipeline's speculation: (hypotheses, generated token
+    count)."""
     tok, cfg, params = pipe.tokenizer, pipe.cfg, pipe.params
     prefix = ([tok.sot_prev] + tok.encode(" " + args.prompt_text.strip())
               if args.prompt_text else [])
@@ -192,6 +224,12 @@ def _short(args, pipe, audios, dtype, device):
             out = encode_and_beam_search(params, cfg, mels, prompts, opts,
                                          num_beams=args.num_beams,
                                          dtype=dtype, device=device)
+        elif pipe.speculative_method:
+            with torch.no_grad():
+                enc = encode(params["encoder"], cfg, mels, dtype=dtype)
+                out = pipe.speculate(
+                    mels, enc, cross_kv(params["decoder"], cfg, enc),
+                    torch.tensor(prompts, device=device), opts)
         else:
             out = encode_and_generate(params, cfg, mels, prompts, opts,
                                       dtype=dtype, device=device)
@@ -206,12 +244,13 @@ def _short(args, pipe, audios, dtype, device):
     return hyps, n_tokens
 
 
-def _sequential(args, pipe, audios, dtype, device):
+def _sequential(args, pipe, audios, dtype, device, method, assistant):
     tok = pipe.tokenizer
     tr = SequentialTranscriber(
         pipe.params, pipe.cfg, tok, seq_options_from_args(args),
         language=args.language, task=args.task, batch_size=args.batch_size,
-        dtype=dtype, device=device)
+        dtype=dtype, speculative_method=method, assistant=assistant,
+        gamma=args.gamma, max_ngram=args.max_ngram, device=device)
     # whole-file features on the device (the mel kernel on the card)
     feats = [compute_mel(a, pipe.cfg, pad_to_chunk=False, device=device)[0]
              for a in audios]
@@ -225,6 +264,11 @@ def _sequential(args, pipe, audios, dtype, device):
     results = tr.transcribe(feats, initial_prompt_tokens=init_prompt)
     hyps = [r["text"] for r in results]
     n_tokens = sum(len(s["tokens"]) for r in results for s in r["segments"])
+    if tr.spec_stats["drafted"]:
+        logger.info("sequential speculative acceptance rate: %.1f%% "
+                    "(%d rounds)",
+                    100 * tr.spec_stats["accepted"] / tr.spec_stats["drafted"],
+                    tr.spec_stats["rounds"])
     return hyps, n_tokens
 
 
@@ -250,12 +294,19 @@ def main(argv=None):
                               device=device)
     cfg = cfg.replace(**{f: True for f in QUANTIZE_FLAGS if getattr(args, f)})
     tok = WhisperTokenizer.from_pretrained(args.model_checkpoint)
+    method, assistant = _speculation(args, dtype, device)
     # the pipeline quantizes the weights once (cfg.quantize_*) and sets the
-    # bf16 kernel flags; every mode runs its params and cfg
+    # bf16 kernel flags; every mode runs its params and cfg, and the chunked
+    # and speculative modes its speculation
+    pipe_spec = args.mode in ("chunked", "speculative")
     pipe = WhisperPipeline(args.model_checkpoint, dtype=dtype,
                            batch_size=args.batch_size,
                            max_new_tokens=args.max_new_tokens, params=params,
-                           cfg=cfg, tokenizer=tok, device=device)
+                           cfg=cfg, tokenizer=tok,
+                           speculative_method=method if pipe_spec else None,
+                           assistant=assistant if pipe_spec else None,
+                           gamma=args.gamma, max_ngram=args.max_ngram,
+                           device=device)
     normalizer = (EnglishTextNormalizer(tok.spelling_mapping)
                   if args.language in (None, "en", "english")
                   else BasicTextNormalizer())
@@ -282,12 +333,18 @@ def main(argv=None):
         return result
 
     t0 = time.perf_counter()
-    if args.mode == "short":
+    if args.mode == "sequential":
+        hyps, n_tokens = _sequential(args, pipe, audios, dtype, device,
+                                     method, assistant)
+    elif args.mode in ("short", "speculative"):
         hyps, n_tokens = _short(args, pipe, audios, dtype, device)
-    elif args.mode == "sequential":
-        hyps, n_tokens = _sequential(args, pipe, audios, dtype, device)
     else:
         hyps, n_tokens = _chunked(args, pipe, audios)
+    if pipe.spec_stats["drafted"]:
+        logger.info("%sspeculative acceptance rate: %.1f%%",
+                    "chunked " if args.mode == "chunked" else "",
+                    100 * pipe.spec_stats["accepted"]
+                    / pipe.spec_stats["drafted"])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0

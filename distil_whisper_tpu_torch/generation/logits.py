@@ -3,8 +3,9 @@
 Counterpart of ``distil_whisper_tpu.generation.logits`` with the same
 semantics (pinned to ``transformers.generation.logits_process``): masking is
 vectorised with a vocabulary index, no per-row Python.  ``gen_idx`` is the
-index within the generated region, a Python int (every lane steps together
-in this slice).
+index within the generated region: a Python int when every lane steps
+together, or a [B] tensor when lanes sit at different indices (the verify
+columns of speculative decoding).  The int path keeps its early returns.
 
 The Whisper timestamp FSM state is three per-sample values carried by the
 generation loop: ``prev`` / ``prevprev`` (last two generated tokens) and
@@ -13,6 +14,7 @@ generation loop: ``prev`` / ``prevprev`` (last two generated tokens) and
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -26,10 +28,23 @@ def _vocab_iota(scores: torch.Tensor) -> torch.Tensor:
     return torch.arange(scores.shape[-1], device=scores.device)[None, :]
 
 
+def _per_lane(gen_idx) -> bool:
+    return isinstance(gen_idx, torch.Tensor)
+
+
 def _token_mask(scores: torch.Tensor, token_ids: Sequence[int]) -> torch.Tensor:
-    mask = torch.zeros(scores.shape[-1], dtype=torch.bool, device=scores.device)
-    mask[torch.as_tensor(list(token_ids), device=scores.device)] = True
-    return mask[None, :]
+    return _cached_token_mask(tuple(token_ids), scores.shape[-1],
+                              scores.device)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_token_mask(token_ids: Tuple[int, ...], vocab: int,
+                       device: torch.device) -> torch.Tensor:
+    """[1, V] bool mask of ``token_ids``, built once per device: a copy of
+    the ids from the host at every step would wait for the card."""
+    mask = torch.zeros(vocab, dtype=torch.bool)
+    mask[list(token_ids)] = True
+    return mask.to(device)[None, :]
 
 
 def suppress_tokens(scores: torch.Tensor,
@@ -40,35 +55,68 @@ def suppress_tokens(scores: torch.Tensor,
     return scores.masked_fill(_token_mask(scores, token_ids), NEG_INF)
 
 
-def suppress_tokens_at_begin(scores: torch.Tensor, gen_idx: int,
+def suppress_tokens_at_begin(scores: torch.Tensor, gen_idx,
                              token_ids: Sequence[int]) -> torch.Tensor:
     """HF SuppressTokensAtBegin: only at the first generated position."""
-    if not token_ids or gen_idx != 0:
+    if not token_ids:
+        return scores
+    if _per_lane(gen_idx):
+        mask = (gen_idx == 0)[:, None] & _token_mask(scores, token_ids)
+        return scores.masked_fill(mask, NEG_INF)
+    if gen_idx != 0:
         return scores
     return scores.masked_fill(_token_mask(scores, token_ids), NEG_INF)
 
 
-def force_tokens(scores: torch.Tensor, gen_idx: int,
+def force_tokens(scores: torch.Tensor, gen_idx,
                  forced: Sequence[Tuple[int, int]],
                  prompt_len: int) -> torch.Tensor:
     """Force specific tokens at absolute decoder positions.
 
     ``forced`` uses HF ``forced_decoder_ids`` convention: (position, token)
     with position counted from the start of the decoder sequence (position 0
-    is the token *after* decoder_start).
+    is the token *after* decoder_start).  A per-lane ``gen_idx`` looks each
+    lane's position up in a table of the forced ids (-1 = none).
     """
-    table = dict(forced)
-    tok = table.get(gen_idx + prompt_len, -1)
-    if tok < 0:
+    if not _per_lane(gen_idx):
+        table = dict(forced)
+        tok = table.get(gen_idx + prompt_len, -1)
+        if tok < 0:
+            return scores
+        forced_scores = torch.full_like(scores, NEG_INF)
+        forced_scores[:, tok] = 0.0
+        return forced_scores
+    if not forced:
         return scores
-    forced_scores = torch.full_like(scores, NEG_INF)
-    forced_scores[:, tok] = 0.0
-    return forced_scores
+    max_pos = max(p for p, _ in forced)
+    table = _forced_table(tuple(forced), scores.device)
+    pos = gen_idx.long() + prompt_len
+    tok = torch.where(pos <= max_pos, table[pos.clamp(0, max_pos)], -1)
+    forced_scores = torch.where(_vocab_iota(scores) == tok[:, None], 0.0,
+                                NEG_INF).to(scores.dtype)
+    return torch.where((tok >= 0)[:, None], forced_scores, scores)
 
 
-def min_new_tokens(scores: torch.Tensor, gen_idx: int, min_tokens: int,
+@functools.lru_cache(maxsize=16)
+def _forced_table(forced: Tuple[Tuple[int, int], ...],
+                  device: torch.device) -> torch.Tensor:
+    """The forced id of each position up to the last forced one (-1 =
+    none), built once per device."""
+    table = torch.full((max(p for p, _ in forced) + 1,), -1, dtype=torch.long)
+    for p, t in forced:
+        table[p] = t
+    return table.to(device)
+
+
+def min_new_tokens(scores: torch.Tensor, gen_idx, min_tokens: int,
                    eos_token_id: int) -> torch.Tensor:
-    if min_tokens <= 0 or gen_idx >= min_tokens:
+    if min_tokens <= 0:
+        return scores
+    if _per_lane(gen_idx):
+        mask = (gen_idx < min_tokens)[:, None] & (
+            _vocab_iota(scores) == eos_token_id)
+        return scores.masked_fill(mask, NEG_INF)
+    if gen_idx >= min_tokens:
         return scores
     return scores.masked_fill(_vocab_iota(scores) == eos_token_id, NEG_INF)
 
@@ -96,11 +144,12 @@ class TimestampState(NamedTuple):
         )
 
 
-def timestamp_rules(scores: torch.Tensor, gen_idx: int, state: TimestampState,
+def timestamp_rules(scores: torch.Tensor, gen_idx, state: TimestampState,
                     cfg: WhisperConfig,
                     max_initial_timestamp_index: Optional[int] = 50,
                     detect_from_logprob: bool = True) -> torch.Tensor:
-    """WhisperTimeStampLogitsProcessor, vectorised."""
+    """WhisperTimeStampLogitsProcessor, vectorised; ``gen_idx`` an int or a
+    per-lane [B] tensor."""
     ts_begin = cfg.timestamp_begin
     eos = cfg.eos_token_id
     iota = _vocab_iota(scores)
@@ -125,7 +174,14 @@ def timestamp_rules(scores: torch.Tensor, gen_idx: int, state: TimestampState,
     scores = scores.masked_fill(has_ts[:, None] & ts_too_small, NEG_INF)
 
     # 4. first generated token must be an (early) timestamp
-    if gen_idx == 0:
+    if _per_lane(gen_idx):
+        at_begin = (gen_idx == 0)[:, None]
+        scores = scores.masked_fill(at_begin & (iota < ts_begin), NEG_INF)
+        if max_initial_timestamp_index is not None:
+            last_allowed = ts_begin + max_initial_timestamp_index
+            scores = scores.masked_fill(at_begin & (iota > last_allowed),
+                                        NEG_INF)
+    elif gen_idx == 0:
         scores = scores.masked_fill(iota < ts_begin, NEG_INF)
         if max_initial_timestamp_index is not None:
             last_allowed = ts_begin + max_initial_timestamp_index

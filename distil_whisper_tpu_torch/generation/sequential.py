@@ -12,6 +12,12 @@ because jit needs a static shape; the port runs the rows that exist (rows
 are independent).  Each rung encodes its windows again, as JAX does.
 Sampling rungs draw from a ``torch.Generator`` split per rung from the
 caller's generator (JAX splits a threefry key per rung).
+
+With ``speculative_method`` ("draft" with ``assistant=(params, cfg)``, or
+"ngram") the temperature-0 rung decodes by speculation on the left-padded
+prompt layout (``pad_len`` and ``sot_slot``): token for token the greedy
+rung, so the ladder's decisions are unchanged.  Sampled rungs keep the
+plain sampling path.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ from ..tokenizer import WhisperTokenizer
 from .beam import encode_and_beam_search
 from .generate import (GenerationOptions, check_params_device,
                        encode_and_generate)
+from .speculative import (check_method, prepare_assistant,
+                          speculate_windows)
+from ..models.whisper import cross_kv, encode
 
 FRAMES_PER_SECOND = 100   # mel frames per second (hop 160 @ 16 kHz)
 INPUT_STRIDE = 2          # mel frames per 0.02 s timestamp unit
@@ -71,12 +80,20 @@ class SequentialTranscriber:
                  opts: SequentialOptions = SequentialOptions(),
                  language: Optional[str] = None, task: str = "transcribe",
                  batch_size: int = 8, dtype: torch.dtype = torch.float32,
-                 speculative_method: Optional[str] = None, device="cuda"):
-        if speculative_method is not None:
-            raise NotImplementedError("speculative decoding comes with a "
-                                      "later slice of the port")
+                 speculative_method: Optional[str] = None, assistant=None,
+                 gamma: int = 5, max_ngram: int = 3, device="cuda"):
+        check_method(speculative_method, assistant)
+        if speculative_method and opts.num_beams > 1:
+            raise ValueError("speculative decoding verifies greedy argmax "
+                             "agreement; it does not compose with beam "
+                             "search (num_beams > 1)")
         self.device = resolve_device(device)
         check_params_device(params, self.device)
+        self.spec_method = speculative_method
+        self.assistant = prepare_assistant(assistant, dtype, self.device)
+        self.gamma = int(gamma)
+        self.max_ngram = int(max_ngram)
+        self.spec_stats = {"drafted": 0, "accepted": 0, "rounds": 0}
         self.params = params
         self.cfg = cfg
         self.tok = tokenizer
@@ -129,6 +146,8 @@ class SequentialTranscriber:
                 length_penalty=self.opts.length_penalty,
                 sot_slot=self.sot_slot, pad_len=pads_t, dtype=self.dtype,
                 device=self.device)
+        elif temperature == 0 and self.spec_method:
+            out = self._speculate(mels, prompts_t, pads_t)
         else:
             out = encode_and_generate(
                 self.params, self.cfg, mels, prompts_t,
@@ -141,6 +160,23 @@ class SequentialTranscriber:
             "sum_logprobs": out.sum_logprobs.float().cpu().numpy(),
             "no_speech_prob": out.no_speech_prob.float().cpu().numpy(),
         }
+
+    @torch.no_grad()
+    def _speculate(self, mels: torch.Tensor, prompts: torch.Tensor,
+                   pads: torch.Tensor):
+        """The speculative t = 0 rung: encode, then the batched draft or
+        n-gram loop on the padded prompts; adds the rows' counters to
+        ``spec_stats``."""
+        enc = encode(self.params["encoder"], self.cfg, mels, dtype=self.dtype)
+        cross = cross_kv(self.params["decoder"], self.cfg, enc)
+        out = speculate_windows(self.params, self.cfg, mels, enc, cross,
+                                prompts, self._gen_opts[False],
+                                self.spec_method, self.assistant, self.gamma,
+                                self.max_ngram, self.dtype, pad_len=pads,
+                                sot_slot=self.sot_slot)
+        for key in self.spec_stats:
+            self.spec_stats[key] += int(getattr(out, key).sum())
+        return out
 
     def _split(self, generator: torch.Generator) -> torch.Generator:
         """A generator for one rung, seeded by a draw from ``generator``."""

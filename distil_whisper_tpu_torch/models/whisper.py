@@ -19,7 +19,12 @@ and ``tok_emb_q`` gives int8 logits at batch >= 8.
 :func:`cross_attention_probs` yields the fp32 cross-attention
 probabilities of a teacher-forced pass layer by layer (DTW word timestamps).
 
-Not in this slice: dropout, remat, per-lane decode cursors.
+:func:`decode` also takes per-lane cursors: ``pos_offset`` as a [B] tensor,
+each lane writing, reading and masking at its own slots (speculative
+decoding, whose lanes accept different numbers of tokens a round), together
+with ``pad_len`` if its prompts are left-padded.
+
+Not in this slice: dropout, remat.
 """
 
 from __future__ import annotations
@@ -195,16 +200,28 @@ def _self_kv_quantize(x: torch.Tensor):
     return q, scale[..., 0]
 
 
-def _cache_write(cache: Params, name: str, i: int, pos: int,
+def _cache_write(cache: Params, name: str, i: int, pos,
                  kv: torch.Tensor) -> None:
-    """Write new K or V [B, S, d] of layer ``i`` at ``pos``, in place."""
+    """Write new K or V [B, S, d] of layer ``i`` at ``pos``, in place.
+
+    ``pos`` is an int (every row at slots ``pos .. pos+S-1``) or a [B]
+    tensor (row ``b`` at ``pos[b] .. pos[b]+S-1``, one indexed write for
+    all rows).  A write past the cache's end raises: the int slice no
+    longer matches the shape, an index past the end fails the indexed
+    write (an error on the CPU, a device-side assert on the card).  It is
+    never clamped onto earlier slots."""
     s = kv.shape[1]
+    if not isinstance(pos, torch.Tensor):
+        rows, slots = slice(None), slice(pos, pos + s)
+    else:
+        rows = torch.arange(kv.shape[0], device=kv.device)[:, None]
+        slots = pos.long()[:, None] + torch.arange(s, device=kv.device)
     if name in cache:
-        cache[name][i, :, pos:pos + s] = kv
+        cache[name][i][rows, slots] = kv.to(cache[name].dtype)
         return
     q, scale = _self_kv_quantize(kv)
-    cache[f"{name}_q"][i, :, pos:pos + s] = q
-    cache[f"{name}_scale"][i, :, pos:pos + s] = scale
+    cache[f"{name}_q"][i][rows, slots] = q
+    cache[f"{name}_scale"][i][rows, slots] = scale
 
 
 def _cache_read(cache: Params, name: str, i: int,
@@ -336,14 +353,20 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
            enc: Optional[torch.Tensor] = None,
            cross: Optional[Params] = None,
            cache: Optional[Params] = None,
-           pos_offset: int = 0,
+           pos_offset=0,
            pad_len: Optional[torch.Tensor] = None,
            dtype: torch.dtype = torch.float32):
     """Decoder forward.
 
-    tokens [B, S] at global cache slots ``pos_offset .. pos_offset+S-1``
-    (``pos_offset`` a Python int).  Exactly one of ``enc`` (encoder states,
-    K/V projected on the fly) or ``cross`` (precomputed by :func:`cross_kv`).
+    tokens [B, S] at global cache slots ``pos_offset .. pos_offset+S-1``.
+    Exactly one of ``enc`` (encoder states, K/V projected on the fly) or
+    ``cross`` (precomputed by :func:`cross_kv`).
+
+    ``pos_offset`` is a Python int, or a [B] integer tensor of per-lane
+    cursors: lane ``b``'s tokens then sit at slots ``pos_offset[b] ..
+    pos_offset[b]+S-1``, where they are written into the cache, and they
+    attend up to their own slot.  Uniform per-lane cursors give the int
+    cursor's logits bit for bit.
 
     Without ``cache``: full causal self-attention over S (scoring path).
     With ``cache``: the new
@@ -352,7 +375,12 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
 
     ``pad_len`` [B] marks left-padded prompts: the first ``pad_len[b]`` cache
     slots are masked out of self-attention and positions shift so the first
-    real token sits at position 0.
+    real token sits at position 0.  It combines with per-lane cursors (the
+    JAX package never passes both, since ``jax.vmap`` gives each lane a
+    scalar cursor; a batched speculative rung on left-padded prompts needs
+    both): lane ``b``'s token ``j`` takes position ``clamp(pos_offset[b] + j
+    - pad_len[b], 0, max_target_positions - 1)`` and sees key slots ``k``
+    with ``pad_len[b] <= k <= pos_offset[b] + j``.
 
     Returns ``(logits [B, S, V] fp32, cache)``; ``cache`` is None uncached.
     """
@@ -361,19 +389,24 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     device = tokens.device
     pos_table = params["pos_emb"].to(dtype)
     x = params["tok_emb"].to(dtype)[tokens]
-    if pad_len is None:
+    per_lane = isinstance(pos_offset, torch.Tensor)
+    if pad_len is None and not per_lane:
         start = min(max(pos_offset, 0), pos_table.shape[0] - s)
         x = x + pos_table[start:start + s]
     else:
-        slots = pos_offset + torch.arange(s, device=device)[None, :]
-        positions = torch.clamp(slots - pad_len[:, None].long(), 0,
-                                cfg.max_target_positions - 1)
+        base = pos_offset.long()[:, None] if per_lane else pos_offset
+        slots = base + torch.arange(s, device=device)[None, :]
+        if pad_len is not None:
+            slots = slots - pad_len[:, None].long()
+        positions = torch.clamp(slots, 0, cfg.max_target_positions - 1)
         x = x + pos_table[positions]
 
     if cache is not None:
         tk = (cache["k"] if "k" in cache else cache["k_q"]).shape[2]
         self_mask = causal_mask(s, tk, pos_offset, device=device)
     else:
+        if per_lane:
+            raise ValueError("per-lane cursors need a cache")
         tk = s
         self_mask = causal_mask(s, s, 0, device=device)
     if pad_len is not None:

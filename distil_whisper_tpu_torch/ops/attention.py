@@ -76,11 +76,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, d).to(q.dtype)
 
 
-def causal_mask(tq: int, tk: int, offset: int,
-                device=None) -> torch.Tensor:
-    """Causal mask [1, 1, tq, tk] where query position i (global
-    ``offset + i``) may attend to key positions <= offset + i.  ``offset`` is
-    a scalar (per-lane cursors come with the serving slice)."""
+def causal_mask(tq: int, tk: int, offset, device=None) -> torch.Tensor:
+    """Causal mask where query position i (global ``offset + i``) may attend
+    to key positions <= offset + i.
+
+    ``offset`` is an int ([1, 1, tq, tk] result) or a per-lane [B] tensor
+    ([B, 1, tq, tk] result): each lane of a decode at its own cursor."""
     qpos = torch.arange(tq, device=device)[:, None]
     kpos = torch.arange(tk, device=device)[None, :]
+    if isinstance(offset, torch.Tensor):
+        return (kpos[None] <= qpos[None] + offset.long()[:, None, None])[:, None]
     return (kpos <= qpos + offset)[None, None]

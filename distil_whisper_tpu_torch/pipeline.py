@@ -16,7 +16,13 @@ the rows that exist.
 With ``cfg.quantize_*`` set it runs the int8 lane: W8A8 encoder and
 decoder projections, int8 self-KV cache and cross K/V, int8 logits.
 
-Not in this slice: the device mesh and speculative decoding.
+``speculative_method`` ("draft" with ``assistant=(params, cfg)``, or
+"ngram") decodes the greedy windows by speculation: token for token the
+greedy output (segment timestamps included), so the chunk merge is
+unchanged.  Beam search, word timestamps and sampled requests take their
+plain paths.
+
+Not in this slice: the device mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from .audio.io import load_audio
 from .config import WhisperConfig
 from .device import resolve_device
 from .generation import GenerationOptions, beam_search, generate
+from .generation.speculative import (check_method, prepare_assistant,
+                                      speculate_windows)
 from .generation.word_timestamps import (default_alignment_heads,
                                          load_alignment_heads,
                                          selected_cross_weights,
@@ -49,10 +57,9 @@ class WhisperPipeline:
                  batch_size: int = 8, max_new_tokens: int = 128,
                  params=None, cfg: Optional[WhisperConfig] = None,
                  tokenizer: Optional[WhisperTokenizer] = None,
-                 speculative_method: Optional[str] = None, device="cuda"):
-        if speculative_method is not None:
-            raise NotImplementedError("speculative decoding comes with a "
-                                      "later slice of the port")
+                 speculative_method: Optional[str] = None, assistant=None,
+                 gamma: int = 5, max_ngram: int = 3, device="cuda"):
+        check_method(speculative_method, assistant)
         self.device = resolve_device(device)
         if params is None or cfg is None:
             params, cfg = load_params(checkpoint, cfg, dtype=dtype,
@@ -63,6 +70,7 @@ class WhisperPipeline:
         params = maybe_quantize_encoder(params, cfg)
         if dtype == torch.bfloat16:
             cfg = cfg.replace(fast_bf16_attention=True, use_flash_encoder=True)
+        assistant = prepare_assistant(assistant, dtype, self.device)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer or WhisperTokenizer.from_pretrained(checkpoint)
@@ -71,6 +79,11 @@ class WhisperPipeline:
         self.max_new_tokens = max_new_tokens
         self._checkpoint = checkpoint
         self._align_heads = None
+        self.speculative_method = speculative_method
+        self.assistant = assistant
+        self.gamma = int(gamma)
+        self.max_ngram = int(max_ngram)
+        self.spec_stats = {"drafted": 0, "accepted": 0}
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -154,6 +167,10 @@ class WhisperPipeline:
             out = beam_search(dec, cfg, cross, prompt_ids, opts,
                               num_beams=num_beams,
                               length_penalty=length_penalty, dtype=self.dtype)
+        elif (self.speculative_method and num_frames is None
+              and not opts.do_sample):
+            # token for token the greedy program's output
+            out = self.speculate(mels, enc, cross, prompt_ids, opts)
         else:
             out = generate(dec, cfg, cross, prompt_ids, opts, temperature=0.0,
                            dtype=self.dtype)
@@ -171,6 +188,19 @@ class WhisperPipeline:
             sel.float().cpu().numpy(), num_input_ids=len(prompts[0]),
             seq_lens=lens, num_frames=num_frames)
         return seqs, lens, times
+
+    def speculate(self, mels: torch.Tensor, enc: torch.Tensor, cross,
+                  prompt_ids: torch.Tensor, opts: GenerationOptions):
+        """Speculative greedy decode of one batch of windows (encoder states
+        ``enc``, cross K/V ``cross``) by the pipeline's method; adds the
+        batch's drafted and accepted counts to ``spec_stats``."""
+        out = speculate_windows(self.params, self.cfg, mels, enc, cross,
+                                prompt_ids, opts, self.speculative_method,
+                                self.assistant, self.gamma, self.max_ngram,
+                                self.dtype)
+        self.spec_stats["drafted"] += int(out.drafted.sum())
+        self.spec_stats["accepted"] += int(out.accepted.sum())
+        return out
 
     # ------------------------------------------------------------------
     def __call__(self, audio, chunk_length_s: float = 30.0,

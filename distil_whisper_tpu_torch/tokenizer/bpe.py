@@ -12,6 +12,39 @@ import functools
 import json
 from typing import Dict, List, Optional, Tuple
 
+def _category_class(prefix: str) -> str:
+    """A regex character-class body listing every code point whose Unicode
+    general category starts with ``prefix`` (``"L"`` letters, ``"N"``
+    numbers), as ranges, from this Python's ``unicodedata``."""
+    import sys
+    import unicodedata
+    ranges, start = [], None
+    for cp in range(sys.maxunicode + 2):
+        inside = (cp <= sys.maxunicode
+                  and unicodedata.category(chr(cp)).startswith(prefix))
+        if inside and start is None:
+            start = cp
+        elif not inside and start is not None:
+            ranges.append((start, cp - 1))
+            start = None
+    return "".join(f"\\U{a:08x}" if a == b else f"\\U{a:08x}-\\U{b:08x}"
+                   for a, b in ranges)
+
+
+def stdlib_pattern():
+    """The GPT-2 pre-tokenisation pattern for the stdlib ``re``, which has
+    no \\p{...} classes.  Its \\w and \\d do not split as \\p{L} and
+    \\p{N} do (\\w also holds numbers such as ², ½ and Ⅻ, \\d only
+    decimal digits), so the letter (L*) and number (N*) classes are built
+    from ``unicodedata``."""
+    import re
+    letters, numbers = _category_class("L"), _category_class("N")
+    return re.compile(
+        r"""'s|'t|'re|'ve|'m|'ll|'d"""
+        rf"""| ?[{letters}]+| ?[{numbers}]+| ?[^\s{letters}{numbers}]+"""
+        r"""|\s+(?!\S)|\s+""")
+
+
 try:
     import regex as _re  # supports \p{L} classes (a transformers dependency)
     # GPT-2 pre-tokenisation pattern (also used by Whisper).
@@ -19,13 +52,7 @@ try:
         r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"""
     )
 except ImportError:
-    # The stdlib ``re`` has no \p{...} classes: letters are [^\W\d_] and
-    # numbers \d (decimal digits only — other numeric characters such as
-    # superscripts fall into the punctuation class instead).
-    import re as _re
-    _PAT = _re.compile(
-        r"""'s|'t|'re|'ve|'m|'ll|'d| ?[^\W\d_]+| ?\d+| ?(?:[^\s\w]|_)+|\s+(?!\S)|\s+"""
-    )
+    _PAT = stdlib_pattern()
 
 
 @functools.lru_cache()

@@ -3,20 +3,27 @@
 
     python3 scripts/torch_profile_main_path.py [--batch 16] [--max-new 128]
                                                [--trace-dir profile_traces]
-                                               [--int8]
+                                               [--int8 | --speculative]
 
 distil-large-v3 at full width, random weights from a seed, bf16, a batch of
 30 s synthetic windows, greedy with a fixed token budget.  ``--int8`` sets
 all five ``quantize_*`` flags (W8A8 encoder and decoder, int8 self-KV and
 cross K/V, int8 logits), quantizing the weights as ``WhisperPipeline``
-does.  The stages of ``WhisperPipeline`` run one by one, each warm and then
-once under ``torch.profiler`` (CPU + CUDA):
+does.  ``--speculative`` profiles speculative decoding instead: large-v3
+(32 encoder and 32 decoder layers, seed 0) is the teacher and
+distil-large-v3's 2-layer decoder (seed 1) its draft, on the teacher's
+encoder states, gamma 5.  The stages of ``WhisperPipeline`` run one by
+one, each warm and then once under ``torch.profiler`` (CPU + CUDA):
 
     mel       compute_mel (the fused CUDA log-mel kernel)
     encode    models.whisper.encode (the CUDA encoder-attention kernel; with
               --int8 also the int8 MLP kernel)
-    cross_kv  models.whisper.cross_kv
+    cross_kv  models.whisper.cross_kv (with --speculative: the teacher's and
+              the draft's)
     generate  generation.generate (prefill + cached greedy steps)
+    speculate_draft, speculate_synthetic_0.8 (--speculative only)
+              generation.speculative.speculative_generate_batched with the
+              draft, and with synthetic_acceptance 0.8 (synthetic tokens)
 
 For each stage it prints one JSON line: host wall time (ends in a
 synchronize), the summed device time of its kernels, the device's idle share
@@ -73,7 +80,12 @@ def main() -> int:
     ap.add_argument("--trace-dir", default=str(ROOT / "profile_traces"))
     ap.add_argument("--int8", action="store_true",
                     help="the int8 lane: all five quantize_* flags")
+    ap.add_argument("--speculative", action="store_true",
+                    help="large-v3 as the teacher, distil-large-v3's "
+                         "decoder as the draft: adds the speculative loops")
     args = ap.parse_args()
+    if args.int8 and args.speculative:
+        ap.error("--int8 and --speculative profile different models")
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
@@ -83,6 +95,7 @@ def main() -> int:
     from distil_whisper_tpu_torch.audio import compute_mel
     from distil_whisper_tpu_torch.config import PRESETS
     from distil_whisper_tpu_torch.generation import GenerationOptions, generate
+    from distil_whisper_tpu_torch.generation import speculative as S
     from distil_whisper_tpu_torch.models import init_params
     from distil_whisper_tpu_torch.models import whisper as W
     from distil_whisper_tpu_torch.ops import _build
@@ -92,9 +105,14 @@ def main() -> int:
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     dtype = torch.bfloat16
-    cfg = PRESETS["distil-large-v3"].replace(fast_bf16_attention=True,
-                                             use_flash_encoder=True)
+    model = "large-v3" if args.speculative else "distil-large-v3"
+    cfg = PRESETS[model].replace(fast_bf16_attention=True,
+                                 use_flash_encoder=True)
     params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+    if args.speculative:
+        dcfg = PRESETS["distil-large-v3"].replace(fast_bf16_attention=True,
+                                                  use_flash_encoder=True)
+        draft = init_params(dcfg, seed=1, device="cuda", dtype=dtype)
     if args.int8:
         cfg = cfg.replace(quantize_encoder=True, quantize_decoder=True,
                           quantize_lm_head=True, quantize_cross_kv=True,
@@ -119,23 +137,44 @@ def main() -> int:
 
     def cross():
         state["cross"] = W.cross_kv(params["decoder"], cfg, state["enc"])
+        if args.speculative:
+            state["d_cross"] = W.cross_kv(draft["decoder"], dcfg,
+                                          state["enc"])
 
     def gen():
         state["out"] = generate(params["decoder"], cfg, state["cross"],
                                 prompt, opts, dtype=dtype)
 
+    def speculate(alpha):
+        def run():
+            state["out"] = S.speculative_generate_batched(
+                params["decoder"], cfg, draft["decoder"], dcfg,
+                state["cross"], state["d_cross"], prompt, opts, gamma=5,
+                dtype=dtype, synthetic_acceptance=alpha)
+        return run
+
+    stages = [("mel", mel), ("encode", encode), ("cross_kv", cross),
+              ("generate", gen)]
+    if args.speculative:
+        stages += [("speculate_draft", speculate(None)),
+                   ("speculate_synthetic_0.8", speculate(0.8))]
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "torch": torch.__version__, "batch": args.batch,
-                      "int8": args.int8,
+                      "torch": torch.__version__, "model": model,
+                      "batch": args.batch, "int8": args.int8,
+                      "speculative": args.speculative,
                       "max_new_tokens": args.max_new}), flush=True)
     with torch.no_grad():
-        for name, fn in (("mel", mel), ("encode", encode),
-                         ("cross_kv", cross), ("generate", gen)):
+        for name, fn in stages:
             row = profile_stage(name, fn, out_dir)
             if name == "generate":
                 steps = int(state["out"].seq_len.max()) - prompt.shape[1]
                 row["decode_steps"] = steps
                 row["wall_ms_per_step"] = row["wall_ms"] / max(steps, 1)
+            elif name.startswith("speculate"):
+                rounds = int(state["out"].rounds.max())
+                row["rounds"] = rounds
+                row["accepted"] = int(state["out"].accepted.sum())
+                row["wall_ms_per_round"] = row["wall_ms"] / max(rounds, 1)
             print(json.dumps(row), flush=True)
     return 0
 

@@ -1,10 +1,14 @@
 """Port ``run_eval`` vs the JAX CLI (CPU, fp32) on a JSONL manifest of WAV
 files and the tiny checkpoint: ``--mode short``, ``chunked`` and
-``sequential`` give the JAX CLI's WER and hypotheses.  Also: the copied
-normalizers and WER equal the JAX package's, and the modes that wait for
-later slices raise."""
+``sequential`` give the JAX CLI's WER and hypotheses; ``--mode
+speculative`` (draft and n-gram) gives the hypotheses of the JAX CLI's
+short mode, and the speculation flags of the sequential and chunked modes
+leave their hypotheses as they were.  Also: the copied normalizers and WER equal the
+JAX package's, and JAX's argument errors and ``--distributed`` raise."""
 
 import json
+import logging
+import re
 
 import numpy as np
 import pytest
@@ -57,6 +61,8 @@ def setup(tmp_path_factory):
                                               (6.0, "a dog ran fast")]),
             "long": _manifest(tmp, "long", [(40.0, "hello world now"),
                                             (5.0, "we are here")])}
+    data["draft"] = make_tiny_checkpoint(tmp / "draft", decoder_layers=1,
+                                         seed=1)
     golden = {}
     for mode, which in MODES.items():
         out = tmp / f"jax_{mode}.json"
@@ -93,15 +99,71 @@ def test_long_form_cli_defaults_to_chunked(setup):
 
 
 def test_unported_modes_raise(setup):
+    """Speculation is ported now: ``--distributed`` still raises, and so do
+    JAX's argument errors (the n-gram method with a draft checkpoint, the
+    speculative mode's draft method without one) and the speculative mode
+    with beam search."""
     ck, data, _, _ = setup
     base = ["--model_checkpoint", ck, "--dataset_path", data["short"],
             "--device", "cpu"]
+    with pytest.raises(NotImplementedError):
+        run_eval.main(base + ["--distributed"])
     for extra in (["--mode", "speculative"],
-                  ["--assistant_checkpoint", ck],
-                  ["--mode", "sequential", "--speculative_method", "ngram"],
-                  ["--distributed"]):
-        with pytest.raises(NotImplementedError):
+                  ["--mode", "sequential", "--speculative_method", "ngram",
+                   "--assistant_checkpoint", data["draft"]],
+                  ["--mode", "speculative", "--speculative_method", "ngram",
+                   "--num_beams", "2"]):
+        with pytest.raises(ValueError):
             run_eval.main(base + extra)
+
+
+def _rate(caplog, name):
+    rates = [re.search(r"acceptance rate: ([0-9.]+)%", r.getMessage())
+             for r in caplog.records if r.name == name]
+    rates = [float(m.group(1)) for m in rates if m]
+    assert len(rates) == 1, rates
+    return rates[0]
+
+
+@pytest.mark.parametrize("method", ["draft", "ngram"])
+def test_speculative_mode_matches_jax(setup, caplog, method):
+    """``--mode speculative`` emits the greedy tokens: the JAX CLI's
+    hypotheses and WER of ``--mode short`` (which JAX's speculative mode
+    reproduces token for token), and it logs its acceptance rate."""
+    ck, data, tmp, golden = setup
+    flags = (["--assistant_checkpoint", data["draft"]] if method == "draft"
+             else ["--speculative_method", "ngram"])
+    out = tmp / f"torch_spec_{method}.json"
+    caplog.set_level(logging.INFO)
+    res = run_eval.main(["--model_checkpoint", ck, "--dataset_path",
+                         data["short"], "--mode", "speculative", "--gamma",
+                         "3", "--device", "cpu", "--output_json", str(out)]
+                        + flags + COMMON)
+    ours, ref = json.loads(out.read_text()), golden["short"]
+    assert ours["predictions"] == ref["predictions"]
+    for key in ("wer", "num_samples", "audio_seconds"):
+        assert ours[key] == ref[key], key
+    assert res["mode"] == "speculative"
+    assert 0.0 <= _rate(caplog, "distil_whisper_tpu_torch") <= 100.0
+
+
+@pytest.mark.parametrize("mode,flags", [
+    ("sequential", ["--speculative_method", "ngram"]),
+    ("chunked", ["--speculative_method", "ngram"]),
+    ("sequential", ["--assistant_checkpoint", "draft"])])
+def test_speculation_flags_keep_hypotheses(setup, caplog, mode, flags):
+    """Speculation in the sequential and chunked modes emits the greedy
+    tokens: the same hypotheses as the JAX CLI's plain run of the mode."""
+    ck, data, tmp, golden = setup
+    flags = [data.get(f, f) for f in flags]
+    out = tmp / f"torch_{mode}_{flags[1]}.json"
+    caplog.set_level(logging.INFO)
+    run_eval.main(["--model_checkpoint", ck, "--dataset_path", data["long"],
+                   "--mode", mode, "--device", "cpu", "--gamma", "3",
+                   "--output_json", str(out)] + flags + COMMON)
+    assert json.loads(out.read_text())["predictions"] == \
+        golden[mode]["predictions"]
+    assert 0.0 <= _rate(caplog, "distil_whisper_tpu_torch") <= 100.0
 
 
 def test_manifest_reader_needs_no_datasets(tmp_path):

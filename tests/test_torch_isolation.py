@@ -67,6 +67,22 @@ def test_long_form_modules_are_checked():
     assert set(LONG_FORM_MODULES) <= {name for _, name in _modules()}
 
 
+# speculative decoding and the modules it changed (per-lane cursors, the
+# per-lane logits processors, the wired entry points)
+SPECULATIVE_MODULES = (
+    "distil_whisper_tpu_torch.generation.speculative",
+    "distil_whisper_tpu_torch.generation.logits",
+    "distil_whisper_tpu_torch.models.whisper",
+    "distil_whisper_tpu_torch.ops.attention",
+    "distil_whisper_tpu_torch.pipeline",
+    "distil_whisper_tpu_torch.tokenizer.bpe",
+)
+
+
+def test_speculative_modules_are_checked():
+    assert set(SPECULATIVE_MODULES) <= {name for _, name in _modules()}
+
+
 def _code_strings(tree):
     """String constants of a module that are not docstrings."""
     docstrings = set()

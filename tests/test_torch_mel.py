@@ -133,3 +133,45 @@ def test_filter_bands_cover_every_nonzero_weight(n_mels):
     banded = np.concatenate([power[:, lo:hi] @ filters[lo:hi, 8 * g:8 * g + 8]
                              for g, (lo, hi) in enumerate(bands)], axis=1)
     np.testing.assert_allclose(banded, power @ filters, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n", [160, 170, 200, 201])
+def test_short_whole_file_matches_jax(n):
+    """160-200 samples give one frame whose padding reflects more than once
+    (``jnp.pad(mode="reflect")``); the port's whole-file features equal
+    JAX's there and just past it."""
+    audio = (0.2 * np.random.default_rng(n).standard_normal(n)).astype(
+        np.float32)
+    golden = np.asarray(jmel.log_mel_spectrogram(jnp.asarray(audio), JConfig(),
+                                                 pad_to_chunk=False))
+    ours = compute_mel(audio, WhisperConfig(), pad_to_chunk=False,
+                       device="cpu").numpy()
+    assert ours.shape == golden.shape == (1, 80, 1)
+    np.testing.assert_allclose(ours, golden, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 100, 159])
+def test_fewer_than_160_samples_raise(n):
+    audio = np.zeros(n, np.float32)
+    with pytest.raises(ValueError):
+        np.asarray(jmel.log_mel_spectrogram(jnp.asarray(audio), JConfig(),
+                                            pad_to_chunk=False))
+    with pytest.raises(ValueError):
+        compute_mel(audio, WhisperConfig(), pad_to_chunk=False, device="cpu")
+
+
+@pytest.mark.parametrize("n", [160, 171, 200])
+def test_short_input_index_rebuilds_the_first_frame(n):
+    """For 200 samples or fewer the wrapper gives the kernel 201 samples of
+    the reflect-padded signal (``short_input_index``); the kernel's single
+    reflection of them (``csrc/mel.cu``: a -> -a left, 2(n-1) - a right)
+    rebuilds the padded signal's first frame, which the plain version
+    reads."""
+    x = np.random.default_rng(n).standard_normal(n)
+    padded = x[mel_kernel.reflect_index(n, 200)]
+    given = x[mel_kernel.short_input_index(n)]
+    m = len(given)
+    a = np.arange(400) - 200
+    a = np.where(a < 0, -a, a)
+    a = np.where(a >= m, 2 * (m - 1) - a, a)
+    np.testing.assert_array_equal(given[np.clip(a, 0, m - 1)], padded[:400])

@@ -67,15 +67,78 @@ def test_list_input_matches_one_by_one(pipes, language):
 
 
 def test_not_yet_ported_options_raise(pipes):
-    """Beam search and word timestamps are ported now (held against JAX in
-    tests/test_torch_beam.py and test_torch_word_timestamps.py); speculative
-    decoding, in the pipeline and in sequential long-form, still raises."""
-    from distil_whisper_tpu_torch.generation import SequentialTranscriber
+    """Beam search, word timestamps and speculative decoding are ported now;
+    what raises is JAX's argument errors for speculation, in the pipeline
+    and in sequential long-form: an unknown method, a draft without an
+    assistant, an assistant beside the n-gram method, and speculation with
+    beam search."""
+    from distil_whisper_tpu_torch.generation import (SequentialOptions,
+                                                      SequentialTranscriber)
     _, tpipe = pipes
-    with pytest.raises(NotImplementedError):
-        WhisperPipeline(None, dtype=torch.float32, params=tpipe.params,
-                        cfg=tpipe.cfg, tokenizer=tpipe.tokenizer,
-                        speculative_method="ngram", device="cpu")
-    with pytest.raises(NotImplementedError):
+    common = dict(params=tpipe.params, cfg=tpipe.cfg,
+                  tokenizer=tpipe.tokenizer, device="cpu")
+    assistant = (tpipe.params, tpipe.cfg)
+    for kw in (dict(speculative_method="nope"),
+               dict(speculative_method="draft"),
+               dict(speculative_method="ngram", assistant=assistant)):
+        with pytest.raises(ValueError):
+            WhisperPipeline(None, dtype=torch.float32, **common, **kw)
+        with pytest.raises(ValueError):
+            SequentialTranscriber(tpipe.params, tpipe.cfg, tpipe.tokenizer,
+                                  device="cpu", **kw)
+    with pytest.raises(ValueError):
         SequentialTranscriber(tpipe.params, tpipe.cfg, tpipe.tokenizer,
-                              speculative_method="draft", device="cpu")
+                              SequentialOptions(num_beams=2),
+                              speculative_method="ngram", device="cpu")
+    WhisperPipeline(None, dtype=torch.float32, **common,
+                    speculative_method="ngram")
+    SequentialTranscriber(tpipe.params, tpipe.cfg, tpipe.tokenizer,
+                          speculative_method="draft", assistant=assistant,
+                          device="cpu")
+
+
+# ----------------------------------------------------------------------
+# speculative decoding of the greedy windows (tests/test_longform.py's
+# identity cases): the same result as the plain port pipeline and as JAX's
+# n-gram speculative pipeline, and for the n-gram method JAX's acceptance
+# counts (the draft's counters part from JAX's on purpose, see
+# test_torch_speculative.py::test_reference_draft_reads_stale_slots)
+# ----------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def spec(pipes):
+    from distil_whisper_tpu.training import init_student_from_teacher
+    from torch_port_helpers import torch_params
+    jpipe, tpipe = pipes
+    jdraft, _ = init_student_from_teacher(jpipe.params, jpipe.cfg,
+                                          decoder_layers=1)
+    audio = _tone(70.0, 6)
+    jspec = JPipeline(None, params=jpipe.params, cfg=jpipe.cfg,
+                      tokenizer=jpipe.tokenizer, dtype=jnp.float32,
+                      batch_size=2, max_new_tokens=12,
+                      speculative_method="ngram", gamma=3, max_ngram=2)
+    golden = (jspec(audio, language="en", return_timestamps=True),
+              dict(jspec.spec_stats))
+    draft = (torch_params(jdraft), tpipe.cfg.replace(decoder_layers=1))
+    return audio, golden, draft
+
+
+@pytest.mark.parametrize("method", ["ngram", "draft"])
+def test_speculative_matches_plain_and_jax(pipes, spec, method):
+    _, tpipe = pipes
+    audio, golden, draft = spec
+    common = dict(params=tpipe.params, cfg=tpipe.cfg,
+                  tokenizer=tpipe.tokenizer, dtype=torch.float32,
+                  batch_size=2, max_new_tokens=12, device="cpu")
+    plain = WhisperPipeline(None, **common)
+    ours = WhisperPipeline(None, **common, speculative_method=method, gamma=3,
+                           max_ngram=2,
+                           assistant=draft if method == "draft" else None)
+    result = ours(audio, language="en", return_timestamps=True)
+    assert result == plain(audio, language="en", return_timestamps=True)
+    assert result == golden[0]
+    if method == "ngram":
+        assert ours.spec_stats == golden[1]
+    stats = ours.spec_stats
+    assert 0 <= stats["accepted"] <= stats["drafted"] and stats["drafted"] > 0

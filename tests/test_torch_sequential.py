@@ -182,3 +182,84 @@ def test_compression_ratio_matches_jax():
         compression_ratio as j_ratio)
     for text in ("", "hello world", "a" * 200, "the cat sat on the mat " * 5):
         assert compression_ratio(text) == j_ratio(text)
+
+
+# ----------------------------------------------------------------------
+# speculation at the temperature-0 rung (tests/test_longform.py's
+# sequential identity cases): condition-on-prev prompts, left-padded, with
+# a ragged last group
+# ----------------------------------------------------------------------
+
+SPEC_OPTS = dict(temperatures=(0.0,), max_new_tokens=16,
+                 condition_on_prev_tokens=True)
+
+
+@pytest.fixture(scope="module")
+def spec_golden(setup):
+    """JAX's n-gram speculative transcriber (its segments are JAX's greedy
+    rung's) and its counters, and a 1-layer draft for the port."""
+    from distil_whisper_tpu.training import init_student_from_teacher
+    _, feats, _ = setup
+    jp = jax_init_params(JConfig(**ARCH), 5)
+    jdraft, _ = init_student_from_teacher(jp, JConfig(**ARCH),
+                                          decoder_layers=1)
+    tr = JTranscriber(jp, JConfig(**ARCH), JTokenizer(JBPE(VOCAB, []), ADDED),
+                      JSeqOpts(**SPEC_OPTS), batch_size=2,
+                      speculative_method="ngram", gamma=3, max_ngram=2)
+    return (_segments(tr.transcribe(feats)), dict(tr.spec_stats)), \
+        torch_params(jdraft)
+
+
+@pytest.mark.parametrize("method", ["ngram", "draft"])
+def test_speculative_rung_matches_plain_and_jax(setup, spec_golden, method):
+    """The speculative t = 0 rung gives the plain rung's segments and JAX's,
+    and for the n-gram method JAX's counters (the draft's part from JAX's
+    on purpose, see
+    test_torch_speculative.py::test_reference_draft_reads_stale_slots)."""
+    tp, feats, _ = setup
+    golden, draft = spec_golden
+    plain = _transcriber(False, tp, **SPEC_OPTS)
+    assistant = (draft, WhisperConfig(**ARCH).replace(decoder_layers=1))
+    tr = SequentialTranscriber(
+        tp, WhisperConfig(**ARCH),
+        WhisperTokenizer(ByteLevelBPE(VOCAB, []), ADDED),
+        SequentialOptions(**SPEC_OPTS), batch_size=2, device="cpu",
+        speculative_method=method, gamma=3, max_ngram=2,
+        assistant=assistant if method == "draft" else None)
+    ours = tr.transcribe(feats)
+    reference = plain.transcribe(feats)
+    assert _segments(ours) == _segments(reference)
+    for o, r in zip(ours, reference):
+        for so, sr in zip(o["segments"], r["segments"]):
+            assert abs(so["avg_logprob"] - sr["avg_logprob"]) < 2e-3
+            assert abs(so["no_speech_prob"] - sr["no_speech_prob"]) < 1e-5
+    _assert_same(_segments(ours), golden[0])
+    stats = tr.spec_stats
+    if method == "ngram":
+        assert stats == golden[1]
+    else:
+        assert stats["drafted"] == 3 * stats["rounds"]
+    assert stats["rounds"] > 0 and 0 <= stats["accepted"] <= stats["drafted"]
+
+
+def test_speculative_ladder_falls_back_to_sampling(setup):
+    """Sampled rungs (t > 0) take the plain sampling path: a ladder whose
+    t = 0 rung always fails ends on the sampled rung, and the speculative
+    counters count the t = 0 rung's rows only."""
+    tp, feats, _ = setup
+    kw = dict(temperatures=(0.0, 1.0), max_new_tokens=12,
+              compression_ratio_threshold=-1.0, logprob_threshold=None,
+              no_speech_threshold=None)
+    tr = SequentialTranscriber(
+        tp, WhisperConfig(**ARCH),
+        WhisperTokenizer(ByteLevelBPE(VOCAB, []), ADDED),
+        SequentialOptions(**kw), batch_size=2, device="cpu",
+        speculative_method="ngram")
+    calls = []
+    run = tr._run_window
+    tr._run_window = lambda *a: calls.append(a[3]) or run(*a)
+    results = tr.transcribe(feats[1:])
+    segs = results[0]["segments"]
+    assert segs and all(s["temperature"] == 1.0 for s in segs)
+    assert calls and set(calls) == {0.0, 1.0}
+    assert tr.spec_stats["rounds"] > 0
