@@ -35,7 +35,19 @@
 5. Drives the long-form paths on the main path's weights (beam search,
    word timestamps, the sequential ladder, the int8 beam run), each path's
    launches counted from 0 around it.
-6. Drives speculative decoding (``speculative_path``) with large-v3 at full
+6. Drives serving (``serving_path``) on the same weights: the continuous
+   engine (16 lanes, block 16) and the micro-batch scheduler (batch 16),
+   server budget 96, each given 38 concurrent requests — 32 single 30 s
+   windows with budgets drawn from 24-96 (8 of them sampled), 2 files of
+   70 s and a burst of 4 word-timestamp requests — after a warm-up; launches
+   counted from 0 around each run (mel at least one a request on the
+   engine and one a device group on the micro-batch scheduler, encoder
+   attention 32 an encode), admitted windows 38, at most 16 lanes in
+   flight, every sampled request reproduced under its seed; the same on
+   the int8 flags (int8 MLP 32 an encode); an HTTP drive over loopback
+   (healthz, POST, stream=1, /v1/stats); the engine step loop's device
+   idle share and host syncs a block.
+7. Drives speculative decoding (``speculative_path``) with large-v3 at full
    width as the teacher (32 + 32 layers, random bf16 weights from seed 0)
    and distil-large-v3's 2-layer decoder as its draft (seed 1, on the
    teacher's encoder states): the teacher's plain greedy and draft
@@ -45,15 +57,19 @@
    bf16), ``synthetic_acceptance`` 0.8 against the prefix law and n-gram
    lookup with ``synthetic_period`` 16 (both synthetic tokens), and the
    sequential t = 0 rung with the draft on 4 long files against the plain
-   rung.
-7. A small model on the card agrees with the CPU: fp32 tokens identical,
+   rung; then the continuous engine serving large-v3 (16 requests, 64-token
+   budgets, 16 lanes): plain, the draft under ``synthetic_acceptance`` 0.8
+   and n-gram lookup with ``synthetic_period`` 16.
+8. A small model on the card agrees with the CPU: fp32 tokens identical,
    bf16 fused encoder close; the same model with the int8 flags (fp32 tokens
    and prefill logits against the CPU; the bf16 int8 encoder, through both
    encoder kernels, close to the fp32 CPU int8 encoder); beam, sequential
    and word-timestamp results; fp32 draft and n-gram speculation on the
    card equal to the CPU greedy tokens, and the speculative sequential
-   t = 0 rung equal to the plain CPU rung.
-8. Prints the kernels line (launches from the int8 path's short-form run,
+   t = 0 rung equal to the plain CPU rung; the continuous engine (greedy,
+   draft and n-gram lanes) and the micro-batch scheduler on the card equal
+   to the CPU pipeline.
+9. Prints the kernels line (launches from the int8 path's short-form run,
    and per path in ``launches_by_path``), the card's name and power limit,
    and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -81,8 +97,13 @@ INT8_FLAGS = dict(quantize_encoder=True, quantize_decoder=True,
                   quantize_self_kv=True)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}
+                     if "phase" in obj else obj), flush=True)
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 3) -> float:
@@ -966,6 +987,442 @@ def phase_longform_path(tok, bf16):
     return launches
 
 
+def serve_all(tr, requests, timeout: float = 600.0):
+    """Submit every request ``(audio, kwargs)`` to a transcriber from its
+    own thread, all at once.  Returns (results, per-request latencies in s,
+    wall s).  Any error result raises."""
+    import threading
+    results, latency, errors = [None] * len(requests), [0.0] * len(requests), []
+
+    def post(i, audio, kw):
+        t0 = time.perf_counter()
+        try:
+            results[i] = tr.submit(audio, timeout=timeout, **kw)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append((i, f"{type(e).__name__}: {e}"))
+        latency[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=post, args=(i, a, kw))
+               for i, (a, kw) in enumerate(requests)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"serving errors: {errors[:4]}")
+    return results, latency, wall
+
+
+def _percentile(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def _device_ms(fn):
+    """(wall ms, summed device kernel ms) of ``fn`` under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            busy += float(getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0)))
+    return wall, busy / 1e3
+
+
+def serving_traffic(clips, long_clips):
+    """The serving cell's requests: 32 single windows with budgets drawn
+    from 24-96 (seed 0), the last 8 sampled (temperature 0.8, top_k 8,
+    seeds 1000+i); 2 files of ~70 s with segment timestamps; a burst of 4
+    word-timestamp requests.  Returns (requests, audio seconds)."""
+    import numpy as np
+    budgets = np.random.default_rng(0).integers(24, 97, size=32)
+    reqs = []
+    for i, (clip, b) in enumerate(zip(clips, budgets)):
+        kw = dict(language="en", max_new_tokens=int(b))
+        if i >= 24:
+            kw.update(temperature=0.8, top_k=8, seed=1000 + i)
+        reqs.append((clip, kw))
+    reqs += [(c, dict(language="en", return_timestamps=True))
+             for c in long_clips]
+    reqs += [(c, dict(language="en", return_timestamps="word"))
+             for c in clips[:4]]
+    audio_s = sum(len(a) for a, _ in reqs) / 16000
+    return reqs, audio_s
+
+
+def run_scheduler(name, tr, reqs, audio_s, n_greedy, greedy_ref):
+    """Drive one started transcriber with the cell's traffic, launches
+    counted from 0 around it; returns (report, launches, results)."""
+    import torch
+    admits, spent = [], {"admit_s": 0.0, "step_s": 0.0, "unpack_s": 0.0}
+    if hasattr(tr, "engine"):
+        eng = tr.engine
+        real = {k: getattr(eng, k) for k in ("admit", "step", "unpack")}
+
+        def timed(key, fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[f"{key}_s"] += time.perf_counter() - t0
+            return call
+
+        def counted_admit(mels, *a, **k):
+            admits.append(len(mels))
+            return real["admit"](mels, *a, **k)
+
+        # the worker thread's time: admission (encode, prefill, writes
+        # into the lanes), enqueueing blocks, and waiting for each block's
+        # packed vector
+        eng.admit = timed("admit", counted_admit)
+        eng.step = timed("step", real["step"])
+        eng.unpack = timed("unpack", real["unpack"])
+    before = dict(tr.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results, lat, wall = serve_all(tr, reqs)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # this run's counts (the max_* entries stay as they are)
+    st = {k: v if "max" in k or k == "gamma_current" else v - before[k]
+          for k, v in tr.stats.items()}
+    if hasattr(tr, "engine"):
+        for k, fn in real.items():
+            setattr(eng, k, fn)
+        encodes = len(admits) + st["fb_batches"]
+        windows = st["admitted"]
+        if windows != 32 + 3 * 2:
+            raise AssertionError(f"{name}: admitted {windows} windows, "
+                                 "expected 38 (32 + 2 files of 3)")
+        if st["max_inflight"] > tr.batch_size:
+            raise AssertionError(f"{name}: max_inflight {st}")
+        if launches["log_mel"] < len(reqs):
+            raise AssertionError(f"{name}: mel launches {launches} below "
+                                 f"one a request ({len(reqs)})")
+    else:
+        encodes = st["batches"] + st["word_ts_batches"] + st["long_form"]
+        if launches["log_mel"] != encodes:
+            raise AssertionError(f"{name}: mel launches {launches}, "
+                                 f"expected one a device group ({encodes})")
+    layers = tr.pipe.cfg.encoder_layers
+    if launches["encoder_attention"] != layers * encodes:
+        raise AssertionError(f"{name}: attention launches {launches}, "
+                             f"expected {layers} x {encodes} encodes")
+    for r in results:
+        if not isinstance(r.get("text"), str):
+            raise AssertionError(f"{name}: a result without text: {r}")
+    equal = sum(results[i]["text"] == greedy_ref[i] for i in range(n_greedy))
+    report = {"audio_s": audio_s, "wall_s": wall,
+              "audio_s_per_s": audio_s / wall,
+              "latency_p50_s": _percentile(lat, 50),
+              "latency_p95_s": _percentile(lat, 95),
+              "requests": len(reqs), "encode_calls": encodes,
+              "admission_sizes": admits or None,
+              "worker_time": spent if admits else None,
+              "greedy_text_equal_to_pipeline": equal / n_greedy,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "stats": st}
+    return report, launches, results
+
+
+def engine_idle_share(tr, mels, tok, blocks: int = 4):
+    """The step loop alone, greedy and sampling blocks: 16 lanes admitted at
+    once (96-token budgets; sampled lanes at temperature 0.8, top_k 8),
+    ``blocks`` blocks (step + unpack) timed without the profiler, then
+    under it for the device time; the idle share is 1 - device / the
+    unprofiled wall (as scripts/torch_profile_main_path.py).  Also the
+    Python frames of every synchronising CUDA call in one block and in its
+    ``unpack`` (``torch.cuda.set_sync_debug_mode``)."""
+    import traceback
+    import warnings
+    import torch
+    eng = tr.engine
+    prompt = tok.prompt_ids(language="en")
+    n = eng.lanes
+
+    def syncs(fn):
+        where = []
+
+        def record(message, category, filename, lineno, *a, **k):
+            if "synchronizing CUDA operation" in str(message):
+                where.append([f"{Path(f.filename).name}:{f.lineno}"
+                              for f in traceback.extract_stack()[-6:-1]])
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return out, where
+
+    report = {}
+    for sampling in (False, True):
+        def admit():
+            eng.admit(mels[:n], [prompt] * n, [eng.max_new] * n, [False] * n,
+                      list(range(n)), temps=[0.8 * sampling] * n,
+                      top_ks=[8 * sampling] * n, seeds=list(range(n)))
+
+        def run():
+            for _ in range(blocks):
+                eng.unpack(eng.step(sampling))
+
+        admit()
+        run()                                     # warm
+        admit()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        admit()
+        prof_wall, busy = _device_ms(run)
+        admit()
+        torch.cuda.synchronize()
+        packed, in_step = syncs(lambda: eng.step(sampling))
+        _, in_unpack = syncs(lambda: eng.unpack(packed))
+        report["sampling" if sampling else "greedy"] = {
+            "wall_ms_per_block": wall_ms / blocks,
+            "profiled_wall_ms_per_block": prof_wall / blocks,
+            "device_ms_per_block": busy / blocks,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "host_syncs_in_step": in_step, "host_syncs_in_unpack": in_unpack}
+    return {"blocks": blocks, "block_steps": eng.block_steps, **report}
+
+
+def http_drive(tr, clip):
+    """healthz, one POST, one stream=1 and /v1/stats over loopback."""
+    import io
+    import threading
+    import urllib.request
+    import wave
+    import numpy as np
+    from distil_whisper_tpu_torch.serving import make_http_server
+    pcm = (np.clip(clip, -1, 1) * 32767).astype("<i2")
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    body = buf.getvalue()
+    httpd = make_http_server(tr, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=120) as r:
+            health = json.loads(r.read())
+        req = urllib.request.Request(base + "/v1/transcribe?language=en",
+                                     data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            post = json.loads(r.read())
+        req = urllib.request.Request(
+            base + "/v1/transcribe?language=en&stream=1", data=body,
+            method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            lines = [json.loads(x) for x in r.read().splitlines() if x]
+        with urllib.request.urlopen(base + "/v1/stats", timeout=120) as r:
+            stats = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+    if not (health["status"] == "ok" and lines and lines[-1].get("final")
+            and lines[-1]["text"] == post["text"] and "stats" in stats):
+        raise AssertionError("the HTTP drive failed")
+    return {"healthz": health["status"], "post_latency_ms": post["latency_ms"],
+            "stream_lines": len(lines),
+            "stream_final_latency_ms": lines[-1]["latency_ms"],
+            "stats_scheduler": stats["scheduler"]}
+
+
+def phase_serving_path(tok, bf16):
+    """Both schedulers serving distil-large-v3 at full width on the main
+    path's bf16 weights: 16 lanes (continuous, block 16) and batches of 16
+    (micro-batch, 50 ms window), server budget 96 tokens, the cell's
+    traffic (``serving_traffic``) all at once; then the same traffic on the
+    int8 flags; an HTTP drive over loopback; the engine's idle share."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import GenerationOptions
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+    from distil_whisper_tpu_torch.serving import BatchingTranscriber
+    from distil_whisper_tpu_torch.serving_engine import ContinuousTranscriber
+
+    t_phase = time.perf_counter()
+    dtype, lanes, budget = torch.bfloat16, 16, 96
+    clips = bf16["clips"] + synthetic_audio(16, 30.0, seed=4)
+    longs = synthetic_audio(2, 70.0, seed=5)
+    reqs, audio_s = serving_traffic(clips, longs)
+    report, launches = {}, {}
+    for lane_name, flags in (("bf16", {}), ("int8", INT8_FLAGS)):
+        cfg = PRESETS["distil-large-v3"].replace(**flags)
+        pipe = WhisperPipeline(None, dtype=dtype, batch_size=lanes,
+                               max_new_tokens=budget, params=bf16["params"],
+                               cfg=cfg, tokenizer=tok, device="cuda")
+        # the greedy requests' reference: the pipeline's batch decode at
+        # the server budget, cut at each request's budget (greedy prefix)
+        mels = compute_mel(np.stack(clips[:24]), pipe.cfg,
+                           device="cuda").to(dtype)
+        prompt = tok.prompt_ids(language="en")
+        opts = GenerationOptions.from_config(
+            pipe.cfg, max_new_tokens=budget, no_speech_token_id=tok.no_speech)
+        seqs, lens, _ = pipe._decode_batch(mels, [prompt] * 24, opts, 1, 1.0)
+        ref = [tok.decode(seqs[i][:min(int(lens[i]),
+                                       len(prompt) + reqs[i][1]["max_new_tokens"])]
+                          .tolist()) for i in range(24)]
+        for sched in ("continuous", "microbatch"):
+            if sched == "continuous":
+                tr = ContinuousTranscriber(pipe, batch_size=lanes,
+                                           max_new_tokens=budget,
+                                           block_steps=16).start()
+            else:
+                tr = BatchingTranscriber(pipe, batch_size=lanes,
+                                         max_wait_ms=50.0,
+                                         max_new_tokens=budget).start()
+            try:
+                serve_all(tr, reqs[:lanes])               # warm-up
+                rep, counts, results = run_scheduler(
+                    f"{sched}/{lane_name}", tr, reqs, audio_s, 24, ref)
+                # the int8 MLP kernel runs in every encoder layer of an
+                # encode, and in the decoder's layers in a word-timestamp
+                # alignment pass of 256 rows or more
+                extra = counts["int8_mlp"] - counts["encoder_attention"]
+                dec = pipe.cfg.decoder_layers
+                passes = rep["stats"].get("fb_batches",
+                                          rep["stats"].get("word_ts_batches"))
+                if lane_name == "int8" and not (
+                        0 <= extra <= dec * passes and extra % dec == 0):
+                    raise AssertionError(f"int8 serving launches {counts}, "
+                                         f"{passes} alignment passes")
+                if lane_name == "bf16" and counts["int8_mlp"]:
+                    raise AssertionError(f"bf16 serving launches {counts}")
+                if lane_name == "bf16":
+                    # the sampled requests reproduce under their seeds:
+                    # each alone, twice; beside the traffic (another
+                    # admission batch, so other bf16 roundings in the
+                    # encoder) reported
+                    sampled = reqs[24:32]
+                    again = [serve_all(tr, [r])[0][0]["text"]
+                             for r in sampled]
+                    twice = [serve_all(tr, [r])[0][0]["text"]
+                             for r in sampled]
+                    if again != twice:
+                        raise AssertionError(f"{sched}: a sampled request "
+                                             "did not reproduce")
+                    rep["sampled_reproduce_alone"] = True
+                    rep["sampled_equal_beside_traffic"] = sum(
+                        a == r["text"] for a, r in zip(again, results[24:32]))
+                if lane_name == "bf16" and sched == "continuous":
+                    rep["http"] = http_drive(tr, clips[0])
+            finally:
+                tr.stop()
+            if lane_name == "bf16" and sched == "continuous":
+                rep["step_loop"] = engine_idle_share(tr, mels, tok)
+            report[f"{sched}_{lane_name}"] = rep
+            rep["launches"] = counts
+            emit({"phase": "serving_run", "scheduler": sched,
+                  "lane": lane_name, **rep})
+            if sched == "continuous":
+                launches["serving" if lane_name == "bf16"
+                         else "serving_int8"] = counts
+            del tr
+        del pipe, mels
+        torch.cuda.empty_cache()
+    for lane_name in ("bf16", "int8"):
+        c = report[f"continuous_{lane_name}"]["audio_s_per_s"]
+        m = report[f"microbatch_{lane_name}"]["audio_s_per_s"]
+        report[f"continuous_over_microbatch_{lane_name}"] = c / m
+    emit({"phase": "serving_path", "model": "distil-large-v3",
+          "dtype": "bf16", "lanes": lanes, "block_steps": 16,
+          "max_new_tokens": budget, "traffic": {
+              "single_windows": 32, "sampled": 8, "long_files_s": [70, 70],
+              "word_timestamp_burst": 4, "audio_s": audio_s},
+          **{k: v for k, v in report.items() if "_over_" in k},
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def speculative_engines(pipe, draft, clips, greedy_text, gamma, alpha):
+    """The continuous engine serving ``pipe``'s model (large-v3): plain
+    lanes, the draft under ``synthetic_acceptance`` ``alpha``, and n-gram
+    lookup on a period-16 stream (16 requests, 16 lanes, 64-token budgets,
+    block 16), each timed on a second drive after a warm-up.  Returns (the
+    report, the draft engine's launches)."""
+    import torch
+    from distil_whisper_tpu_torch.serving_engine import ContinuousTranscriber
+    n, e_budget, layers = len(clips), 64, pipe.cfg.encoder_layers
+    audio_s = sum(len(c) for c in clips) / 16000
+    traffic = [(c, dict(language="en", max_new_tokens=e_budget))
+               for c in clips]
+    engines, serving_launches = {}, None
+    for name, kw in (("plain", {}),
+                     ("draft_synthetic_0.8",
+                      dict(assistant=draft, synthetic_acceptance=alpha)),
+                     ("ngram_synthetic_period_16",
+                      dict(ngram_speculative=True, synthetic_period=16))):
+        tr = ContinuousTranscriber(pipe, batch_size=n,
+                                   max_new_tokens=e_budget, block_steps=16,
+                                   gamma=gamma, **kw).start()
+        try:
+            serve_all(tr, traffic)                        # warm-up
+            before = dict(tr.stats)
+            reset_counts()
+            results, lat, wall = serve_all(tr, traffic)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            st = {k: tr.stats[k] - before[k]
+                  for k in ("blocks", "admitted", "tokens_out", "drafted",
+                            "accepted") if k in tr.stats}
+        finally:
+            tr.stop()
+        if (counts["log_mel"] != n or counts["int8_mlp"]
+                or not counts["encoder_attention"]
+                or counts["encoder_attention"] % layers):
+            raise AssertionError(f"engine {name} launches {counts}")
+        row = {"wall_s": wall, "audio_s_per_s": audio_s / wall,
+               "latency_p50_s": _percentile(lat, 50),
+               "latency_p95_s": _percentile(lat, 95), **st,
+               "launches": counts}
+        if name == "plain":
+            row["text_equal_to_greedy"] = sum(
+                r["text"] == t for r, t in zip(results, greedy_text)) / n
+        else:
+            # a lane-round that drafted (an n-gram lookup that found no
+            # match drafts nothing) proposes gamma tokens
+            drafting = st["drafted"] / gamma
+            row.update(rounds=st["blocks"] * max(1, 16 // (gamma + 1)),
+                       drafting_lane_rounds=drafting,
+                       accepted_per_lane_round=st["accepted"]
+                       / max(drafting, 1),
+                       speedup_over_plain=engines["plain"]["wall_s"] / wall)
+            if not st["drafted"]:
+                raise AssertionError(f"engine {name} drafted nothing")
+        if name.startswith("draft"):
+            serving_launches = counts
+        engines[name] = row
+        del tr
+        torch.cuda.empty_cache()
+    return engines, serving_launches
+
+
 def phase_speculative_path(tok, bf16):
     """Speculative decoding at full width: large-v3 (32 encoder and 32
     decoder layers) is the teacher, random bf16 weights from seed 0;
@@ -1137,6 +1594,13 @@ def phase_speculative_path(tok, bf16):
         "plain_audio_s_per_s": seq_file_s / plain_seq_s,
         **{k: v for k, v in seq_spec.spec_stats.items()},
         "encode_calls": seq_counts["encoder_attention"] // cfg.encoder_layers}
+    # -- 4. the continuous engine serving large-v3 --------------------------
+    greedy_text = [tok.decode(greedy.sequences[i, :p + 64].tolist())
+                   for i in range(n)]
+    engines, serving_launches = speculative_engines(
+        plain, (draft, dcfg), clips, greedy_text, gamma, alpha)
+    report["serving_engine"] = engines
+
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     emit({"phase": "speculative_path", "teacher": "large-v3",
           "teacher_params": n_params, "draft_model": "distil-large-v3, seed 1",
@@ -1152,7 +1616,8 @@ def phase_speculative_path(tok, bf16):
     torch.cuda.empty_cache()
     return {"speculative": launches,
             "speculative_sequential": {**seq_counts,
-                                       "log_mel": feature_mels}}
+                                       "log_mel": feature_mels},
+            "serving_speculative": serving_launches}
 
 
 def phase_small_reference(tok):
@@ -1193,6 +1658,7 @@ def phase_small_reference(tok):
     small_reference_int8(cfg, mel, prompt)
     small_reference_longform(cfg, mel, tok)
     small_reference_speculative(cfg, mel, tok)
+    small_reference_serving(cfg, tok)
 
 
 def small_reference_longform(cfg, mel, tok):
@@ -1329,6 +1795,61 @@ def small_reference_speculative(cfg, mel, tok):
                              "greedy on test-tiny")
 
 
+def small_reference_serving(cfg, tok):
+    """The widened test-tiny (vocabulary of the synthetic tokenizer) and a
+    1-layer draft of its width, fp32: the continuous engine (greedy, draft
+    and n-gram lanes; 2 lanes, block 3) and the micro-batch scheduler on
+    the card give the CPU pipeline's results (text and segment offsets) on
+    6 requests with mixed timestamps and budgets, arriving together."""
+    import torch
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.models.params import tree_paths, unflatten_paths
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+    from distil_whisper_tpu_torch.serving import BatchingTranscriber
+    from distil_whisper_tpu_torch.serving_engine import ContinuousTranscriber
+
+    scfg = cfg.replace(vocab_size=51866)
+    dcfg = scfg.replace(decoder_layers=1)
+    cpu = init_params(scfg, seed=10, device="cpu")
+
+    def on_card(tree):
+        return unflatten_paths({p: x.cuda() for p, x in tree_paths(tree).items()})
+
+    gpu = on_card(cpu)
+    draft = on_card(init_params(dcfg, seed=11, device="cpu"))
+    common = dict(dtype=torch.float32, batch_size=2, max_new_tokens=16,
+                  cfg=scfg, tokenizer=tok)
+    cpu_pipe = WhisperPipeline(None, params=cpu, device="cpu", **common)
+    gpu_pipe = WhisperPipeline(None, params=gpu, device="cuda", **common)
+    clips = synthetic_audio(6, 9.0, seed=12)
+    reqs = [(c, dict(language="en", return_timestamps=(i % 3 == 0),
+                     max_new_tokens=[16, 9, 12][i % 3]))
+            for i, c in enumerate(clips)]
+    golden = [cpu_pipe(c, **kw) for c, kw in reqs]
+    same = {}
+    for name, cls, kw in (
+            ("engine_greedy", ContinuousTranscriber, dict(block_steps=3)),
+            ("engine_draft", ContinuousTranscriber,
+             dict(block_steps=3, assistant=(draft, dcfg), gamma=3)),
+            ("engine_ngram", ContinuousTranscriber,
+             dict(block_steps=3, ngram_speculative=True, gamma=3)),
+            ("microbatch", BatchingTranscriber, dict(max_wait_ms=20.0))):
+        tr = cls(gpu_pipe, batch_size=2, max_new_tokens=16, **kw).start()
+        try:
+            results, _, _ = serve_all(tr, reqs)
+        finally:
+            tr.stop()
+        same[name] = results == golden
+    emit({"phase": "small_reference_serving",
+          "fp32_results_identical_to_cpu_pipeline": same,
+          "requests": len(reqs),
+          "card_pipeline_identical_to_cpu": [gpu_pipe(c, **kw) for c, kw in
+                                             reqs] == golden})
+    if not all(same.values()):
+        raise AssertionError("serving on the card disagrees with the CPU "
+                             "pipeline on test-tiny")
+
+
 def small_reference_int8(cfg, mel, prompt):
     """The widened test-tiny with all five int8 flags and ffn 512, so that
     the int8 MLP kernel's gate holds (d 128, 3000 rows): fp32 on the card
@@ -1414,6 +1935,7 @@ def main() -> int:
         bf16 = phase_main_path(tok)
         counts = phase_int8_main_path(tok, bf16)
         longform = phase_longform_path(tok, bf16)
+        longform.update(phase_serving_path(tok, bf16))
         longform.update(phase_speculative_path(tok, bf16))
         del bf16
         torch.cuda.empty_cache()

@@ -152,7 +152,7 @@ def log10_mel_fused(audio: torch.Tensor, num_mel_bins: int) -> torch.Tensor:
         torch.cuda.current_stream(audio.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mel kernel launch failed (cudaError {err})")
-    log10_mel_fused.launches += 1
+    _build.count_launch(log10_mel_fused)
     return out
 
 

@@ -64,11 +64,14 @@ class SpeculativeOutput(NamedTuple):
 
 
 def _process(scores, gen_idx, cfg: WhisperConfig, opts: GenerationOptions,
-             prompt_len: int, ts_state=None):
+             prompt_len, ts_state=None, use_ts=None):
     """The processor stack of ``generate._process_scores``, in its order
     (token identity with the greedy path depends on it); ``gen_idx`` an int
-    or a per-row tensor, ``ts_state`` the timestamp FSM state of each row's
-    context (required iff ``opts.return_timestamps``)."""
+    or a per-row tensor, ``prompt_len`` an int or a per-row tensor,
+    ``ts_state`` the timestamp FSM state of each row's context (required iff
+    ``opts.return_timestamps``).  ``use_ts`` [N] bool gates the timestamp
+    rules per row (the serving engine's lanes mix timestamped and plain
+    requests); None applies them to every row."""
     scores = L.force_tokens(scores, gen_idx, opts.forced_decoder_ids,
                             prompt_len)
     scores = L.suppress_tokens_at_begin(scores, gen_idx,
@@ -77,8 +80,10 @@ def _process(scores, gen_idx, cfg: WhisperConfig, opts: GenerationOptions,
     scores = L.min_new_tokens(scores, gen_idx, opts.min_new_tokens,
                               cfg.eos_token_id)
     if opts.return_timestamps:
-        scores = L.timestamp_rules(scores, gen_idx, ts_state, cfg,
-                                   opts.max_initial_timestamp_index)
+        ts_scores = L.timestamp_rules(scores, gen_idx, ts_state, cfg,
+                                      opts.max_initial_timestamp_index)
+        scores = (ts_scores if use_ts is None
+                  else torch.where(use_ts[:, None], ts_scores, scores))
     return scores
 
 
@@ -120,13 +125,14 @@ def synthetic_coins(seed: int, length: int, prob: float,
     return (torch.rand(length, generator=gen) < prob).to(device)
 
 
-def _teacher_choices(t_logits, cur, p: int, gamma: int, cfg: WhisperConfig,
+def _teacher_choices(t_logits, cur, p, gamma: int, cfg: WhisperConfig,
                      opts: GenerationOptions, bias_fn=None, ts_state=None,
-                     drafts=None):
+                     drafts=None, use_ts=None):
     """The teacher's choice and its log-probability for each verify column:
     column ``i`` of lane ``b`` predicts position ``cur[b] + i``.  All
     ``gamma + 1`` columns of all lanes go through the processor stack as one
-    [B * (gamma + 1), V] batch of rows.
+    [B * (gamma + 1), V] batch of rows.  ``p`` is the prompt length, an int
+    or per lane [B]; ``use_ts`` [B] gates the timestamp rules per lane.
 
     Column ``i``'s timestamp state is the lane's carried state advanced
     through ``drafts[:, :i]``, the context its logits saw.  Columns past the
@@ -135,7 +141,11 @@ def _teacher_choices(t_logits, cur, p: int, gamma: int, cfg: WhisperConfig,
     int64, logps [B, gamma+1] fp32)``."""
     b, w, v = t_logits.shape
     cols = torch.arange(w, device=t_logits.device)
-    gen_idx = (cur[:, None] + cols - p).reshape(-1)
+    if isinstance(p, torch.Tensor):           # one prompt length a row
+        p = p.long()[:, None].expand(b, w).reshape(-1)
+    gen_idx = (cur[:, None] + cols).reshape(-1) - p
+    if use_ts is not None:
+        use_ts = use_ts[:, None].expand(b, w).reshape(-1)
     ts = None
     if ts_state is not None:
         states = [ts_state]
@@ -145,7 +155,7 @@ def _teacher_choices(t_logits, cur, p: int, gamma: int, cfg: WhisperConfig,
                                             dim=1).reshape(-1)
                                 for f in L.TimestampState._fields))
     scores = _process(t_logits.float().reshape(b * w, v), gen_idx, cfg, opts,
-                      p, ts_state=ts)
+                      p, ts_state=ts, use_ts=use_ts)
     if bias_fn is not None:
         scores = bias_fn(scores, (cur[:, None] + cols).reshape(-1))
     choice = torch.argmax(scores, dim=-1)

@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas resource report (registers, shared memory, spills) of each build
 build_logs: Dict[str, str] = {}
@@ -110,3 +111,11 @@ def load(name: str) -> ctypes.CDLL:
             lib = _libs.get(name) or ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` count.  The serving
+    threads launch kernels concurrently, and ``+=`` on an attribute is not
+    atomic."""
+    with _count_lock:
+        wrapper.launches += 1

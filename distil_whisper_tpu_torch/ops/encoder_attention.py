@@ -119,7 +119,7 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"encoder attention kernel launch failed "
                            f"(cudaError {err})")
-    encoder_attention.launches += 1
+    _build.count_launch(encoder_attention)
     return out
 
 

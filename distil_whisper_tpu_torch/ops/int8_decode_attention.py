@@ -185,7 +185,7 @@ def int8_decode_attention(q: torch.Tensor, kq: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"int8 decode attention kernel launch failed "
                            f"(cudaError {err})")
-    int8_decode_attention.launches += 1
+    _build.count_launch(int8_decode_attention)
     return out
 
 

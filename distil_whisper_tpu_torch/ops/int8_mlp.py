@@ -206,7 +206,7 @@ def fused_int8_mlp(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 MLP kernel launch failed (cudaError {err})")
-    fused_int8_mlp.launches += 1
+    _build.count_launch(fused_int8_mlp)
     return out.view(x.shape)
 
 

@@ -83,6 +83,18 @@ def test_speculative_modules_are_checked():
     assert set(SPECULATIVE_MODULES) <= {name for _, name in _modules()}
 
 
+# serving: both schedulers, the HTTP front end and the server CLI
+SERVING_MODULES = (
+    "distil_whisper_tpu_torch.serving",
+    "distil_whisper_tpu_torch.serving_engine",
+    "distil_whisper_tpu_torch.cli.run_server",
+)
+
+
+def test_serving_modules_are_checked():
+    assert set(SERVING_MODULES) <= {name for _, name in _modules()}
+
+
 def _code_strings(tree):
     """String constants of a module that are not docstrings."""
     docstrings = set()
@@ -168,6 +180,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         encode_and_generate(params, cfg, np.zeros((1, 80, 3000), np.float32),
                             [[50258]], GenerationOptions())
+    # the server CLI defaults to the card too (the checkpoint is never read)
+    from distil_whisper_tpu_torch.cli.run_server import build_server
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_server(["--model_checkpoint", str(tmp_path), "--port", "0"])
+
+
+def test_transcribers_over_a_cuda_less_pipeline_raise():
+    """A transcriber runs on its pipeline's device: over a pipeline that
+    names the card where there is none, both schedulers refuse to be built
+    (nothing moves to the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the CUDA device is valid here")
+    from types import SimpleNamespace
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.serving import BatchingTranscriber
+    from distil_whisper_tpu_torch.serving_engine import ContinuousTranscriber
+    pipe = SimpleNamespace(cfg=PRESETS["test-tiny"], tokenizer=None,
+                           dtype=torch.float32, device=torch.device("cuda"),
+                           batch_size=2, max_new_tokens=4, params={})
+    for cls in (BatchingTranscriber, ContinuousTranscriber):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(pipe)
 
 
 def test_kernel_wrappers_refuse_other_devices():

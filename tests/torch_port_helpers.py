@@ -46,3 +46,50 @@ def np_tree_equal(a, b):
     bn = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
     assert an.shape == bn.shape and an.dtype == bn.dtype, (an.shape, bn.shape)
     np.testing.assert_array_equal(an, bn)
+
+
+def tone(seconds, freq, seed):
+    """A tone under a little noise, fp32 at 16 kHz (the serving tests'
+    synthetic clip, as tests/test_serving*.py make it)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    return (0.2 * np.sin(2 * np.pi * freq * t)
+            + 0.01 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def serving_cases(n=8):
+    """Mixed traffic: languages en/fr, segment timestamps on every third
+    clip, budgets 10/7/5 (tests/test_serving_engine.py's staggered set)."""
+    return [dict(wav=tone(1.0 + 0.3 * (i % 3), 200.0 + 35 * i, seed=i),
+                 language=["en", "fr"][i % 2],
+                 return_timestamps=(i % 3 == 0),
+                 max_new_tokens=[10, 7, 5][i % 3]) for i in range(n)]
+
+
+def submit_all(tr, cases, stagger=0.05, timeout=600):
+    """Submit each case from its own thread, arrivals staggered by
+    ``stagger * (i % 4)`` seconds; returns the results in order and
+    raises the first error."""
+    import threading
+    import time
+    results, errors = [None] * len(cases), []
+
+    def post(i, c):
+        kw = {k: v for k, v in c.items() if k != "wav"}
+        try:
+            results[i] = tr.submit(c["wav"], timeout=timeout, **kw)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append((i, e))
+
+    threads = []
+    for i, c in enumerate(cases):
+        th = threading.Thread(target=post, args=(i, c))
+        th.start()
+        threads.append(th)
+        time.sleep(stagger * (i % 4))
+    for th in threads:
+        th.join(timeout=timeout)
+        assert not th.is_alive(), "a request did not finish"
+    if errors:
+        raise errors[0][1]
+    return results
