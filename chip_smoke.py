@@ -69,7 +69,26 @@
    t = 0 rung equal to the plain CPU rung; the continuous engine (greedy,
    draft and n-gram lanes) and the micro-batch scheduler on the card equal
    to the CPU pipeline.
-9. Prints the kernels line (launches from the int8 path's short-form run,
+9. Drives distillation training (``training_path``) through the port's
+   CLIs at full width: a random large-v3 teacher (seed 0, bf16) written by
+   ``save_pretrained``, ``create_student_model`` to a distil-large-v3-shaped
+   student (32 encoder, 2 decoder layers), a JSONL manifest of 48 synthetic
+   clips of 5-30 s, ``run_distillation`` at half_mixed with the inference
+   teacher (batch 16, labels up to 128 tokens, 8 steps, warmup 2,
+   checkpoints every 4 steps, one profiled step, one eval of 16 rows at 32
+   new tokens: step times, tokens a second, losses, peak memory, the
+   device idle share), one step with the train teacher (step 1's CE and
+   KL within bf16 rounding of the inference teacher's), 2 steps with the
+   int8 teacher, a resume from checkpoint-4 (step 5's loss equal to the
+   uninterrupted run's), ``run_finetuning`` of the distilled checkpoint with
+   the encoder unfrozen through the encoder-attention kernel and its
+   recompute backward (batch 4, remat), and ``run_eval`` of the distilled
+   checkpoint; launches counted from 0 around each run (log-mel, encoder
+   attention and the int8 MLP inside ``run_distillation``).  The kernel rows
+   include the encoder-attention gradient (the ``autograd.Function``
+   against autograd through the plain version, at (2, 20, 1500, 64) bf16
+   and (3, 5, 200, 64)/77, its backward timed).
+10. Prints the kernels line (launches from the int8 path's short-form run,
    and per path in ``launches_by_path``), the card's name and power limit,
    and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -80,6 +99,7 @@ line.  It also exits non-zero without a GPU, and outside the repository.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -277,6 +297,7 @@ def phase_kernels():
     del audio, out, ref
 
     add(kernel_row_encoder_attention(gen))
+    add(kernel_row_encoder_attention_grad(gen))
     add(kernel_row_int8_mlp(gen))
     add(kernel_row_int8_decode_attention(gen))
     return rows
@@ -1620,6 +1641,471 @@ def phase_speculative_path(tok, bf16):
             "serving_speculative": serving_launches}
 
 
+TRAIN_WORDS = ("the", "cat", "sat", "on", "mat", "a", "dog", "ran", "far",
+               "we", "are", "here", "it", "is", "late", "go", "home", "soon",
+               "stars", "shine", "bright", "rain", "falls", "slowly", "over",
+               "hills", "river", "runs", "deep", "and", "cold", "light")
+
+
+def training_manifests(root: Path, n: int, n_eval: int, seconds=(5.0, 30.0),
+                       seed: int = 20):
+    """``n`` synthetic clips of 5-30 s as WAV files under ``root`` and a
+    JSONL manifest of them (``audio`` path, ``text``, a pseudo-label
+    ``whisper_transcript`` with the special tokens, segment timestamps on
+    every other row), plus an eval manifest of the first ``n_eval`` rows
+    and a fine-tuning manifest of the first 8.  Texts are 6-14 words, at
+    most 100 characters: with the byte-level synthetic tokenizer a label is
+    then shorter than 128 tokens."""
+    import numpy as np
+    from distil_whisper_tpu_torch.audio.io import write_wav
+    from distil_whisper_tpu_torch.cli.common import write_jsonl
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        secs = float(rng.uniform(*seconds))
+        audio = synthetic_audio(1, secs, seed=seed + i)[0]
+        write_wav(str(root / f"clip{i}.wav"), audio, 16000)
+        text = " ".join(rng.choice(TRAIN_WORDS, int(rng.integers(6, 15))))[:100]
+        body = (f"<|0.00|> {text}<|{secs:.2f}|>" if i % 2
+                else f"<|notimestamps|> {text}")
+        rows.append({"audio": str(root / f"clip{i}.wav"), "text": text,
+                     "whisper_transcript": "<|startoftranscript|><|en|>"
+                     f"<|transcribe|>{body}<|endoftext|>"})
+    write_jsonl(str(root / "train.jsonl"), rows)
+    write_jsonl(str(root / "eval.jsonl"), rows[:n_eval])
+    write_jsonl(str(root / "finetune.jsonl"), rows[:8])
+    return rows
+
+
+def kernel_row_encoder_attention_grad(gen):
+    """The gradient of the encoder-attention ``autograd.Function`` (kernel
+    forward, recompute backward through the plain version) at (2, 20, 1500,
+    64) bf16 and on the ragged (3, 5, 200, 64) with 77 live keys, against
+    ``torch.autograd`` through the plain version on the same inputs (the
+    same arithmetic: held at 1e-2 as the forward) and against the fp32
+    gradient (bf16 operands: within 2e-2 of the largest gradient); the
+    backward's time (CUDA events), its extra peak memory, its bound and
+    SDPA's backward beside it."""
+    import torch
+    from distil_whisper_tpu_torch.ops import encoder_attention as ea
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def held(shape, t_real):
+        q, k, v, g = (rand(*shape) for _ in range(4))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = ea.encoder_attention(*leaves, t_real)
+        kernel = torch.autograd.grad(out, leaves, g)
+        plain_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        plain = torch.autograd.grad(
+            ea.encoder_attention_plain(*plain_leaves, t_real), plain_leaves, g)
+        f32 = [x.float().requires_grad_(True) for x in (q, k, v)]
+        ref = torch.autograd.grad(ea.encoder_attention_plain(*f32, t_real),
+                                  f32, g.float())
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(kernel, plain))
+        rel32 = max(((a.float() - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(kernel, ref))
+        if not (err <= 1e-2 and rel32 <= 2e-2 and all(
+                torch.isfinite(x).all() for x in kernel)):
+            raise AssertionError(f"encoder attention gradient disagrees at "
+                                 f"{shape}/{t_real}: {err}, fp32 rel {rel32}")
+        return {"shape": list(shape), "t_real": t_real, "max_abs_err": err,
+                "max_rel_err_vs_fp32": rel32}
+
+    ragged = held((3, 5, 200, 64), 77)
+    main = held((2, 20, 1500, 64), 1500)
+    b, h, t, d = 2, 20, 1500, 64
+    q, k, v, g = (rand(b, h, t, d).requires_grad_(i < 3) for i in range(4))
+    out = ea.encoder_attention(q, k, v, t)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    extra = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                             retain_graph=True), reps=5)
+    plain_out = ea.encoder_attention_plain(q, k, v, t)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        plain_out, (q, k, v), g, retain_graph=True), reps=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, (q, k, v), g,
+                                                     retain_graph=True))
+    # the backward's work: recompute S = QK^T, dV = P^T dO, dP = dO V^T,
+    # dQ = dS K, dK = dS^T Q (five T x T x D products); bytes: q, k, v and
+    # dO read, dq, dk, dv written
+    ops = 10 * b * h * t * t * d
+    n_bytes = 2 * 7 * b * h * t * d
+    bound_ms, bound_by = bound(n_bytes, ops, BF16_TENSOR)
+    row = {"name": "encoder_attention_grad", "route": "cuda",
+           "source": "distil_whisper_tpu_torch/ops/encoder_attention.py",
+           "replaces": "distil_whisper_tpu/ops/encoder_attention.py:233",
+           "max_abs_err": main["max_abs_err"], "tolerance": 1e-2,
+           "max_rel_err_vs_fp32": main["max_rel_err_vs_fp32"],
+           "tolerance_vs_fp32": 2e-2, "ragged": ragged,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "backward_extra_peak_bytes": extra,
+           "backward_extra_peak_mb_per_row": extra / b / 1e6,
+           "shape": [b, h, t, d],
+           "note": "ms: the Function's backward (the plain version's "
+                   "forward recomputed, then its backward); plain_ms: the "
+                   "plain version's backward from its saved forward"}
+    del q, k, v, g, out, plain_out, sdpa
+    torch.cuda.empty_cache()
+    return row
+
+
+def range_device_ms(trace: Path, name: str):
+    """Summed device time (ms) of a ``record_function`` range in a
+    ``torch.profiler`` Chrome trace (its ``gpu_user_annotation`` spans),
+    None when the trace has no device timeline."""
+    import json
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    spans = [e["dur"] for e in events if e.get("name") == name
+             and e.get("cat") == "gpu_user_annotation"]
+    return sum(spans) / 1e3 if spans else None
+
+
+def _metrics(out_dir: Path):
+    import json
+    return [json.loads(line) for line in
+            (out_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def _train_rows(metrics):
+    return [m for m in metrics if "train/loss" in m]
+
+
+TRAIN_CLIPS = 48      # synthetic clips of 5-30 s in the training manifest
+TRAIN_BATCH = 16      # distillation batch, and the eval's
+TRAIN_STEPS = 8       # distillation steps (checkpoints at 4 and 8)
+TRAIN_EVAL_ROWS = 16  # rows of the one eval
+FT_BATCH = 4          # fine-tuning batch (unfrozen encoder)
+# the inference teacher's encoder states (the kernel) may be no further
+# from the fp32 states than this many times the einsum encoder's with the
+# same bf16 attention
+ENCODER_ROUNDING_FACTOR = 1.1
+# step 1's CE and KL under the inference teacher against the train
+# teacher's, relative
+STEP1_LOSS_TOL = 1e-3
+
+
+def teacher_encoder_agreement(params, cfg):
+    """The teacher's encoder states on four 30 s clips, as each
+    ``--teacher_precision`` computes them, against the same encoder in fp32
+    (weights and compute, einsum attention): the inference teacher (the
+    encoder-attention kernel, bf16 attention), the einsum encoder with the
+    same bf16 attention (the control: the size of bf16 rounding with no
+    kernel) and the train teacher (einsum, fp32 attention).  Each is the
+    relative RMS difference of the final states."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.models.params import to_fp32
+
+    enc = params["encoder"]
+    mel = compute_mel(np.stack(synthetic_audio(4, 30.0, seed=3)), cfg,
+                      device="cuda")
+
+    def states(c, p, dtype):
+        with torch.no_grad():
+            return W.encode(p, c, mel, dtype=dtype).float()
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    bf16 = torch.bfloat16
+    fp32 = states(cfg, to_fp32(enc), torch.float32)
+    inference = states(cfg.replace(fast_bf16_attention=True,
+                                   use_flash_encoder=True), enc, bf16)
+    einsum = states(cfg.replace(fast_bf16_attention=True,
+                                use_flash_encoder=False), enc, bf16)
+    train = states(cfg, enc, bf16)
+    return {"clips": 4, "metric": "relative RMS difference of the final "
+            "encoder states", "inference_vs_fp32": rel(inference, fp32),
+            "einsum_bf16_vs_fp32": rel(einsum, fp32),
+            "train_teacher_vs_fp32": rel(train, fp32),
+            "kernel_vs_einsum_bf16": rel(inference, einsum),
+            "tolerance": f"inference_vs_fp32 <= {ENCODER_ROUNDING_FACTOR} "
+                         "x einsum_bf16_vs_fp32"}
+
+
+def state_differences(a, b, path=""):
+    """Paths at which two checkpoint state dicts differ: tensors bit for
+    bit (dtype included), every other value by ``==``."""
+    import torch
+    if isinstance(a, dict) and isinstance(b, dict):
+        if sorted(a) != sorted(b):
+            return [f"{path}: keys"]
+        return [d for k in a for d in state_differences(
+            a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return [] if a.dtype == b.dtype and torch.equal(a, b) else [path]
+    return [] if a == b else [path]
+
+
+def phase_training_path(teacher_cfg):
+    """Distillation through the port's CLIs, at the width of
+    ``teacher_cfg`` (large-v3): a random bf16 teacher (seed 0) written by
+    ``save_pretrained``, its encoder held with and without the
+    encoder-attention kernel; ``create_student_model`` to a 2-layer
+    decoder; ``run_distillation`` at half_mixed with the inference teacher
+    (``TRAIN_STEPS`` steps of ``TRAIN_BATCH``, warmup 2, checkpoints every 4
+    steps, one profiled step, one eval), again for one step with the train
+    teacher (step 1's CE and KL against the inference teacher's), for 2
+    steps with the int8 teacher, and resumed from checkpoint-4 to the end
+    (steps 5-8 and checkpoint-8's params, moments and counters equal to the
+    uninterrupted run's, bit for bit); ``run_finetuning`` with the unfrozen
+    encoder through the encoder-attention kernel and its backward (remat
+    on); ``run_eval`` on the distilled checkpoint.  Kernel launches counted
+    from 0 around each run."""
+    import json
+    import logging
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    import torch
+    from distil_whisper_tpu_torch.cli import (create_student_model,
+                                              run_distillation, run_eval,
+                                              run_finetuning)
+    from distil_whisper_tpu_torch.models import init_params, save_pretrained
+    from distil_whisper_tpu_torch.models.params import param_count
+
+    logging.basicConfig(level=logging.WARNING)   # the CLIs' INFO stays off
+    root = Path(tempfile.mkdtemp(prefix="dw_training_"))
+    report = {"teacher": teacher_cfg.d_model,
+              # what earlier phases still hold: inside every peak below
+              "allocated_before_gib": torch.cuda.memory_allocated() / 2 ** 30}
+    try:
+        teacher_dir = root / "teacher"
+        params = init_params(teacher_cfg, seed=0, device="cuda",
+                             dtype=torch.bfloat16)
+        report["teacher_params"] = param_count(params)
+        report["teacher_encoder_agreement"] = teacher_encoder_agreement(
+            params, teacher_cfg)
+        t0 = time.perf_counter()
+        save_pretrained(params, teacher_cfg, str(teacher_dir),
+                        dtype=torch.bfloat16)
+        report["save_teacher_s"] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        synthetic_tokenizer(teacher_dir)
+        training_manifests(root, TRAIN_CLIPS, TRAIN_EVAL_ROWS)
+
+        def timed(name, fn, *argv):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(list(argv))
+            report[name] = {"s": time.perf_counter() - t0,
+                            "launches": read_counts()}
+            torch.cuda.empty_cache()
+            return out
+
+        student_dir = root / "student"
+        timed("create_student", create_student_model.main,
+              "--teacher_checkpoint", str(teacher_dir),
+              "--save_dir", str(student_dir), "--decoder_layers", "2")
+
+        def distill(out, teacher_precision, max_steps, *extra):
+            return ["--teacher_checkpoint", str(teacher_dir),
+                    "--student_checkpoint", str(student_dir),
+                    "--train_dataset_path", str(root / "train.jsonl"),
+                    "--output_dir", str(root / out),
+                    "--teacher_precision", teacher_precision,
+                    "--precision", "half_mixed",
+                    "--per_device_train_batch_size", str(TRAIN_BATCH),
+                    "--per_device_eval_batch_size", str(TRAIN_BATCH),
+                    "--max_label_length", "128", "--max_steps", str(max_steps),
+                    "--warmup_steps", "2", "--learning_rate", "1e-4",
+                    "--save_steps", "4", "--save_total_limit", "2",
+                    "--eval_steps", "1000", "--logging_steps", "1",
+                    "--language", "en", "--seed", "42",
+                    "--wer_threshold", "10", *extra]
+
+        timed("distill_inference", run_distillation.main,
+              *distill("inference", "inference", TRAIN_STEPS,
+                       "--eval_dataset_path", str(root / "eval.jsonl"),
+                       "--eval_max_new_tokens", "32", "--profile_steps", "1"))
+        inf = _metrics(root / "inference")
+        train = _train_rows(inf)
+        times = [m["train/step_time_s"] for m in train]
+        tokens = [m["train/label_tokens"] for m in train]
+        prof = next(m for m in inf if "profile/device_ms_per_step" in m)
+        step_s = statistics.median(times[2:])
+        report["distill_inference"].update({
+            "steps": len(train), "batch": TRAIN_BATCH,
+            "loss": [m["train/loss"] for m in train],
+            "ce": [m["train/ce_loss"] for m in train],
+            "kl": [m["train/kl_loss"] for m in train],
+            "grad_norm": [m["train/grad_norm"] for m in train],
+            "step_time_s": times,
+            "step_time_s_median_3_to_8": step_s,
+            "label_tokens_per_step": tokens,
+            "label_tokens_per_s": statistics.mean(tokens) / step_s,
+            "peak_mem_gib_steps": max(m.get("train/peak_mem_gib", 0)
+                                      for m in train),
+            "peak_mem_gib_steps_and_eval":
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "profiled_step": {k.split("/")[1]: v for k, v in prof.items()
+                              if k.startswith("profile/")},
+            "idle_share_profiled": 1 - prof["profile/device_ms_per_step"]
+            / prof["profile/wall_ms_per_step"],
+            "eval": [m for m in inf if "eval/wer" in m],
+            "checkpoints": sorted(p.name for p in (root / "inference").iterdir()
+                                  if p.name.startswith("checkpoint-"))})
+
+        timed("distill_train_teacher", run_distillation.main,
+              *distill("train_teacher", "train", 1))
+        ref = _train_rows(_metrics(root / "train_teacher"))[0]
+        report["inference_vs_train_teacher_step1"] = {
+            "ce": [train[0]["train/ce_loss"], ref["train/ce_loss"]],
+            "kl": [train[0]["train/kl_loss"], ref["train/kl_loss"]],
+            "ce_rel_diff": abs(train[0]["train/ce_loss"] - ref["train/ce_loss"])
+            / ref["train/ce_loss"],
+            "kl_rel_diff": abs(train[0]["train/kl_loss"] - ref["train/kl_loss"])
+            / ref["train/kl_loss"],
+            "tolerance": STEP1_LOSS_TOL}
+        shutil.rmtree(root / "train_teacher")
+
+        timed("distill_int8_teacher", run_distillation.main,
+              *distill("int8", "int8", 2))
+        report["distill_int8_teacher"]["loss"] = [
+            m["train/loss"] for m in _train_rows(_metrics(root / "int8"))]
+        shutil.rmtree(root / "int8")
+
+        # the resumed run keeps the schedule (the same --max_steps) and runs
+        # to the end; hard links, so its rotation cannot touch the original
+        resume = root / "resume"
+        resume.mkdir()
+        shutil.copytree(root / "inference" / "checkpoint-4",
+                        resume / "checkpoint-4", copy_function=os.link)
+        timed("distill_resume", run_distillation.main,
+              *distill("resume", "inference", TRAIN_STEPS,
+                       "--resume_from_checkpoint"))
+        resumed = _train_rows(_metrics(resume))
+        states = [torch.load(d / "checkpoint-8" / "state.pt",
+                             map_location="cpu", weights_only=True)
+                  for d in (root / "inference", resume)]
+        report["resume"] = {
+            "steps": [m["step"] for m in resumed],
+            "loss": [m["train/loss"] for m in resumed],
+            "uninterrupted_loss": [m["train/loss"] for m in train[4:]],
+            "grad_norm": [m["train/grad_norm"] for m in resumed],
+            "uninterrupted_grad_norm": [m["train/grad_norm"]
+                                        for m in train[4:]],
+            "checkpoint8_moment_tensors": len(states[0]["mu"]),
+            "checkpoint8_differences": state_differences(*states)}
+        del states
+        shutil.rmtree(resume)
+
+        # fine-tune the distilled checkpoint with the encoder trained through
+        # the kernel: its config with the encoder-attention kernel on
+        distilled = root / "inference" / "end-of-training-weights"
+        ft_src = root / "ft_src"
+        ft_src.mkdir()
+        for f in distilled.iterdir():
+            if f.name != "config.json":
+                os.symlink(f, ft_src / f.name)
+        cfg_json = json.loads((distilled / "config.json").read_text())
+        cfg_json["use_flash_encoder"] = True
+        (ft_src / "config.json").write_text(json.dumps(cfg_json))
+        timed("finetune", run_finetuning.main,
+              "--model_checkpoint", str(ft_src),
+              "--train_dataset_path", str(root / "finetune.jsonl"),
+              "--output_dir", str(root / "finetune"), "--max_steps", "3",
+              "--per_device_train_batch_size", str(FT_BATCH),
+              "--warmup_steps", "1", "--learning_rate", "1e-5",
+              "--max_label_length", "128", "--language", "en",
+              "--logging_steps", "1", "--save_steps", "1000",
+              "--gradient_checkpointing", "--profile_steps", "1",
+              "--profile_dir", str(root / "ft_trace"))
+        ft_metrics = _metrics(root / "finetune")
+        ft = _train_rows(ft_metrics)
+        ft_prof = next(m for m in ft_metrics
+                       if "profile/device_ms_per_step" in m)
+        report["finetune"].update({
+            "batch": FT_BATCH, "unfrozen_encoder": True, "remat": True,
+            "loss": [m["train/loss"] for m in ft],
+            "step_time_s": [m["train/step_time_s"] for m in ft],
+            "peak_mem_gib_steps": max(m.get("train/peak_mem_gib", 0)
+                                      for m in ft),
+            "profiled_step": {k.split("/")[1]: v for k, v in ft_prof.items()
+                              if k.startswith("profile/")},
+            "idle_share_profiled": 1 - ft_prof["profile/device_ms_per_step"]
+            / ft_prof["profile/wall_ms_per_step"],
+            "attention_backward_device_ms": range_device_ms(
+                root / "ft_trace" / "trace.json", "encoder_attention_vjp")})
+        shutil.rmtree(root / "finetune")
+
+        result = timed("eval", run_eval.main,
+                       "--model_checkpoint", str(distilled),
+                       "--dataset_path", str(root / "eval.jsonl"),
+                       "--mode", "short", "--language", "en",
+                       "--batch_size", str(TRAIN_BATCH),
+                       "--max_new_tokens", "32", "--dtype", "bfloat16")
+        report["eval"]["result"] = result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    emit({"phase": "training_path", **report})
+    bad = []
+    inf = report["distill_inference"]
+    if not all(map(math.isfinite, inf["loss"] + inf["grad_norm"])):
+        bad.append("non-finite distillation loss")
+    if inf["steps"] != TRAIN_STEPS or inf["checkpoints"] != [
+            "checkpoint-4", "checkpoint-8",
+            next(n for n in inf["checkpoints"] if "val-wer" in n)]:
+        bad.append(f"steps/checkpoints {inf['steps']} {inf['checkpoints']}")
+    enc = report["teacher_encoder_agreement"]
+    if not enc["inference_vs_fp32"] <= (ENCODER_ROUNDING_FACTOR
+                                        * enc["einsum_bf16_vs_fp32"]):
+        bad.append(f"the kernel's teacher encoder is off the fp32 one: {enc}")
+    agree = report["inference_vs_train_teacher_step1"]
+    if not (agree["ce_rel_diff"] <= STEP1_LOSS_TOL
+            and agree["kl_rel_diff"] <= STEP1_LOSS_TOL):
+        bad.append(f"inference teacher disagrees with the train teacher: "
+                   f"{agree}")
+    res = report["resume"]
+    if (res["steps"] != list(range(5, TRAIN_STEPS + 1))
+            or res["loss"] != res["uninterrupted_loss"]
+            or res["grad_norm"] != res["uninterrupted_grad_norm"]
+            or res["checkpoint8_differences"]):
+        bad.append(f"resume: {res}")
+    if not all(map(math.isfinite, report["finetune"]["loss"])):
+        bad.append("non-finite fine-tuning loss")
+    n_layers = teacher_cfg.encoder_layers
+    want = {"distill_inference": dict(
+                log_mel=TRAIN_CLIPS + TRAIN_EVAL_ROWS,
+                encoder_attention=n_layers * (TRAIN_STEPS + 1), int8_mlp=0),
+            # the int8 MLP kernel runs in the teacher's encoder and, at
+            # 16 x 127 >= 256 rows, in its decoder too
+            "distill_int8_teacher": dict(
+                log_mel=TRAIN_CLIPS, encoder_attention=2 * n_layers,
+                int8_mlp=2 * (n_layers + teacher_cfg.decoder_layers)),
+            "distill_train_teacher": dict(log_mel=TRAIN_CLIPS,
+                                          encoder_attention=0, int8_mlp=0),
+            "distill_resume": dict(
+                log_mel=TRAIN_CLIPS,
+                encoder_attention=n_layers * (TRAIN_STEPS - 4), int8_mlp=0),
+            "eval": dict(log_mel=1, encoder_attention=n_layers)}
+    for run, counts in want.items():
+        got = report[run]["launches"]
+        if any(got[k] != v for k, v in counts.items()):
+            bad.append(f"{run} launches {got}, want {counts}")
+    # three steps under remat: a forward and a recompute a layer a step
+    if report["finetune"]["launches"]["encoder_attention"] != 6 * n_layers:
+        bad.append(f"finetune launches {report['finetune']['launches']}")
+    if bad:
+        raise AssertionError("training path: " + "; ".join(bad))
+    return {name: report[name]["launches"] for name in
+            ("distill_inference", "distill_int8_teacher", "finetune", "eval")}
+
+
 def phase_small_reference(tok):
     """A small model on the card against the CPU: fp32 greedy tokens
     identical, bf16 fused (kernel) encoder close to the fp32 CPU encoder;
@@ -1940,9 +2426,17 @@ def main() -> int:
         del bf16
         torch.cuda.empty_cache()
         phase_small_reference(tok)
+    from distil_whisper_tpu_torch.config import PRESETS
+    training = phase_training_path(PRESETS["large-v3"])
+    longform.update({f"training_{k}": v for k, v in training.items()})
+    # the gradient row's launches: the kernel forwards of the fine-tuning
+    # run, each of which its recompute backward followed
+    counts["encoder_attention_grad"] = training["finetune"]["encoder_attention"]
     for row in rows:
+        kernel = ("encoder_attention" if row["name"] == "encoder_attention_grad"
+                  else row["name"])
         row["launches"] = counts[row["name"]]
-        row["launches_by_path"] = {path: c[row["name"]]
+        row["launches_by_path"] = {path: c[kernel]
                                    for path, c in longform.items()}
     emit({"kernels": rows})
     smi = subprocess.run(

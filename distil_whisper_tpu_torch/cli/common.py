@@ -1,16 +1,19 @@
-"""Shared CLI helpers of the port's eval drivers: dataset loading, logging,
-batching, noise mixing, JSON-file arguments.
+"""Shared helpers of the port's CLIs: dataset loading and
+interleaving, logging, batching, noise mixing, JSON-file arguments,
+tokenizer-artifact copying, JSONL writing.
 
-The port's own copy of what ``distil_whisper_tpu.cli.common`` gives
-``run_eval``.  A JSONL manifest is read with the standard library, so an
-eval needs no ``datasets`` package; ``datasets`` is imported only for a
-``save_to_disk`` directory or an ``.arrow`` file.
+The port's own copy of ``distil_whisper_tpu.cli.common``.  A JSONL manifest
+is read with the standard library, so neither an eval nor a training run
+needs the ``datasets`` package; ``datasets`` is imported only for a
+``save_to_disk`` directory or an ``.arrow`` file (and to interleave such
+datasets).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import shutil
 import sys
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional
@@ -25,6 +28,22 @@ def setup_logging(verbose: bool = True) -> None:
         stream=sys.stdout,
         level=logging.INFO if verbose else logging.WARNING,
         format="%(asctime)s [%(levelname)s] %(name)s: %(message)s")
+
+
+TOKENIZER_FILES = ("vocab.json", "merges.txt", "tokenizer.json",
+                   "added_tokens.json", "special_tokens_map.json",
+                   "tokenizer_config.json", "normalizer.json",
+                   "preprocessor_config.json", "generation_config.json")
+
+
+def copy_tokenizer_files(src: str, dst: str) -> None:
+    """Carry tokenizer/processor artifacts alongside exported weights."""
+    dst_p = Path(dst)
+    dst_p.mkdir(parents=True, exist_ok=True)
+    for name in TOKENIZER_FILES:
+        s = Path(src) / name
+        if s.exists():
+            shutil.copy(s, dst_p / name)
 
 
 def load_dataset_any(path: str, split: Optional[str] = None):
@@ -49,6 +68,77 @@ def load_dataset_any(path: str, split: Optional[str] = None):
         import datasets
         return datasets.Dataset.from_file(str(p))  # memory-mapped
     raise FileNotFoundError(f"cannot interpret dataset path {path}")
+
+
+def parse_dataset_spec(dataset_str: str, splits: Optional[str] = None,
+                       probabilities: Optional[str] = None
+                       ) -> List[Dict[str, Any]]:
+    """Parse the ``+``-delimited multi-dataset mini-language: ``"a+b"``
+    with optional ``"train+train"`` splits and ``"0.7+0.3"`` sampling
+    probabilities (normalised; uniform when absent)."""
+    names = dataset_str.split("+")
+    split_list = splits.split("+") if splits else [None] * len(names)
+    if probabilities:
+        probs = [float(p) for p in probabilities.split("+")]
+    else:
+        probs = [1.0 / len(names)] * len(names)
+    if not (len(names) == len(split_list) == len(probs)):
+        raise ValueError("dataset/split/probability lists must align: "
+                         f"{len(names)} vs {len(split_list)} vs {len(probs)}")
+    total = sum(probs)
+    return [{"path": n, "split": s, "probability": p / total}
+            for n, s, p in zip(names, split_list, probs)]
+
+
+def interleave_rows(datasets: List[List[Dict[str, Any]]],
+                    probabilities: List[float], seed: int = 0,
+                    stopping_strategy: str = "all_exhausted"
+                    ) -> List[Dict[str, Any]]:
+    """Interleave row lists by sampling probability, the order of
+    ``datasets.interleave_datasets``: sources drawn 1000 at a time by
+    ``np.random.default_rng(seed).choice``, each source read in order and
+    restarted when exhausted, until every source (``all_exhausted``) or
+    any source (``first_exhausted``) has been read through."""
+    if stopping_strategy not in ("all_exhausted", "first_exhausted"):
+        raise ValueError(f"unknown stopping strategy {stopping_strategy}")
+    stop = all if stopping_strategy == "all_exhausted" else any
+    lengths = [len(d) for d in datasets]
+    exhausted = [False] * len(datasets)
+    cursor = [0] * len(datasets)
+    rng = np.random.default_rng(seed)
+    out: List[Dict[str, Any]] = []
+    while True:
+        for src in rng.choice(len(datasets), size=1000, p=probabilities):
+            if stop(exhausted):
+                return out
+            src = int(src)
+            out.append(datasets[src][cursor[src]])
+            cursor[src] += 1
+            if cursor[src] >= lengths[src]:
+                exhausted[src] = True
+                cursor[src] = 0
+
+
+def load_multiple_datasets(dataset_str: str, splits: Optional[str] = None,
+                           probabilities: Optional[str] = None,
+                           seed: int = 0,
+                           stopping_strategy: str = "all_exhausted"):
+    """Load and interleave ``+``-delimited datasets by sampling
+    probability.  JSONL manifests interleave as row lists
+    (:func:`interleave_rows`); ``datasets`` directories through
+    ``datasets.interleave_datasets`` (the same order)."""
+    specs = parse_dataset_spec(dataset_str, splits, probabilities)
+    loaded = [load_dataset_any(s["path"], s["split"]) for s in specs]
+    if len(loaded) == 1:
+        return loaded[0]
+    probs = [s["probability"] for s in specs]
+    if all(isinstance(d, list) for d in loaded):
+        return interleave_rows(loaded, probs, seed, stopping_strategy)
+    import datasets
+    return datasets.interleave_datasets(
+        [d if not isinstance(d, list) else datasets.Dataset.from_list(d)
+         for d in loaded],
+        probabilities=probs, seed=seed, stopping_strategy=stopping_strategy)
 
 
 def batched(iterable: Iterable, n: int) -> Iterable[List]:
@@ -89,3 +179,9 @@ def add_noise_at_snr(audio: np.ndarray, snr_db: float,
     noise = rng.standard_normal(audio.shape).astype(np.float32)
     noise *= np.sqrt(noise_power / (np.mean(noise ** 2) + 1e-12))
     return (audio + noise).astype(np.float32)
+
+
+def write_jsonl(path: str, rows: Iterable[Dict[str, Any]]) -> None:
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")

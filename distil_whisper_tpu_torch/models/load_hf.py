@@ -1,10 +1,13 @@
-"""HF checkpoint -> the port's param tree.
+"""HF checkpoint <-> the port's param tree.
 
 Loads ``model.safetensors`` (single or sharded) or ``pytorch_model.bin`` from
 a local HF Whisper checkpoint directory into the stacked-layer layout of
-:mod:`.whisper`, with the same key maps as ``distil_whisper_tpu.models.load_hf``.
-The safetensors format is read here directly (an 8-byte header length, a JSON
-header, raw little-endian buffers), so no ``safetensors`` package is needed.
+:mod:`.whisper`, with the same key maps as ``distil_whisper_tpu.models.load_hf``,
+and exports back (:func:`save_pretrained`: ``config.json`` and
+``model.safetensors`` with the tied lm head as its own copy).  The
+safetensors format is read and written here directly (an 8-byte header
+length, a JSON header, raw little-endian buffers), so no ``safetensors``
+package is needed.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from ..config import WhisperConfig
 from ..device import resolve_device
 from .convert import params_from_numpy
-from .params import unflatten_paths
+from .params import tree_paths, unflatten_paths
 
 Params = Dict[str, Any]
 
@@ -64,6 +67,8 @@ _TOP_MAP = [
     ("model.decoder.layer_norm.bias", "decoder.ln.bias"),
 ]
 
+_SAFETENSORS_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16",
+                      torch.float16: "F16"}
 _SAFETENSORS_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16,
     "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
@@ -156,3 +161,76 @@ def load_params(checkpoint_dir: str, cfg: Optional[WhisperConfig] = None,
         cfg = WhisperConfig.from_pretrained(checkpoint_dir)
     sd = _read_state_dict(Path(checkpoint_dir))
     return params_from_state_dict(sd, cfg, dev, dtype), cfg
+
+
+def write_safetensors(tensors: Dict[str, torch.Tensor], path: Path,
+                      metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write CPU tensors as one ``.safetensors`` file: the header lists the
+    tensors by name with contiguous, ascending data offsets, padded with
+    spaces to 8 bytes, then the raw little-endian buffers in that order."""
+    header: Dict[str, Any] = {"__metadata__": metadata} if metadata else {}
+    names, offset = sorted(tensors), 0
+    for name in names:
+        t = tensors[name]
+        n_bytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _SAFETENSORS_NAMES[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n_bytes]}
+        offset += n_bytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for name in names:
+            t = tensors[name].detach().cpu().contiguous()
+            f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    tmp.replace(path)
+
+
+def state_dict_from_params(params: Params, cfg: WhisperConfig,
+                           dtype: torch.dtype = torch.float32
+                           ) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`params_from_state_dict`: HF names, unstacked
+    layers, HF layouts (linear ``[out, in]``, conv ``[out, in, k]``), CPU
+    tensors in ``dtype``; the tied lm head ``proj_out.weight`` is the
+    embedding table itself."""
+    flat = tree_paths(params)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, val):
+        sd[key] = val.detach().to("cpu", dtype).contiguous()
+
+    for hf, ours in _TOP_MAP:
+        if ours in flat:
+            put(hf, flat[ours])
+    for name in ("conv1", "conv2"):
+        put(f"model.encoder.{name}.weight",
+            flat[f"encoder.{name}.kernel"].permute(2, 1, 0))
+        put(f"model.encoder.{name}.bias", flat[f"encoder.{name}.bias"])
+    for side, n_layers in (("encoder", cfg.encoder_layers),
+                           ("decoder", cfg.decoder_layers)):
+        for hf_tail, our_tail, transpose in _LAYER_MAP:
+            key = f"{side}.layers.{our_tail}"
+            if key not in flat:
+                continue
+            for i in range(n_layers):
+                w = flat[key][i]
+                put(f"model.{side}.layers.{i}.{hf_tail}", w.T if transpose else w)
+    sd["proj_out.weight"] = sd["model.decoder.embed_tokens.weight"]
+    return sd
+
+
+def save_pretrained(params: Params, cfg: WhisperConfig, path: str,
+                    dtype: torch.dtype = torch.float32) -> None:
+    """Export to an HF-compatible checkpoint dir: ``config.json`` and
+    ``model.safetensors`` (tensors in ``dtype``, fp32 by default as the JAX
+    package writes; metadata ``{"format": "pt"}``, which transformers asks
+    for; the tied head written as its own copy)."""
+    p = Path(path)
+    p.mkdir(parents=True, exist_ok=True)
+    cfg.save_pretrained(path)
+    sd = state_dict_from_params(params, cfg, dtype)
+    sd["proj_out.weight"] = sd["proj_out.weight"].clone()
+    write_safetensors(sd, p / "model.safetensors", metadata={"format": "pt"})

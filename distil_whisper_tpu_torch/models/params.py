@@ -8,7 +8,9 @@ from the JAX package (``convert.params_from_numpy``) is a valid tree here.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
+
+import torch
 
 PyTree = Any
 
@@ -44,3 +46,26 @@ def layer_slice(tree: PyTree, i: int) -> PyTree:
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def cast_floating(tree: PyTree, dtype) -> PyTree:
+    """Cast floating leaves to ``dtype`` (integer leaves untouched)."""
+    return map_with_path(
+        lambda _, x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+def to_bf16(tree: PyTree) -> PyTree:
+    return cast_floating(tree, torch.bfloat16)
+
+
+def to_fp32(tree: PyTree) -> PyTree:
+    return cast_floating(tree, torch.float32)
+
+
+def param_count(tree: PyTree) -> int:
+    return sum(x.numel() for x in tree_paths(tree).values())
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: PyTree) -> PyTree:
+    """Map ``fn(path, leaf)`` over a nested-dict tree, preserving structure."""
+    return unflatten_paths({p: fn(p, v) for p, v in tree_paths(tree).items()})

@@ -24,15 +24,25 @@ each lane writing, reading and masking at its own slots (speculative
 decoding, whose lanes accept different numbers of tokens a round), together
 with ``pad_len`` if its prompts are left-padded.
 
-Not in this slice: dropout, remat.
+The training path: :func:`forward` (encoder + teacher-forced decoder),
+``output_hidden_states`` ([L+1, B, T, d], the embedding output and every
+layer's output, HF's convention), ``freeze`` (the encoder's output takes no
+gradient), the decoder's padding ``attention_mask`` combined with
+causality, ``skip_logits`` (the chunked loss projects per chunk), inverted
+dropout at the config's rates drawn from an explicit ``torch.Generator``,
+and remat: ``torch.utils.checkpoint`` around each layer.  Each layer draws
+its dropout masks from a generator of its own, seeded from the caller's, so
+that a rematerialised layer draws the same masks again.  The encoder's
+sinusoidal positions take no gradient, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import WhisperConfig
 from ..ops.attention import mha, causal_mask, decode_attention
@@ -65,6 +75,39 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5,
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout; the identity when ``rate`` is 0 or there is no
+    generator (inference)."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _layer_seeds(generator: Optional[torch.Generator], n: int) -> List:
+    """One seed a layer, drawn from ``generator`` (None without one)."""
+    if generator is None:
+        return [None] * n
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def _generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _run_layer(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with ``remat``: the
+    layer's activations are recomputed in the backward (JAX:
+    ``jax.checkpoint`` around the scanned layer)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ kernel with fp32 accumulation, cast to x.dtype, then the bias added
     in x.dtype."""
@@ -88,26 +131,30 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def attention_block(p: Params, x_q: torch.Tensor, x_kv: torch.Tensor,
-                    n_heads: int, mask=None,
-                    f32_attn: bool = True) -> torch.Tensor:
+                    n_heads: int, mask=None, f32_attn: bool = True,
+                    attn_dropout: float = 0.0,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
     """Full (uncached) MHA: project, attend, output-project."""
     q = _split_heads(dense(p["q"], x_q), n_heads)
     k = _split_heads(dense(p["k"], x_kv), n_heads)
     v = _split_heads(dense(p["v"], x_kv), n_heads)
     return dense(p["out"], _merge_heads(
-        mha(q, k, v, mask, float32_logits=f32_attn)))
+        mha(q, k, v, mask, float32_logits=f32_attn,
+            dropout_rate=attn_dropout, generator=generator)))
 
 
 def mlp_block(fc1: Params, fc2: Params, x: torch.Tensor,
-              exact_gelu: bool = True) -> torch.Tensor:
-    if ("kernel_q" in fc1 and exact_gelu and x.is_cuda
+              exact_gelu: bool = True, act_dropout: float = 0.0,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    if ("kernel_q" in fc1 and exact_gelu and act_dropout == 0.0 and x.is_cuda
             and x.dtype == torch.bfloat16 and mlp_supported(fc1, x)):
         # the fused int8 MLP kernel (ops/int8_mlp.py), JAX's choice on the
         # TPU; elsewhere (CPU, fp32, decode-sized row counts) the unfused
         # dense_int8 -> gelu -> dense_int8, JAX's choice off the TPU
         return fused_int8_mlp(fc1, fc2, x)
     h = F.gelu(dense(fc1, x), approximate="none" if exact_gelu else "tanh")
-    return dense(fc2, h)
+    return dense(fc2, dropout(h, act_dropout, generator))
 
 
 # ----------------------------------------------------------------------
@@ -131,8 +178,12 @@ def _conv1d(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
 
 def _encoder_layer(lp: Params, x: torch.Tensor, n_heads: int,
                    policy=(True, False, False),
-                   t_real: Optional[int] = None) -> torch.Tensor:
+                   t_real: Optional[int] = None,
+                   rates=(0.0, 0.0, 0.0), seed: Optional[int] = None
+                   ) -> torch.Tensor:
     f32_attn, fast_act, use_fused = policy
+    drop, attn_drop, act_drop = rates
+    gen = _generator(seed, x.device)
     r = x
     x = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
     if use_fused:
@@ -141,30 +192,63 @@ def _encoder_layer(lp: Params, x: torch.Tensor, n_heads: int,
         x = fused_self_attention(lp["self_attn"], x, n_heads,
                                  t_real or x.shape[1])
     else:
-        x = attention_block(lp["self_attn"], x, x, n_heads, f32_attn=f32_attn)
-    x = r + x
+        x = attention_block(lp["self_attn"], x, x, n_heads, f32_attn=f32_attn,
+                            attn_dropout=attn_drop, generator=gen)
+    x = r + dropout(x, drop, gen)
     r = x
     x = layer_norm(lp["final_ln"], x, fp32=not fast_act)
-    return r + mlp_block(lp["fc1"], lp["fc2"], x, exact_gelu=not fast_act)
+    x = mlp_block(lp["fc1"], lp["fc2"], x, exact_gelu=not fast_act,
+                  act_dropout=act_drop, generator=gen)
+    return r + dropout(x, drop, gen)
 
 
 def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
-           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+           dtype: torch.dtype = torch.float32, remat: bool = False,
+           output_hidden_states: bool = False, freeze: bool = False,
+           generator: Optional[torch.Generator] = None):
     """mel [B, n_mels, 3000] -> encoder states [B, 1500, d].
 
     With ``cfg.use_flash_encoder`` self-attention goes through the kernel, which
     takes T = 1500 as it is (the JAX package pads to 1536 for its block
-    grid and slices back; the output is the same)."""
+    grid and slices back; the output is the same).  The kernel is skipped
+    when attention dropout is on, as in JAX.
+
+    ``output_hidden_states`` also returns [L+1, B, 1500, d] (the embedding
+    output and every layer's output, the last after ``ln_post``);
+    ``freeze`` detaches the output; ``generator`` turns on the config's
+    dropout rates (training); ``remat`` recomputes each layer in the
+    backward."""
+    rates = (cfg.dropout, cfg.attention_dropout, cfg.activation_dropout)
+    use_dropout = generator is not None and any(r > 0 for r in rates)
     x = mel.to(dtype).transpose(1, 2)                        # [B, 3000, n_mels]
     x = F.gelu(_conv1d(params["conv1"], x, 1))
     x = F.gelu(_conv1d(params["conv2"], x, 2))               # [B, 1500, d]
-    x = x + params["pos_emb"].to(dtype)
+    # sinusoidal positions are constants, never trained
+    x = x + params["pos_emb"].detach().to(dtype)
+    use_fused = cfg.use_flash_encoder and not (
+        use_dropout and cfg.attention_dropout > 0)
     policy = (not cfg.fast_bf16_attention, cfg.fast_approx_activations,
-              cfg.use_flash_encoder)
+              use_fused)
+    if use_dropout:
+        seeds = _layer_seeds(generator, cfg.encoder_layers + 1)
+        x = dropout(x, cfg.dropout, _generator(seeds.pop(), x.device))
+    else:
+        rates, seeds = (0.0, 0.0, 0.0), [None] * cfg.encoder_layers
+    hs = []
     for i in range(cfg.encoder_layers):
-        x = _encoder_layer(layer_slice(params["layers"], i), x,
-                           cfg.encoder_attention_heads, policy, x.shape[1])
-    return layer_norm(params["ln_post"], x)
+        if output_hidden_states:
+            hs.append(x)
+        lp = layer_slice(params["layers"], i)
+        x = _run_layer(
+            lambda h, lp=lp, seed=seeds[i]: _encoder_layer(
+                lp, h, cfg.encoder_attention_heads, policy, h.shape[1],
+                rates, seed), remat, x)
+    y = layer_norm(params["ln_post"], x)
+    if freeze:
+        y = y.detach()
+    if output_hidden_states:
+        return y, torch.stack(hs + [y])
+    return y
 
 
 # ----------------------------------------------------------------------
@@ -290,29 +374,38 @@ def _int8_logits(params: Params, y: torch.Tensor) -> torch.Tensor:
 
 def _decoder_layer(lp: Params, x: torch.Tensor, self_k, self_v, ck, cv,
                    n_heads: int, self_mask, policy=(True, False),
-                   output_cross_probs: bool = False):
+                   output_cross_probs: bool = False,
+                   rates=(0.0, 0.0, 0.0),
+                   generator: Optional[torch.Generator] = None):
     """One decoder layer given head-split K/V for both attentions; with
     ``output_cross_probs`` returns ``(y, fp32 cross-attention probs
     [B, H, S, Tk])``."""
     f32_attn, fast_act = policy
+    drop, attn_drop, act_drop = rates
     r = x
     h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
     q = _split_heads(dense(lp["self_attn"]["q"], h), n_heads)
-    a = mha(q, self_k, self_v, self_mask, float32_logits=f32_attn)
-    x = r + dense(lp["self_attn"]["out"], _merge_heads(a))
+    a = mha(q, self_k, self_v, self_mask, float32_logits=f32_attn,
+            dropout_rate=attn_drop, generator=generator)
+    x = r + dropout(dense(lp["self_attn"]["out"], _merge_heads(a)), drop,
+                    generator)
 
     r = x
     h = layer_norm(lp["cross_attn_ln"], x, fp32=not fast_act)
     q = _split_heads(dense(lp["cross_attn"]["q"], h), n_heads)
     a = mha(q, ck, cv, float32_logits=f32_attn,
-            return_probs=output_cross_probs)
+            return_probs=output_cross_probs, dropout_rate=attn_drop,
+            generator=generator)
     if output_cross_probs:
         a, cross_probs = a
-    x = r + dense(lp["cross_attn"]["out"], _merge_heads(a))
+    x = r + dropout(dense(lp["cross_attn"]["out"], _merge_heads(a)), drop,
+                    generator)
 
     r = x
     h = layer_norm(lp["final_ln"], x, fp32=not fast_act)
-    y = r + mlp_block(lp["fc1"], lp["fc2"], h, exact_gelu=not fast_act)
+    h = mlp_block(lp["fc1"], lp["fc2"], h, exact_gelu=not fast_act,
+                  act_dropout=act_drop, generator=generator)
+    y = r + dropout(h, drop, generator)
     return (y, cross_probs) if output_cross_probs else y
 
 
@@ -355,7 +448,11 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
            cache: Optional[Params] = None,
            pos_offset=0,
            pad_len: Optional[torch.Tensor] = None,
-           dtype: torch.dtype = torch.float32):
+           dtype: torch.dtype = torch.float32,
+           attention_mask: Optional[torch.Tensor] = None,
+           remat: bool = False, output_hidden_states: bool = False,
+           generator: Optional[torch.Generator] = None,
+           skip_logits: bool = False):
     """Decoder forward.
 
     tokens [B, S] at global cache slots ``pos_offset .. pos_offset+S-1``.
@@ -382,7 +479,15 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     - pad_len[b], 0, max_target_positions - 1)`` and sees key slots ``k``
     with ``pad_len[b] <= k <= pos_offset[b] + j``.
 
+    Training (uncached) only: ``attention_mask`` [B, S] is a padding mask
+    of the keys combined with causality; ``generator`` turns on the
+    config's dropout rates; ``remat`` recomputes each layer in the backward.
+
     Returns ``(logits [B, S, V] fp32, cache)``; ``cache`` is None uncached.
+    With ``skip_logits`` the first item is the final-LayerNorm hidden state
+    [B, S, d] instead (the chunked loss projects it per chunk); with
+    ``output_hidden_states`` a third item, [L+1, B, S, d]: the embedding
+    output and every layer's output, the last after the final LayerNorm.
     """
     b, s = tokens.shape
     n_heads = cfg.decoder_attention_heads
@@ -412,6 +517,8 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     if pad_len is not None:
         key_slots = torch.arange(tk, device=device)[None, None, None, :]
         self_mask = self_mask & (key_slots >= pad_len[:, None, None, None])
+    if attention_mask is not None:
+        self_mask = self_mask & attention_mask[:, None, None, :].bool()
 
     policy = (not cfg.fast_bf16_attention, cfg.fast_approx_activations)
     f32_attn, fast_act = policy
@@ -425,33 +532,52 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     merged_fast = cache is not None and s == 1 and not f32_attn
     mask2 = self_mask[:, 0, 0, :] if merged_fast else None
 
+    rates = (cfg.dropout, cfg.attention_dropout, cfg.activation_dropout)
+    if cache is None and generator is not None and any(r > 0 for r in rates):
+        seeds = _layer_seeds(generator, cfg.decoder_layers + 1)
+        x = dropout(x, cfg.dropout, _generator(seeds.pop(), device))
+    else:
+        rates, seeds = (0.0, 0.0, 0.0), [None] * cfg.decoder_layers
+
+    def uncached_layer(x, lp, ck, cv, seed):
+        h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
+        k = _split_heads(dense(lp["self_attn"]["k"], h), n_heads)
+        v = _split_heads(dense(lp["self_attn"]["v"], h), n_heads)
+        return _decoder_layer(lp, x, k, v, _split_heads(ck, n_heads),
+                              _split_heads(cv, n_heads), n_heads, self_mask,
+                              policy, rates=rates,
+                              generator=_generator(seed, device))
+
+    hs = []
     for i in range(cfg.decoder_layers):
+        if output_hidden_states:
+            hs.append(x)
         lp = layer_slice(params["layers"], i)
         ck, cv = _cross_read(cross, i, dtype)
-        h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
-        k = dense(lp["self_attn"]["k"], h)
-        v = dense(lp["self_attn"]["v"], h)
         if cache is None:
-            x = _decoder_layer(lp, x, _split_heads(k, n_heads),
-                               _split_heads(v, n_heads),
-                               _split_heads(ck, n_heads),
-                               _split_heads(cv, n_heads), n_heads,
-                               self_mask, policy)
-        else:
-            _cache_write(cache, "k", i, pos_offset, k)
-            _cache_write(cache, "v", i, pos_offset, v)
-            x = _cached_layer(lp, x, h, _cache_read(cache, "k", i, dtype),
-                              _cache_read(cache, "v", i, dtype), ck, cv,
-                              n_heads, self_mask, mask2, merged_fast, policy)
+            x = _run_layer(uncached_layer, remat, x, lp, ck, cv, seeds[i])
+            continue
+        h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
+        _cache_write(cache, "k", i, pos_offset, dense(lp["self_attn"]["k"], h))
+        _cache_write(cache, "v", i, pos_offset, dense(lp["self_attn"]["v"], h))
+        x = _cached_layer(lp, x, h, _cache_read(cache, "k", i, dtype),
+                          _cache_read(cache, "v", i, dtype), ck, cv,
+                          n_heads, self_mask, mask2, merged_fast, policy)
 
     y = layer_norm(params["ln"], x)
-    if "tok_emb_q" in params and b >= 8:
+    if skip_logits:
+        logits = y
+    elif "tok_emb_q" in params and b >= 8:
         # int8 logits (cfg.quantize_lm_head), gated on the batch as in JAX
         # so that prefill and steps of one generation share numerics
         logits = _int8_logits(params, y)
     else:
-        # fp32 logits (the tied embedding, fp32 accumulation) as in JAX
-        logits = torch.matmul(y.float(), params["tok_emb"].float().T)
+        # fp32 logits (the tied embedding in the working dtype, fp32
+        # accumulation) as in JAX
+        logits = torch.matmul(y.float(),
+                              params["tok_emb"].to(dtype).float().T)
+    if output_hidden_states:
+        return logits, cache, torch.stack(hs + [y])
     return logits, cache
 
 
@@ -503,3 +629,36 @@ def cross_attention_weights(params: Params, cfg: WhisperConfig,
     :func:`cross_attention_probs`)."""
     return torch.stack([p for _, p in cross_attention_probs(
         params, cfg, tokens, enc=enc, cross=cross, dtype=dtype)])
+
+
+# ----------------------------------------------------------------------
+# Full forward (training path)
+# ----------------------------------------------------------------------
+
+
+def forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
+            decoder_input_ids: torch.Tensor,
+            decoder_attention_mask: Optional[torch.Tensor] = None,
+            dtype: torch.dtype = torch.float32, remat: bool = False,
+            freeze_encoder: bool = False,
+            output_hidden_states: bool = False,
+            generator: Optional[torch.Generator] = None):
+    """Encoder + teacher-forced decoder: ``(logits [B, S, V] fp32, aux)``.
+
+    ``params`` is the full tree (``{'encoder': ..., 'decoder': ...}``);
+    ``aux`` holds ``encoder_last_hidden_state`` and, with
+    ``output_hidden_states``, ``encoder_hidden_states`` and
+    ``decoder_hidden_states`` ([L+1, B, T, d] each)."""
+    enc_out = encode(params["encoder"], cfg, mel, dtype=dtype, remat=remat,
+                     output_hidden_states=output_hidden_states,
+                     freeze=freeze_encoder, generator=generator)
+    enc = enc_out[0] if output_hidden_states else enc_out
+    out = decode(params["decoder"], cfg, decoder_input_ids, enc=enc,
+                 attention_mask=decoder_attention_mask, dtype=dtype,
+                 remat=remat, output_hidden_states=output_hidden_states,
+                 generator=generator)
+    aux = {"encoder_last_hidden_state": enc}
+    if output_hidden_states:
+        aux["encoder_hidden_states"] = enc_out[1]
+        aux["decoder_hidden_states"] = out[2]
+    return out[0], aux

@@ -18,7 +18,9 @@ NEG_INF = -1e9  # large-negative mask fill that is bf16-safe
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
-        float32_logits: bool = True, return_probs: bool = False):
+        float32_logits: bool = True, return_probs: bool = False,
+        dropout_rate: float = 0.0,
+        generator: Optional[torch.Generator] = None):
     """Scaled dot-product attention (einsum formulation).
 
     q: [B, Tq, H, D]   k, v: [B, Tk, H, D]   mask: broadcastable to [B, H, Tq, Tk]
@@ -31,6 +33,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_probs``: also return the fp32 probabilities [B, H, Tq, Tk] (the
     softmax of the logits taken in fp32), as JAX's ``return_probs`` does for
     the cross-attention DTW alignment.
+
+    ``dropout_rate`` with a ``generator``: inverted dropout on the
+    probabilities (training), as JAX's ``dropout_rng``.
     """
     dtype = q.dtype
     scale = q.shape[-1] ** -0.5
@@ -42,6 +47,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(dtype)
+    if dropout_rate > 0.0 and generator is not None:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_rate
+        probs = torch.where(keep, probs / (1.0 - dropout_rate),
+                            torch.zeros_like(probs))
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dtype)
     if return_probs:
         return out, torch.softmax(logits.float(), dim=-1)

@@ -15,9 +15,17 @@ views of [B, T, H*64] projections: ``encode`` needs no pad or copy.
 and runs :func:`encoder_attention_plain` for CPU tensors; anything else
 raises.  ``encoder_attention.launches`` counts kernel launches.
 
+On the card the kernel runs inside a :class:`torch.autograd.Function`
+whose backward recomputes the attention through the plain version under
+autograd and returns its vector-Jacobian product, as the JAX package's
+``custom_vjp`` does (``_bwd`` recomputes through its einsum reference).  The
+backward launches no kernel; it holds the fp32 [B, H, T, T] scores and
+probabilities of one layer while it runs (180 MB per batch row at
+large-v3's 20 heads and T = 1500).  On the CPU autograd goes through the
+plain version directly.
+
 Not ported: the TPU-only ``exp_impl`` and ``fused_qkv`` knobs (measured dead
-on the TPU); the QAT branch of ``fused_self_attention`` and the backward
-(einsum recompute) come with training.
+on the TPU); the QAT branch of ``fused_self_attention`` comes with QAT.
 """
 
 from __future__ import annotations
@@ -44,7 +52,8 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (d ** -0.5)
     if t_real < k.shape[2]:
         s[..., t_real:] = float("-inf")
-    m = torch.amax(s, dim=-1, keepdim=True)
+    # the row max only shifts the exponent: no gradient through it
+    m = torch.amax(s, dim=-1, keepdim=True).detach()
     p = torch.exp(s - m)
     denom = torch.sum(p, dim=-1, keepdim=True)
     pv = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
@@ -91,15 +100,9 @@ def _check_operand(name: str, x: torch.Tensor, shape) -> None:
                          f"!= {tuple(shape)}")
 
 
-def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      t_real: int) -> torch.Tensor:
-    """Whisper encoder self-attention.  q/k/v [B, H, T, 64]; keys >= t_real
-    are masked.  Returns [B, H, T, 64] in q.dtype, laid out like q (a
-    [B, H, T, D] view of a [B, T, H, D] buffer stays one)."""
-    if q.device.type == "cpu":
-        return encoder_attention_plain(q, k, v, t_real)
-    if q.device.type != "cuda":
-        raise ValueError(f"encoder_attention: unsupported device {q.device}")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            t_real: int) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (checked here)."""
     b, h, t, d = q.shape
     if d != 64:
         raise ValueError(f"encoder_attention kernel takes head dim 64, got {d}")
@@ -121,6 +124,55 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"(cudaError {err})")
     _build.count_launch(encoder_attention)
     return out
+
+
+def encoder_attention_vjp(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, t_real: int, g: torch.Tensor,
+                          needs=(True, True, True)):
+    """The kernel's backward: the vector-Jacobian product of
+    :func:`encoder_attention_plain` at (q, k, v) with the output cotangent
+    ``g``, recomputed under autograd (JAX's ``_bwd``).  Returns (dq, dk,
+    dv), None where ``needs`` is false; each gradient comes back laid out as
+    autograd lays out its input."""
+    # a named range, so that a profile of a training step can sum the
+    # recompute's device time
+    with torch.profiler.record_function("encoder_attention_vjp"), \
+            torch.enable_grad():
+        qkv = [x.detach().requires_grad_(n) for x, n in zip((q, k, v), needs)]
+        out = encoder_attention_plain(*qkv, t_real)
+        grads = iter(torch.autograd.grad(
+            out, [x for x in qkv if x.requires_grad], g))
+    return tuple(next(grads) if x.requires_grad else None for x in qkv)
+
+
+class _KernelAttention(torch.autograd.Function):
+    """The kernel's forward, the plain version's recompute backward (JAX:
+    ``_fwd``/``_bwd`` of the custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, t_real):
+        ctx.save_for_backward(q, k, v)
+        ctx.t_real = t_real
+        return _launch(q, k, v, t_real)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*encoder_attention_vjp(q, k, v, ctx.t_real, g,
+                                       ctx.needs_input_grad[:3]), None)
+
+
+def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      t_real: int) -> torch.Tensor:
+    """Whisper encoder self-attention.  q/k/v [B, H, T, 64]; keys >= t_real
+    are masked.  Returns [B, H, T, 64] in q.dtype, laid out like q (a
+    [B, H, T, D] view of a [B, T, H, D] buffer stays one).  Differentiable
+    in q, k and v on both devices."""
+    if q.device.type == "cpu":
+        return encoder_attention_plain(q, k, v, t_real)
+    if q.device.type != "cuda":
+        raise ValueError(f"encoder_attention: unsupported device {q.device}")
+    return _KernelAttention.apply(q, k, v, t_real)
 
 
 encoder_attention.launches = 0

@@ -25,8 +25,6 @@ multiple of 8.  :func:`int_mm` pads the rows (zero rows, sliced off after)
 and checks the widths; Whisper's widths (64..5120) are multiples of 8.  The
 int8 lm head puts the 51866-row vocabulary on the row side so that it needs
 no pad (``models/whisper.py``).
-
-Not ported here: ``quantize_teacher_params`` comes with training.
 """
 
 from __future__ import annotations
@@ -177,6 +175,16 @@ def quantize_lm_head_params(dec: Params) -> Params:
     out["tok_emb_q"] = q
     out["tok_emb_scale"] = s
     return out
+
+
+def quantize_teacher_params(teacher: Params) -> Params:
+    """Full-tree int8 quantization of a teacher for ``--teacher_precision
+    int8``: the encoder and decoder projections and MLPs; the tied
+    embedding (the lm head) stays exact, since it gives the KL target
+    logits."""
+    return {**teacher,
+            "encoder": quantize_encoder_params(teacher["encoder"]),
+            "decoder": quantize_decoder_params(teacher["decoder"])}
 
 
 def maybe_quantize_encoder(params: Params, cfg) -> Params:

@@ -1,0 +1,115 @@
+"""Checkpoint save / rotate / resume and best-by-WER tracking, without
+Orbax.
+
+The port of ``distil_whisper_tpu.training.checkpoint`` with the same
+directory names (``checkpoint-{step}``, and ``checkpoint-{step}-val-wer-
+{wer:.3f}`` for the best checkpoints), the same rotation
+(``save_total_limit`` newest step checkpoints, ``best_total_limit`` lowest-
+WER ones) and the same ``meta.json``.  A checkpoint holds ``state.pt``: the
+train state's tensors (params, AdamW moments, the accumulated gradient) and
+counters, written with ``torch.save``.  ``restore`` copies them into a
+template state of the same layout, dtype for dtype, so a resumed run
+continues bit for bit.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import torch
+
+from .state import TrainState
+
+CKPT_PATTERN = re.compile(r"^checkpoint-(\d+)$")
+BEST_PATTERN = re.compile(r"^checkpoint-(\d+)-val-wer-([\d.]+)$")
+STATE_FILE = "state.pt"
+
+
+class CheckpointManager:
+    def __init__(self, output_dir: str, save_total_limit: Optional[int] = None,
+                 best_total_limit: int = 1):
+        self.dir = Path(output_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.save_total_limit = save_total_limit
+        self.best_total_limit = best_total_limit
+
+    @staticmethod
+    def _write(path: Path, state: TrainState) -> None:
+        if path.exists():
+            shutil.rmtree(path)
+        path.mkdir(parents=True)
+        tmp = path / (STATE_FILE + ".tmp")
+        torch.save(state.state_dict(), tmp)
+        tmp.rename(path / STATE_FILE)
+
+    def save(self, step: int, state: TrainState,
+             metadata: Optional[dict] = None) -> str:
+        path = self.dir / f"checkpoint-{step}"
+        self._write(path, state)
+        if metadata is not None:
+            with open(path / "meta.json", "w") as f:
+                json.dump({"step": step, **metadata}, f)
+        self._rotate()
+        return str(path)
+
+    def save_best(self, step: int, state: TrainState, val_wer: float) -> str:
+        path = self.dir / f"checkpoint-{step}-val-wer-{val_wer:.3f}"
+        self._write(path, state)
+        self._rotate_best()
+        return str(path)
+
+    # ------------------------------------------------------------------
+    def all_checkpoints(self) -> List[Tuple[int, Path]]:
+        out = []
+        for p in self.dir.iterdir():
+            m = CKPT_PATTERN.match(p.name)
+            if m and p.is_dir():
+                out.append((int(m.group(1)), p))
+        return sorted(out)
+
+    def best_checkpoints(self) -> List[Tuple[float, int, Path]]:
+        out = []
+        for p in self.dir.iterdir():
+            m = BEST_PATTERN.match(p.name)
+            if m and p.is_dir():
+                out.append((float(m.group(2)), int(m.group(1)), p))
+        return sorted(out)  # ascending WER: best first
+
+    def latest(self) -> Optional[Tuple[int, str]]:
+        ckpts = self.all_checkpoints()
+        if not ckpts:
+            return None
+        step, path = ckpts[-1]
+        return step, str(path)
+
+    # ------------------------------------------------------------------
+    def restore(self, path: str, template_state: TrainState) -> TrainState:
+        """Load a checkpoint into ``template_state`` (in place)."""
+        sd = torch.load(Path(path) / STATE_FILE, map_location="cpu",
+                        weights_only=True)
+        return template_state.load_state_dict(sd)
+
+    def resume_latest(self, template_state: TrainState
+                      ) -> Optional[Tuple[int, TrainState]]:
+        latest = self.latest()
+        if latest is None:
+            return None
+        step, path = latest
+        return step, self.restore(path, template_state)
+
+    # ------------------------------------------------------------------
+    def _rotate(self):
+        if self.save_total_limit is None:
+            return
+        ckpts = self.all_checkpoints()
+        for _, path in ckpts[:max(0, len(ckpts) - self.save_total_limit)]:
+            shutil.rmtree(path, ignore_errors=True)
+
+    def _rotate_best(self):
+        best = self.best_checkpoints()
+        for _, _, path in best[self.best_total_limit:]:
+            shutil.rmtree(path, ignore_errors=True)

@@ -1,0 +1,206 @@
+"""Distillation and fine-tuning steps.
+
+The port of ``distil_whisper_tpu.training.distill``.  A step computes the
+loss, takes the gradients of every parameter leaf with ``torch.autograd``
+(a leaf the loss does not reach gets ``None``, counted as zeros), records
+the global norm of those raw gradients and hands them to
+``TrainState.apply_gradients``.  The teacher side runs under ``no_grad``.
+
+Shared frozen encoder: when the student's encoder is frozen and matches the
+teacher's width and mel bins, the window is encoded once, by the teacher,
+and both decoders read the same encoder states.  The chunked CE+KL
+(``loss_chunk_size``) applies only there, without the hidden-state MSE.
+Every term is normalised by the batch's token count, ``max(n, 1)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..config import WhisperConfig
+from ..models.params import tree_paths
+from ..models.whisper import decode, encode, forward
+from .losses import (chunked_ce_kl, cross_entropy, get_layers_to_supervise,
+                     hidden_state_mse, kl_divergence)
+from .state import OptimizerConfig, TrainState, global_norm
+
+Params = Any
+
+QAT_NOT_PORTED = ("--quantize_student (quantization-aware training, "
+                  "ops/qat.py) is not ported yet: ROADMAP.md queue 1, "
+                  "item 4, QAT")
+
+
+@dataclasses.dataclass(frozen=True)
+class DistillConfig:
+    ce_weight: float = 0.8
+    kl_weight: float = 1.0
+    temperature: float = 2.0
+    mse_weight: float = 0.0
+    label_smoothing: float = 0.0
+    freeze_encoder: bool = True
+    share_encoder: bool = True      # student decodes on teacher enc states
+    remat: bool = False
+    loss_chunk_size: int = 0        # 0 = off (the same numbers when on)
+    quantize_student: str = "none"  # QAT: not ported (raises)
+
+
+def gradients(loss: torch.Tensor, state: TrainState
+              ) -> Dict[str, Optional[torch.Tensor]]:
+    """d loss / d leaf for every parameter leaf of ``state`` (None where
+    the loss does not reach)."""
+    leaves = state.leaves()
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return dict(zip(leaves, grads))
+
+
+def _step(state: TrainState, loss: torch.Tensor, metrics: Dict,
+          grad_norm: bool = True):
+    grads = gradients(loss, state)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if grad_norm:
+        metrics["grad_norm"] = global_norm(grads)
+    state.apply_gradients(grads)
+    return state, metrics
+
+
+def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
+                     dcfg: DistillConfig, opt_cfg: OptimizerConfig):
+    """Returns ``train_step(state, teacher_params, batch, generator=None)
+    -> (state, metrics)`` and ``eval_step(params, teacher_params, batch)
+    -> metrics``.
+
+    batch: input_features [B, M, 3000], decoder_input_ids [B, S], labels
+    [B, S] (-100 on prompt/pad), decoder_attention_mask [B, S] optional, all
+    tensors on the device.  ``generator`` turns on the student's dropout."""
+    if dcfg.quantize_student != "none":
+        raise NotImplementedError(QAT_NOT_PORTED)
+    dtype = opt_cfg.compute_dtype
+    share = dcfg.share_encoder and dcfg.freeze_encoder and (
+        student_cfg.d_model == teacher_cfg.d_model
+        and student_cfg.num_mel_bins == teacher_cfg.num_mel_bins)
+    use_mse = dcfg.mse_weight > 0.0
+    layer_map = get_layers_to_supervise(
+        student_cfg.decoder_layers, teacher_cfg.decoder_layers) if use_mse else ()
+    chunked = dcfg.loss_chunk_size > 0 and share and not use_mse
+
+    def weighted(ce_sum, kl_sum, n_tok):
+        n_tok = torch.clamp(n_tok, min=1.0)
+        ce, kl = ce_sum / n_tok, kl_sum / n_tok
+        loss = dcfg.ce_weight * ce + dcfg.kl_weight * kl
+        return loss, {"ce_loss": ce, "kl_loss": kl}
+
+    def compute_losses(params: Params, teacher: Params,
+                       batch: Dict[str, torch.Tensor],
+                       generator: Optional[torch.Generator] = None):
+        mel = batch["input_features"]
+        dec_in = batch["decoder_input_ids"]
+        labels = batch["labels"]
+        mask = batch.get("decoder_attention_mask")
+        common = dict(attention_mask=mask, dtype=dtype)
+
+        if share:
+            with torch.no_grad():
+                enc = encode(teacher["encoder"], teacher_cfg, mel,
+                             dtype=dtype, freeze=True)
+                t_out = decode(teacher["decoder"], teacher_cfg, dec_in,
+                               enc=enc, output_hidden_states=use_mse,
+                               skip_logits=chunked, **common)
+            s_out = decode(params["decoder"], student_cfg, dec_in, enc=enc,
+                           remat=dcfg.remat, output_hidden_states=use_mse,
+                           generator=generator, skip_logits=chunked,
+                           **common)
+            if chunked:
+                loss, metrics = weighted(*chunked_ce_kl(
+                    s_out[0], t_out[0], params["decoder"]["tok_emb"],
+                    teacher["decoder"]["tok_emb"], labels,
+                    temperature=dcfg.temperature,
+                    label_smoothing=dcfg.label_smoothing,
+                    chunk=dcfg.loss_chunk_size))
+                metrics["loss"] = loss
+                return loss, metrics
+            t_logits, s_logits = t_out[0], s_out[0]
+            t_hs = t_out[2] if use_mse else None
+            s_hs = s_out[2] if use_mse else None
+        else:
+            with torch.no_grad():
+                t_logits, t_aux = forward(
+                    teacher, teacher_cfg, mel, dec_in,
+                    decoder_attention_mask=mask, dtype=dtype,
+                    output_hidden_states=use_mse)
+            s_logits, s_aux = forward(
+                params, student_cfg, mel, dec_in,
+                decoder_attention_mask=mask, dtype=dtype, remat=dcfg.remat,
+                freeze_encoder=dcfg.freeze_encoder,
+                output_hidden_states=use_mse, generator=generator)
+            t_hs = t_aux.get("decoder_hidden_states")
+            s_hs = s_aux.get("decoder_hidden_states")
+
+        ce_sum, n_tok = cross_entropy(s_logits, labels, dcfg.label_smoothing)
+        kl_sum, _ = kl_divergence(t_logits, s_logits, labels, dcfg.temperature)
+        loss, metrics = weighted(ce_sum, kl_sum, n_tok)
+        if use_mse:
+            mse_sum, mse_n = hidden_state_mse(t_hs, s_hs, layer_map, labels)
+            mse = mse_sum / torch.clamp(mse_n, min=1.0)
+            loss = loss + dcfg.mse_weight * mse
+            metrics["mse_loss"] = mse
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def train_step(state: TrainState, teacher_params: Params,
+                   batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
+        loss, metrics = compute_losses(state.params, teacher_params, batch,
+                                       generator)
+        return _step(state, loss, metrics)
+
+    @torch.no_grad()
+    def eval_step(params: Params, teacher_params: Params,
+                  batch: Dict[str, torch.Tensor]):
+        return compute_losses(params, teacher_params, batch)[1]
+
+    return train_step, eval_step
+
+
+def build_finetune_step(cfg: WhisperConfig, opt_cfg: OptimizerConfig,
+                        label_smoothing: float = 0.0, remat: bool = False,
+                        freeze_encoder: bool = False,
+                        quantize_student: str = "none"):
+    """Plain CE fine-tuning: ``train_step(state, batch, generator=None) ->
+    (state, metrics)`` and ``eval_step(params, batch) -> metrics``."""
+    if quantize_student != "none":
+        raise NotImplementedError(QAT_NOT_PORTED)
+    dtype = opt_cfg.compute_dtype
+
+    def loss_fn(params, batch, generator=None):
+        logits, _ = forward(params, cfg, batch["input_features"],
+                            batch["decoder_input_ids"],
+                            decoder_attention_mask=batch.get(
+                                "decoder_attention_mask"),
+                            dtype=dtype, remat=remat,
+                            freeze_encoder=freeze_encoder,
+                            generator=generator)
+        ce_sum, n_tok = cross_entropy(logits, batch["labels"], label_smoothing)
+        loss = ce_sum / torch.clamp(n_tok, min=1.0)
+        return loss, {"loss": loss}
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
+        loss, metrics = loss_fn(state.params, batch, generator)
+        return _step(state, loss, metrics, grad_norm=False)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        return loss_fn(params, batch)[1]
+
+    return train_step, eval_step
+
+
+def optax_global_norm(tree) -> torch.Tensor:
+    """fp32 global norm of a gradient tree or path dict (None leaves are
+    zeros)."""
+    return global_norm(tree_paths(tree))

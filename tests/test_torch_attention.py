@@ -136,3 +136,54 @@ def test_causal_mask_matches_jax(offset):
     golden = np.asarray(jattn.causal_mask(4, 10, offset))
     ours = tattn.causal_mask(4, 10, offset).numpy()
     np.testing.assert_array_equal(ours, golden)
+
+
+@pytest.mark.parametrize("t_real", [256, 200])
+def test_encoder_attention_backward_matches_jax_custom_vjp(t_real):
+    """The kernel's backward (``encoder_attention_vjp``, the recompute
+    through the plain version that the autograd.Function runs on the card)
+    on CPU tensors against ``jax.vjp`` of JAX's custom_vjp (Pallas kernel
+    forward in interpret mode, einsum recompute backward), ragged
+    ``t_real`` included; and autograd through the CPU path, which is the
+    plain version itself, gives the same gradients."""
+    rng = np.random.default_rng(7)
+    q, k, v, g = (_rand(rng, (2, 4, 256, 64)) for _ in range(4))
+    _, vjp = jax.vjp(lambda q, k, v: jenc.encoder_attention(
+        q, k, v, t_real, 128, "f32", True), jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v))
+    golden = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    ours = tenc.encoder_attention_vjp(tq, tk, tv, t_real, tg)
+    for name, a, b in zip("qkv", ours, golden):
+        np.testing.assert_allclose(a.numpy(), b, atol=2e-5, rtol=1e-4,
+                                   err_msg=name)
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    out = tenc.encoder_attention(*leaves, t_real)
+    auto = torch.autograd.grad(out, leaves, tg)
+    for name, a, b in zip("qkv", auto, ours):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6,
+                                   rtol=1e-6, err_msg=name)
+    # keys past t_real take no gradient
+    assert not ours[1][:, :, t_real:].any() and not ours[2][:, :, t_real:].any()
+    assert tenc.encoder_attention.launches == 0
+
+
+def test_encoder_attention_backward_projection_views():
+    """q/k/v as the [B, H, T, D] views of [B, T, H*D] projections that
+    ``fused_self_attention`` hands the kernel: the gradients flow back
+    into the projections, equal to those of contiguous copies, and
+    ``needs`` skips a gradient."""
+    rng = np.random.default_rng(8)
+    b, t, h, d = 2, 96, 3, 64
+    proj = [torch.from_numpy(_rand(rng, (b, t, h * d))) for _ in range(3)]
+    g = torch.from_numpy(_rand(rng, (b, h, t, d)))
+    views = [x.view(b, t, h, d).transpose(1, 2) for x in proj]
+    dq, dk, dv = tenc.encoder_attention_vjp(*views, 80, g)
+    cq, ck, cv = tenc.encoder_attention_vjp(
+        *[x.contiguous() for x in views], 80, g)
+    for a, c in ((dq, cq), (dk, ck), (dv, cv)):
+        assert a.shape == (b, h, t, d)
+        torch.testing.assert_close(a, c, atol=0, rtol=0)
+    skip = tenc.encoder_attention_vjp(*views, 80, g, needs=(True, False, True))
+    assert skip[1] is None
+    torch.testing.assert_close(skip[0], dq, atol=0, rtol=0)

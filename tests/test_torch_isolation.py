@@ -95,6 +95,46 @@ def test_serving_modules_are_checked():
     assert set(SERVING_MODULES) <= {name for _, name in _modules()}
 
 
+# training: losses, the optimizer, the steps, student init, data,
+# checkpoints, the profiling utilities and the training CLIs
+TRAINING_MODULES = (
+    "distil_whisper_tpu_torch.training",
+    "distil_whisper_tpu_torch.training.losses",
+    "distil_whisper_tpu_torch.training.state",
+    "distil_whisper_tpu_torch.training.distill",
+    "distil_whisper_tpu_torch.training.student",
+    "distil_whisper_tpu_torch.training.data",
+    "distil_whisper_tpu_torch.training.checkpoint",
+    "distil_whisper_tpu_torch.utils.profiling",
+    "distil_whisper_tpu_torch.cli.create_student_model",
+    "distil_whisper_tpu_torch.cli.run_distillation",
+    "distil_whisper_tpu_torch.cli.run_finetuning",
+)
+
+
+def test_training_modules_are_checked(tmp_path):
+    """The training modules are among those the import checks above scan,
+    and the training CLIs default to the card and raise without it (the
+    checkpoints are never read)."""
+    assert set(TRAINING_MODULES) <= {name for _, name in _modules()}
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the CUDA default is valid here")
+    from distil_whisper_tpu_torch.cli import (create_student_model,
+                                              run_distillation, run_finetuning)
+    ck = str(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_student_model.main(["--teacher_checkpoint", ck,
+                                   "--save_dir", ck])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_distillation.main(["--teacher_checkpoint", ck,
+                               "--student_checkpoint", ck,
+                               "--train_dataset_path", ck,
+                               "--output_dir", ck])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_finetuning.main(["--model_checkpoint", ck,
+                             "--train_dataset_path", ck, "--output_dir", ck])
+
+
 def _code_strings(tree):
     """String constants of a module that are not docstrings."""
     docstrings = set()

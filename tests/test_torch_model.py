@@ -22,7 +22,7 @@ from distil_whisper_tpu_torch.config import PRESETS
 from distil_whisper_tpu_torch.models import init_params, load_params
 from distil_whisper_tpu_torch.models import whisper as TW
 from distil_whisper_tpu_torch.models.init import sinusoidal_positions
-from distil_whisper_tpu_torch.models.params import tree_paths
+from distil_whisper_tpu_torch.models.params import tree_paths, unflatten_paths
 from distil_whisper_tpu_torch.ops import encoder_attention as tenc
 
 CFG = PRESETS["test-tiny"]
@@ -168,3 +168,118 @@ def test_load_params_matches_jax_leaf_for_leaf(tmp_path):
     assert tcfg == type(tcfg)(**{f: getattr(jcfg, f)
                                   for f in tcfg.__dataclass_fields__})
     np_tree_equal(tp, to_numpy_tree(jp))
+
+
+# ----------------------------------------------------------------------
+# The training forward
+# ----------------------------------------------------------------------
+
+
+def test_forward_hidden_states_and_mask_match_jax(setup):
+    """``forward`` with ``output_hidden_states`` and a padding
+    ``decoder_attention_mask``: logits, encoder and decoder hidden states
+    ([L+1, B, T, d]) equal JAX's at 5e-5; ``skip_logits`` gives the final
+    hidden state."""
+    jp, tp, mel, tokens, _ = setup
+    mask = np.ones(tokens.shape, np.int32)
+    mask[1, -2:] = 0
+    j_logits, j_aux = JW.forward(jp, JCFG, jnp.asarray(mel),
+                                 jnp.asarray(tokens),
+                                 decoder_attention_mask=jnp.asarray(mask),
+                                 output_hidden_states=True)
+    t_logits, t_aux = TW.forward(tp, CFG, torch.from_numpy(mel),
+                                 torch.from_numpy(tokens),
+                                 decoder_attention_mask=torch.from_numpy(mask),
+                                 output_hidden_states=True)
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               atol=5e-5, rtol=1e-4)
+    for key in ("encoder_last_hidden_state", "encoder_hidden_states",
+                "decoder_hidden_states"):
+        assert t_aux[key].shape == j_aux[key].shape, key
+        np.testing.assert_allclose(t_aux[key].numpy(), np.asarray(j_aux[key]),
+                                   atol=5e-5, rtol=1e-4, err_msg=key)
+    assert t_aux["decoder_hidden_states"].shape[0] == CFG.decoder_layers + 1
+    j_y, _ = JW.decode(jp["decoder"], JCFG, jnp.asarray(tokens),
+                       enc=j_aux["encoder_last_hidden_state"],
+                       attention_mask=jnp.asarray(mask), skip_logits=True)
+    t_y, _ = TW.decode(tp["decoder"], CFG, torch.from_numpy(tokens),
+                       enc=t_aux["encoder_last_hidden_state"],
+                       attention_mask=torch.from_numpy(mask), skip_logits=True)
+    np.testing.assert_allclose(t_y.numpy(), np.asarray(j_y), atol=5e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(t_y.numpy(),
+                               t_aux["decoder_hidden_states"][-1].numpy(),
+                               atol=0, rtol=0)
+
+
+def test_freeze_and_positions_take_no_gradient(setup):
+    """``freeze_encoder`` detaches the encoder's output, and the encoder's
+    sinusoidal positions never take a gradient (JAX: stop_gradient)."""
+    _, tp, mel, tokens, _ = setup
+    enc = {k: v for k, v in tree_paths(tp["encoder"]).items()}
+    for x in enc.values():
+        x.requires_grad_(True)
+    try:
+        frozen, _ = TW.forward(tp, CFG, torch.from_numpy(mel[:1]),
+                               torch.from_numpy(tokens[:1]),
+                               freeze_encoder=True)
+        assert not frozen.requires_grad
+        logits, _ = TW.forward(tp, CFG, torch.from_numpy(mel[:1]),
+                               torch.from_numpy(tokens[:1]))
+        grads = dict(zip(enc, torch.autograd.grad(
+            logits.sum(), list(enc.values()), allow_unused=True)))
+        assert grads["pos_emb"] is None
+        assert all(g is not None for p, g in grads.items() if p != "pos_emb")
+    finally:
+        for x in enc.values():
+            x.requires_grad_(False)
+
+
+def test_dropout_identity_and_keep_rate():
+    x = torch.ones(200_000)
+    gen = torch.Generator().manual_seed(0)
+    assert TW.dropout(x, 0.0, gen) is x
+    assert TW.dropout(x, 0.3, None) is x
+    y = TW.dropout(x, 0.3, gen)
+    kept = (y != 0).float().mean().item()
+    # 200k Bernoulli(0.7) draws: the keep share has sd 1.0e-3; 7 sd bound
+    assert abs(kept - 0.7) < 7e-3, kept
+    np.testing.assert_allclose(y[y != 0].numpy(), 1 / 0.7, rtol=1e-6)
+
+
+def test_dropout_under_remat_draws_the_same_masks(setup):
+    """Dropout at the config's rates from one generator seed: the forward
+    is reproducible, differs from the dropout-free forward, and remat
+    (per-layer recompute) gives the same loss and gradients, since each
+    layer draws from a generator seeded from the caller's."""
+    _, tp, mel, tokens, _ = setup
+    cfg = CFG.replace(dropout=0.1, attention_dropout=0.1,
+                      activation_dropout=0.1)
+    dec = tree_paths(tp["decoder"])
+    leaves = [x.clone().requires_grad_(True) for x in dec.values()]
+    params = {"encoder": tp["encoder"],
+              "decoder": unflatten_paths(dict(zip(dec, leaves)))}
+
+    def run(remat, seed):
+        gen = torch.Generator().manual_seed(seed)
+        logits, _ = TW.forward(params, cfg, torch.from_numpy(mel[:1]),
+                               torch.from_numpy(tokens[:1]), remat=remat,
+                               freeze_encoder=True, generator=gen)
+        loss = logits.square().mean()
+        return loss.detach(), torch.autograd.grad(loss, leaves,
+                                                  allow_unused=True)
+
+    plain_logits, _ = TW.forward(params, cfg, torch.from_numpy(mel[:1]),
+                                 torch.from_numpy(tokens[:1]))
+    l0, g0 = run(False, 7)
+    l1, g1 = run(True, 7)
+    l2, _ = run(False, 7)
+    l3, _ = run(False, 8)
+    assert torch.equal(l0, l2) and not torch.equal(l0, l3)
+    assert not torch.equal(l0, plain_logits.square().mean().detach())
+    torch.testing.assert_close(l1, l0, atol=0, rtol=0)
+    for a, b in zip(g0, g1):
+        if a is None:
+            assert b is None
+        else:
+            torch.testing.assert_close(b, a, atol=1e-7, rtol=1e-6)
