@@ -88,7 +88,21 @@
    include the encoder-attention gradient (the ``autograd.Function``
    against autograd through the plain version, at (2, 20, 1500, 64) bf16
    and (3, 5, 200, 64)/77, its backward timed).
-10. Prints the kernels line (launches from the int8 path's short-form run,
+10. Drives the rest of the recipe (``recipe_path``) through the port's
+   CLIs: the random large-v3 teacher pseudo-labels 48 clips of two
+   speakers (batch 16, 128 new tokens, two featurizer workers, WER, a
+   publish mirror; launches log-mel 1 and encoder attention 32 a batch),
+   then one batch with all five int8 flags at 32 tokens (int8 MLP 32 a
+   batch); ``run_distillation --streaming --quantize_student w8a8`` trains
+   the distil-large-v3-shaped student on that manifest (4 steps of 16,
+   half_mixed, beside the same run without QAT for the step time);
+   ``run_finetuning --quantize_student w8a8`` with the unfrozen encoder
+   (batch 4, remat); ``convert_checkpoint_to_hf`` exports the QAT
+   checkpoint, reloaded bit for bit; its fake-quant decoder agrees with
+   its int8 decoder projection by projection; the int8 pipeline serves it
+   on 16 windows; a tiny fp32 model pseudo-labels on the card as on the
+   CPU.
+11. Prints the kernels line (launches from the int8 path's short-form run,
    and per path in ``launches_by_path``), the card's name and power limit,
    and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -2106,6 +2120,436 @@ def phase_training_path(teacher_cfg):
             ("distill_inference", "distill_int8_teacher", "finetune", "eval")}
 
 
+RECIPE_CLIPS = 48         # synthetic clips of 5-30 s, two speakers
+RECIPE_BATCH = 16         # pseudo-labelling and QAT distillation batch
+RECIPE_NEW_TOKENS = 128   # the pseudo-labelling budget (32 on the int8 run)
+STUDENT_LAYERS = 2        # decoder layers of the student (distil-large-v3)
+QAT_STEPS = 4             # QAT distillation steps, and the plain run's
+QAT_FT_STEPS = 3          # QAT fine-tuning steps (the third one profiled)
+QAT_FT_BATCH = 4
+# the w8a8 fake-quant decoder's logits against the int8 decoder's
+# (JAX's tests/test_qat.py::test_qat_forward_matches_int8_serving_forward)
+QAT_LOGITS_TOL = 1e-3
+RECIPE_REF_CLIPS = 6      # the small card-vs-CPU pseudo-labelling reference
+
+
+def recipe_manifests(root: Path):
+    """The pseudo-labelling inputs under ``root``: ``RECIPE_CLIPS`` clips of
+    5-30 s (the training manifests' clips) with a speaker column of two
+    speakers (``pl.jsonl``), its first ``RECIPE_BATCH`` rows without a
+    speaker (``pl_int8.jsonl``) and a small one of ``RECIPE_REF_CLIPS`` clips
+    of 8-14 s, so that each speaker's clips pack into two rows, the second
+    conditioned on the first (``pl_ref.jsonl``)."""
+    from distil_whisper_tpu_torch.cli.common import write_jsonl
+    rows = [{"audio": r["audio"], "text": r["text"],
+             "speaker_id": f"spk{i % 2}"}
+            for i, r in enumerate(training_manifests(root, RECIPE_CLIPS, 0))]
+    write_jsonl(str(root / "pl.jsonl"), rows)
+    write_jsonl(str(root / "pl_int8.jsonl"),
+                [{"audio": r["audio"], "text": r["text"]}
+                 for r in rows[:RECIPE_BATCH]])
+    ref = root / "ref"
+    ref.mkdir()
+    ref_rows = training_manifests(ref, RECIPE_REF_CLIPS, 0,
+                                  seconds=(8.0, 14.0), seed=40)
+    write_jsonl(str(root / "pl_ref.jsonl"),
+                [{"audio": r["audio"], "text": r["text"],
+                  "speaker_id": f"spk{i % 2}"} for i, r in enumerate(ref_rows)])
+
+
+def recipe_small_reference(root: Path):
+    """A tiny fp32 model (test-tiny with 64-wide heads, seed 3) pseudo-labels
+    the small manifest on the card and on the CPU: the manifests'
+    ``whisper_transcript`` and ``condition_on_prev`` must be equal."""
+    import json
+    from distil_whisper_tpu_torch.cli import run_pseudo_labelling
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.models import init_params, save_pretrained
+
+    cfg = PRESETS["test-tiny"].replace(d_model=128, encoder_attention_heads=2,
+                                       decoder_attention_heads=2)
+    ckpt = root / "tiny"
+    save_pretrained(init_params(cfg, seed=3, device="cpu"), cfg, str(ckpt))
+    synthetic_tokenizer(ckpt)
+    out = {}
+    for device in ("cuda", "cpu"):
+        manifest = run_pseudo_labelling.main([
+            "--model_checkpoint", str(ckpt),
+            "--dataset_path", str(root / "pl_ref.jsonl"),
+            "--output_dir", str(root / f"ref_{device}"),
+            "--speaker_id_column_name", "speaker_id", "--language", "en",
+            "--per_device_batch_size", "4", "--max_new_tokens", "24",
+            "--dtype", "float32", "--device", device])
+        out[device] = [json.loads(line) for line in
+                       Path(manifest).read_text().splitlines()]
+    keys = ("text", "whisper_transcript", "condition_on_prev")
+    same = [all(a[k] == b[k] for k in keys)
+            for a, b in zip(out["cuda"], out["cpu"])]
+    return {"rows": len(out["cpu"]),
+            "rows_equal": sum(same) if len(out["cuda"]) == len(out["cpu"])
+            else 0,
+            "with_condition_on_prev": sum(bool(r["condition_on_prev"])
+                                          for r in out["cpu"])}
+
+
+def qat_vs_int8_logits(student_dir: Path, root: Path):
+    """The converted QAT student (fp32 on the card) on one teacher-forced
+    batch (``RECIPE_BATCH`` clips, 64 random tokens), its decoder as the
+    w8a8 fake-quant tree and as the int8 tree (``quantize_decoder``).
+
+    Every quantized projection of the int8 pass (cross K/V, self and cross
+    q/k/v/out, fc1, fc2 of each layer) is recomputed from the same input
+    through the fake-quant tree: each must agree with the int8 product at
+    rtol=atol=``QAT_LOGITS_TOL`` (``excess`` <= 0), the claim of JAX's
+    tests/test_qat.py that ``x_fq @ w_fq`` is the int8 product up to the
+    rounding of the dequantized operands.  End to end the two passes part
+    further: an activation within that rounding of a level boundary rounds
+    to the other level in one pass, and later layers amplify the step; so
+    the logits are reported, and held only to be closer to the int8 pass
+    than the fp32 model is."""
+    import json
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.audio.io import load_audio
+    from distil_whisper_tpu_torch.models import load_params
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.ops.qat import fake_quant_student_params
+    from distil_whisper_tpu_torch.ops.quant import quantize_decoder_params
+
+    params, cfg = load_params(str(student_dir), device="cuda")
+    rows = [json.loads(line) for line in
+            (root / "pl_int8.jsonl").read_text().splitlines()]
+    audio = np.zeros((len(rows), cfg.n_samples), np.float32)
+    for j, r in enumerate(rows):
+        a = load_audio(r["audio"])[:cfg.n_samples]
+        audio[j, :len(a)] = a
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 50257, (len(rows), 64))).cuda()
+    qat = fake_quant_student_params(params, "w8a8")["decoder"]
+    int8 = quantize_decoder_params(params["decoder"])
+
+    def decode_recording(dec):
+        """Logits, and the (params, input) of every projection in order."""
+        calls, dense = [], W.dense
+
+        def recording(p, x):
+            calls.append((p, x))
+            return dense(p, x)
+        W.dense = recording
+        try:
+            return W.decode(dec, cfg, tokens, enc=enc)[0], calls
+        finally:
+            W.dense = dense
+
+    with torch.no_grad():
+        enc = W.encode(params["encoder"], cfg, compute_mel(audio, cfg,
+                                                           device="cuda"))
+        l_qat, qat_calls = decode_recording(qat)
+        l_int8, int8_calls = decode_recording(int8)
+        l_fp32 = W.decode(params["decoder"], cfg, tokens, enc=enc)[0]
+        excess = []
+        for (pq, _), (pi, x) in zip(qat_calls, int8_calls):
+            y_int8 = W.dense(pi, x)
+            excess.append(((W.dense(pq, x) - y_int8).abs()
+                           - QAT_LOGITS_TOL * (1 + y_int8.abs())).max().item())
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    return {"rows": len(rows), "tokens": 64, "dtype": "fp32",
+            "projections": len(int8_calls),
+            "same_projection_sequence": len(qat_calls) == len(int8_calls),
+            "tolerance": f"rtol=atol={QAT_LOGITS_TOL} per projection",
+            "excess": max(excess),
+            "logits_max_abs_diff": (l_qat - l_int8).abs().max().item(),
+            "logits_abs_max": l_int8.abs().max().item(),
+            "logits_rel_l2_qat_vs_int8": rel(l_qat, l_int8),
+            "logits_rel_l2_fp32_vs_int8": rel(l_fp32, l_int8)}
+
+
+def phase_recipe_path(teacher_cfg):
+    """The rest of the recipe through the port's CLIs, at the width of
+    ``teacher_cfg`` (large-v3): a random bf16 teacher (seed 0) pseudo-labels
+    ``RECIPE_CLIPS`` clips of two speakers (``RECIPE_BATCH`` a batch,
+    ``RECIPE_NEW_TOKENS`` new tokens, two featurizer workers, WER and a
+    publish mirror), then one batch with all five int8 flags at 32 tokens;
+    ``create_student_model`` cuts a distil-large-v3-shaped student, which
+    distils from the pseudo-labelled manifest (its audio, texts and
+    ``condition_on_prev`` prompts) with ``--streaming --quantize_student
+    w8a8`` (``QAT_STEPS`` steps, half_mixed, the inference teacher) and
+    again without QAT for the step-time comparison;
+    ``run_finetuning --quantize_student w8a8`` trains the QAT student with
+    its encoder unfrozen through the encoder-attention kernel and its
+    recompute backward (remat); ``convert_checkpoint_to_hf`` exports the QAT
+    checkpoint (reloaded bit for bit), whose w8a8 fake-quant decoder agrees
+    with its int8 decoder projection by projection, and the port's int8
+    pipeline serves it on 16 windows; a tiny model pseudo-labels on the card as on the CPU.  Kernel
+    launches counted from 0 around each run."""
+    import json
+    import logging
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.cli import (convert_checkpoint_to_hf,
+                                              create_student_model,
+                                              run_distillation, run_finetuning,
+                                              run_pseudo_labelling)
+    from distil_whisper_tpu_torch.config import WhisperConfig
+    from distil_whisper_tpu_torch.models import (init_params, load_params,
+                                                 save_pretrained)
+    from distil_whisper_tpu_torch.models.params import tree_paths
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+
+    logging.basicConfig(level=logging.WARNING)   # the CLIs' INFO stays off
+    root = Path(tempfile.mkdtemp(prefix="dw_recipe_"))
+    report = {"teacher": teacher_cfg.d_model,
+              "allocated_before_gib": torch.cuda.memory_allocated() / 2 ** 30}
+    try:
+        teacher_dir = root / "teacher"
+        t0 = time.perf_counter()
+        save_pretrained(init_params(teacher_cfg, seed=0, device="cuda",
+                                    dtype=torch.bfloat16), teacher_cfg,
+                        str(teacher_dir), dtype=torch.bfloat16)
+        report["save_teacher_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        tok = synthetic_tokenizer(teacher_dir)
+        recipe_manifests(root)
+
+        def timed(name, fn, *argv):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(list(argv))
+            torch.cuda.synchronize()
+            report[name] = {"s": time.perf_counter() - t0,
+                            "launches": read_counts()}
+            emit({"phase": "recipe_step", "step": name, **report[name]})
+            torch.cuda.empty_cache()
+            return out
+
+        def pseudo_label(name, manifest, new_tokens, *extra):
+            out_dir = root / name
+            path = timed(name, run_pseudo_labelling.main,
+                         "--model_checkpoint", str(teacher_dir),
+                         "--dataset_path", str(root / manifest),
+                         "--output_dir", str(out_dir), "--language", "en",
+                         "--per_device_batch_size", str(RECIPE_BATCH),
+                         "--max_new_tokens", str(new_tokens),
+                         "--logging_steps", "1", *extra)
+            stats = json.loads((out_dir / "pl_stats.json").read_text())
+            rows = [json.loads(line) for line in
+                    Path(path).read_text().splitlines()]
+            csv_rows = (out_dir / "transcriptions.csv").read_text().splitlines()
+            report[name].update({
+                "rows": stats["rows"], "batches": stats["batches"],
+                "audio_s": stats["audio_s"],
+                "audio_s_per_s_steady": stats["rtfx_steady_state"],
+                "audio_s_per_s_wall": stats["audio_s"] / report[name]["s"],
+                "generated_tokens_per_row":
+                    stats["generated_tokens"] / max(stats["rows"], 1),
+                "manifest_rows": len(rows), "csv_rows": len(csv_rows) - 1,
+                "with_condition_on_prev":
+                    sum(bool(r["condition_on_prev"]) for r in rows),
+                "wer_counts": stats["wer_counts"]})
+            return path
+
+        manifest = pseudo_label(
+            "pseudo_label", "pl.jsonl", RECIPE_NEW_TOKENS,
+            "--speaker_id_column_name", "speaker_id", "--compute_wer",
+            "--featurizer_workers", "2", "--publish_dir", str(root / "mirror"))
+        report["pseudo_label"]["mirror_files"] = sorted(
+            p.name for p in (root / "mirror").iterdir())
+        pseudo_label("pseudo_label_int8", "pl_int8.jsonl", 32,
+                     "--no_concatenate_audio",
+                     *[f"--{f}" for f in sorted(INT8_FLAGS)])
+
+        student_dir = root / "student"
+        timed("create_student", create_student_model.main,
+              "--teacher_checkpoint", str(teacher_dir),
+              "--save_dir", str(student_dir),
+              "--decoder_layers", str(STUDENT_LAYERS))
+
+        def distill(name, *extra):
+            timed(name, run_distillation.main,
+                  "--teacher_checkpoint", str(teacher_dir),
+                  "--student_checkpoint", str(student_dir),
+                  "--train_dataset_path", manifest,
+                  "--output_dir", str(root / name), "--streaming",
+                  "--shuffle_buffer_size", "64",
+                  "--teacher_precision", "inference",
+                  "--precision", "half_mixed",
+                  "--per_device_train_batch_size", str(RECIPE_BATCH),
+                  # the labels are the texts: the synthetic tokenizer has no
+                  # merges, so it encodes a generated word " w12363" again
+                  # as its 7 bytes, and 128 generated tokens become ~850
+                  # label tokens, past the decoder's 448 positions (the
+                  # pseudo-label column is trained on in the CPU tests)
+                  "--no_pseudo_labels", "--max_label_length", "256",
+                  "--max_steps", str(QAT_STEPS), "--warmup_steps", "1",
+                  "--learning_rate", "1e-4", "--save_steps", str(QAT_STEPS),
+                  "--logging_steps", "1", "--language", "en", "--seed", "42",
+                  *extra)
+            train = _train_rows(_metrics(root / name))
+            times = [m["train/step_time_s"] for m in train]
+            report[name].update({
+                "steps": len(train), "batch": RECIPE_BATCH,
+                "loss": [m["train/loss"] for m in train],
+                "grad_norm": [m["train/grad_norm"] for m in train],
+                "step_time_s": times,
+                "step_time_s_median_2_to_4": statistics.median(times[1:]),
+                "label_tokens_per_step": [m["train/label_tokens"]
+                                          for m in train],
+                "peak_mem_gib_steps": max(m.get("train/peak_mem_gib", 0)
+                                          for m in train)})
+
+        distill("distill_qat", "--quantize_student", "w8a8")
+        distill("distill_plain")
+        shutil.rmtree(root / "distill_plain")
+        report["qat_step_overhead"] = (
+            report["distill_qat"]["step_time_s_median_2_to_4"]
+            / report["distill_plain"]["step_time_s_median_2_to_4"] - 1)
+
+        # the QAT student fine-tuned with its encoder trained through the
+        # kernel: its config with the encoder-attention kernel on
+        distilled = root / "distill_qat" / "end-of-training-weights"
+        ft_src = root / "ft_src"
+        ft_src.mkdir()
+        for f in distilled.iterdir():
+            if f.name != "config.json":
+                os.symlink(f, ft_src / f.name)
+        cfg_json = json.loads((distilled / "config.json").read_text())
+        cfg_json["use_flash_encoder"] = True
+        (ft_src / "config.json").write_text(json.dumps(cfg_json))
+        ft_rows = [json.loads(line) for line in
+                   Path(manifest).read_text().splitlines()][:8]
+        (root / "ft.jsonl").write_text(
+            "".join(json.dumps(r) + "\n" for r in ft_rows))
+        timed("finetune_qat", run_finetuning.main,
+              "--model_checkpoint", str(ft_src),
+              "--train_dataset_path", str(root / "ft.jsonl"),
+              "--output_dir", str(root / "finetune_qat"),
+              "--quantize_student", "w8a8",
+              "--max_steps", str(QAT_FT_STEPS),
+              "--per_device_train_batch_size", str(QAT_FT_BATCH),
+              "--warmup_steps", "1", "--learning_rate", "1e-5",
+              "--max_label_length", "256", "--language", "en",
+              "--logging_steps", "1", "--save_steps", "1000",
+              "--gradient_checkpointing", "--profile_steps", "1",
+              "--profile_dir", str(root / "ft_trace"))
+        ft_metrics = _metrics(root / "finetune_qat")
+        ft = _train_rows(ft_metrics)
+        ft_prof = next(m for m in ft_metrics
+                       if "profile/device_ms_per_step" in m)
+        report["finetune_qat"].update({
+            "batch": QAT_FT_BATCH, "unfrozen_encoder": True, "remat": True,
+            "loss": [m["train/loss"] for m in ft],
+            "step_time_s": [m["train/step_time_s"] for m in ft],
+            "peak_mem_gib_steps": max(m.get("train/peak_mem_gib", 0)
+                                      for m in ft),
+            "profiled_step": {k.split("/")[1]: v for k, v in ft_prof.items()
+                              if k.startswith("profile/")},
+            "attention_backward_device_ms": range_device_ms(
+                root / "ft_trace" / "trace.json", "encoder_attention_vjp")})
+        shutil.rmtree(root / "finetune_qat")
+
+        converted = root / "converted"
+        timed("convert", convert_checkpoint_to_hf.main,
+              "--checkpoint_dir", str(root / "distill_qat"),
+              "--base_checkpoint", str(student_dir),
+              "--save_dir", str(converted))
+        sd = torch.load(root / "distill_qat" / f"checkpoint-{QAT_STEPS}"
+                        / "state.pt", map_location="cuda", weights_only=True)
+        reloaded = tree_paths(load_params(str(converted), device="cuda")[0])
+        report["convert"]["differing_leaves"] = sorted(
+            p for p, x in sd["params"].items()
+            if not torch.equal(reloaded[p], x.float()))
+        report["convert"]["leaves"] = len(sd["params"])
+        del sd, reloaded
+        report["qat_vs_int8_logits"] = qat_vs_int8_logits(converted, root)
+        torch.cuda.empty_cache()
+
+        cfg = WhisperConfig.from_pretrained(str(converted)).replace(
+            **INT8_FLAGS)
+        pipe = WhisperPipeline(str(converted), dtype=torch.bfloat16,
+                               batch_size=16, max_new_tokens=64, cfg=cfg,
+                               tokenizer=tok, device="cuda")
+        clips = synthetic_audio(16, 30.0, seed=11)
+        results = timed("int8_pipeline", lambda _: pipe(clips, language="en"))
+        report["int8_pipeline"]["texts_nonempty"] = sum(
+            bool(r["text"].strip()) for r in results)
+        del pipe
+        torch.cuda.empty_cache()
+
+        report["small_reference"] = recipe_small_reference(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    emit({"phase": "recipe_path", **report})
+    bad = []
+    n_layers = teacher_cfg.encoder_layers
+    for name, mlp in (("pseudo_label", 0), ("pseudo_label_int8", n_layers)):
+        r = report[name]
+        b = r["batches"]
+        want = dict(log_mel=b, encoder_attention=n_layers * b,
+                    int8_mlp=mlp * b, int8_decode_attention=0)
+        if r["launches"] != want:
+            bad.append(f"{name} launches {r['launches']}, want {want}")
+        if not (b >= 1 and r["rows"] == r["manifest_rows"] == r["csv_rows"]
+                and r["generated_tokens_per_row"] > 0):
+            bad.append(f"{name}: {r}")
+    pl = report["pseudo_label"]
+    if pl["batches"] < 2 or not pl["with_condition_on_prev"]:
+        bad.append(f"pseudo_label packed nothing or ran one batch: {pl}")
+    if not {"transcriptions.csv", "dataset.jsonl",
+            "audio"} <= set(pl["mirror_files"]):
+        bad.append(f"publish mirror {pl['mirror_files']}")
+    if report["pseudo_label_int8"]["batches"] != 1:
+        bad.append("the int8 pseudo-labelling run is not one batch")
+    for name in ("distill_qat", "distill_plain"):
+        r = report[name]
+        if r["steps"] != QAT_STEPS or not all(
+                map(math.isfinite, r["loss"] + r["grad_norm"])):
+            bad.append(f"{name}: {r['steps']} steps, loss {r['loss']}")
+        got = r["launches"]
+        if (got["encoder_attention"] != n_layers * QAT_STEPS
+                or got["log_mel"] < RECIPE_BATCH * QAT_STEPS
+                or got["int8_mlp"] != 0):
+            bad.append(f"{name} launches {got}")
+    ft = report["finetune_qat"]
+    if not all(map(math.isfinite, ft["loss"])):
+        bad.append(f"non-finite QAT fine-tuning loss {ft['loss']}")
+    # remat: a forward and a recompute a layer a step, each one launch
+    if ft["launches"]["encoder_attention"] != 2 * n_layers * QAT_FT_STEPS:
+        bad.append(f"finetune_qat launches {ft['launches']}")
+    if report["convert"]["differing_leaves"]:
+        bad.append(f"converted weights differ: "
+                   f"{report['convert']['differing_leaves'][:5]}")
+    qi = report["qat_vs_int8_logits"]
+    # a decoder layer: cross K/V, self q/k/v/out, cross q/out, fc1, fc2
+    if not (qi["same_projection_sequence"] and qi["projections"]
+            == 10 * STUDENT_LAYERS and qi["excess"] <= 0
+            and qi["logits_rel_l2_qat_vs_int8"]
+            < qi["logits_rel_l2_fp32_vs_int8"]):
+        bad.append(f"QAT vs int8: {qi}")
+    ip = report["int8_pipeline"]
+    if ip["launches"] != {"log_mel": 1, "encoder_attention": n_layers,
+                          "int8_mlp": n_layers, "int8_decode_attention": 0}:
+        bad.append(f"int8 pipeline launches {ip['launches']}")
+    ref = report["small_reference"]
+    if (not ref["with_condition_on_prev"]
+            or ref["rows_equal"] != ref["rows"]):
+        bad.append(f"card vs CPU pseudo-labels differ: {ref}")
+    if bad:
+        raise AssertionError("recipe path: " + "; ".join(bad))
+    return {name: report[name]["launches"] for name in
+            ("pseudo_label", "pseudo_label_int8", "distill_qat",
+             "finetune_qat", "int8_pipeline")}
+
+
 def phase_small_reference(tok):
     """A small model on the card against the CPU: fp32 greedy tokens
     identical, bf16 fused (kernel) encoder close to the fp32 CPU encoder;
@@ -2429,6 +2873,8 @@ def main() -> int:
     from distil_whisper_tpu_torch.config import PRESETS
     training = phase_training_path(PRESETS["large-v3"])
     longform.update({f"training_{k}": v for k, v in training.items()})
+    recipe = phase_recipe_path(PRESETS["large-v3"])
+    longform.update({f"recipe_{k}": v for k, v in recipe.items()})
     # the gradient row's launches: the kernel forwards of the fine-tuning
     # run, each of which its recompute backward followed
     counts["encoder_attention_grad"] = training["finetune"]["encoder_attention"]

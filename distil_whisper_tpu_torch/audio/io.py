@@ -74,15 +74,24 @@ def read_wav(data: Union[bytes, str]) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(x, np.float32), rate
 
 
-def write_wav(path: str, audio: np.ndarray, rate: int) -> None:
-    """Write mono float32 [-1, 1] as 16-bit PCM WAV (test fixtures/export)."""
-    pcm = np.clip(audio, -1.0, 1.0)
-    pcm = (pcm * 32767.0).astype("<i2").tobytes()
-    hdr = b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE"
-    hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, rate, rate * 2, 2, 16)
-    hdr += b"data" + struct.pack("<I", len(pcm))
+def write_wav(path: str, audio: np.ndarray, rate: int,
+              float32: bool = False) -> None:
+    """Write mono audio as a WAV file: 16-bit PCM of float32 [-1, 1] (test
+    fixtures, export), or with ``float32`` the samples as they are, IEEE
+    float (format 3), which :func:`read_wav` returns bit for bit."""
+    if float32:
+        data = np.ascontiguousarray(audio, "<f4").tobytes()
+        fmt, width = 3, 4
+    else:
+        pcm = np.clip(audio, -1.0, 1.0)
+        data = (pcm * 32767.0).astype("<i2").tobytes()
+        fmt, width = 1, 2
+    hdr = b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
+    hdr += b"fmt " + struct.pack("<IHHIIHH", 16, fmt, 1, rate, rate * width,
+                                 width, 8 * width)
+    hdr += b"data" + struct.pack("<I", len(data))
     with open(path, "wb") as f:
-        f.write(hdr + pcm)
+        f.write(hdr + data)
 
 
 _MAGIC_CODECS = (

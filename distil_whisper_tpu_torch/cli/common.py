@@ -22,6 +22,9 @@ import numpy as np
 
 logger = logging.getLogger("distil_whisper_tpu_torch")
 
+# what the flags of the multi-GPU slice raise with
+MULTI_GPU = "comes with multi-GPU: ROADMAP.md queue 1, item 5"
+
 
 def setup_logging(verbose: bool = True) -> None:
     logging.basicConfig(
@@ -68,6 +71,30 @@ def load_dataset_any(path: str, split: Optional[str] = None):
         import datasets
         return datasets.Dataset.from_file(str(p))  # memory-mapped
     raise FileNotFoundError(f"cannot interpret dataset path {path}")
+
+
+def sort_rows(ds, column: str):
+    """``ds`` sorted by ``column``, as ``datasets.Dataset.sort`` sorts: a
+    stable sort (equal values keep their order) with the rows whose value is
+    None (or missing) last, Arrow's ``null_placement="at_end"``.  A
+    ``datasets.Dataset`` is sorted by its own method, a row list here."""
+    if not isinstance(ds, list):
+        return ds.sort(column)
+    present = [r for r in ds if r.get(column) is not None]
+    return (sorted(present, key=lambda r: r[column])
+            + [r for r in ds if r.get(column) is None])
+
+
+def shard_rows(ds, num_shards: int, index: int):
+    """The ``index``-th of ``num_shards`` contiguous shards of ``ds``, by the
+    rule of ``datasets.Dataset.shard(contiguous=True)``: shards of
+    ``len // num_shards`` rows, the first ``len % num_shards`` of them one
+    row longer."""
+    if not isinstance(ds, list):
+        return ds.shard(num_shards=num_shards, index=index, contiguous=True)
+    div, mod = divmod(len(ds), num_shards)
+    start = div * index + min(index, mod)
+    return ds[start:start + div + (1 if index < mod else 0)]
 
 
 def parse_dataset_spec(dataset_str: str, splits: Optional[str] = None,

@@ -6,17 +6,16 @@ defaults: WER-threshold filtering of pseudo-labels, timestamp / condition-
 on-prev label sampling, ce_weight * CE + kl_weight * T^2 * KL (+ mse_weight
 hidden-state MSE), the shared frozen encoder, the precision policies,
 ``--teacher_precision train|inference|int8``, the chunked loss, remat,
-eval WER through ``encode_and_generate``, step checkpoints with rotation,
-best-by-val-WER checkpoints, resume, and the final HF-format export.  The
-data order is the JAX trainer's (the same ``np.random.default_rng(seed)``
-permutations); a resumed run skips the batches its checkpoint has seen, so
-it continues as the uninterrupted run would.  Runs on the GPU unless
-``--device cpu``.
+``--quantize_student`` (QAT), eval WER through ``encode_and_generate``,
+step checkpoints with rotation, best-by-val-WER checkpoints, resume, and
+the final HF-format export.  The data order is the JAX trainer's (the same
+``np.random.default_rng(seed)`` permutations, or with ``--streaming`` the
+same shuffle buffer over rows prepared on the fly by a producer thread); a
+resumed run skips the batches its checkpoint has seen, so it continues as
+the uninterrupted run would.  Runs on the GPU unless ``--device cpu``.
 
 Not ported yet (they raise, naming their ROADMAP.md item): ``--distributed``,
-``--model_parallel`` > 1 and ``--param_sharding 2d`` (multi-GPU),
-``--streaming`` (pseudo-labelling and streaming), ``--quantize_student``
-(QAT).
+``--model_parallel`` > 1 and ``--param_sharding 2d`` (multi-GPU).
 
     python -m distil_whisper_tpu_torch.cli.run_distillation \\
         --teacher_checkpoint /ckpts/whisper-large-v3 \\
@@ -50,12 +49,10 @@ from ..tokenizer import (BasicTextNormalizer, EnglishTextNormalizer,
 from ..training import (Collator, CheckpointManager, DistillConfig,
                         OptimizerConfig, TrainState, build_train_step,
                         is_wer_in_range, prepare_labels)
-from ..training.distill import QAT_NOT_PORTED
+from ..training.data_stream import streaming_batches
 from ..utils.profiling import MetricsLogger, StepTimer, device_time_ms
-from .common import (copy_tokenizer_files, load_dataset_any,
+from .common import (MULTI_GPU, copy_tokenizer_files, load_dataset_any,
                      load_multiple_datasets, logger, setup_logging)
-
-MULTI_GPU = "comes with multi-GPU training: ROADMAP.md queue 1, item 5"
 
 
 def parse_args(argv=None):
@@ -69,8 +66,10 @@ def parse_args(argv=None):
     p.add_argument("--min_duration_s", type=float, default=0.0)
     p.add_argument("--max_duration_s", type=float, default=30.0)
     p.add_argument("--streaming", action="store_true",
-                   help="not ported yet (pseudo-labelling and streaming, "
-                        "ROADMAP.md queue 1); raises")
+                   help="prepare rows on the fly (load, filter, labels, "
+                        "log-mel) in a producer thread through a shuffle "
+                        "buffer of --shuffle_buffer_size rows, instead of "
+                        "preparing the whole set before the first step")
     p.add_argument("--shuffle_buffer_size", type=int, default=256)
     p.add_argument("--eval_dataset_path", default=None)
     p.add_argument("--output_dir", required=True)
@@ -157,9 +156,14 @@ def parse_args(argv=None):
                         "approximate teacher's encoder states")
     p.add_argument("--quantize_student", default="none",
                    choices=["none", "weights", "w8a8"],
-                   help="quantization-aware training of the student: not "
-                        "ported yet (ROADMAP.md queue 1, QAT); raises "
-                        "unless 'none'")
+                   help="quantization-aware training of the student "
+                        "(ops/qat.py): fake-quantize its decoder projections "
+                        "and MLP in the forward with straight-through "
+                        "gradients, so the trained weights serve under the "
+                        "int8 stack (--quantize_decoder).  'w8a8' (weights "
+                        "and dynamic per-row activations) is the serving "
+                        "numerics; 'weights' is an ablation.  An unfrozen "
+                        "encoder (--train_encoder) is fake-quantized too")
     p.add_argument("--loss_chunk_size", type=int, default=0,
                    help="chunked CE+KL: never materialise the [B,S,V] "
                         "student+teacher logits pair; 0 = off.  The same "
@@ -177,12 +181,6 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(f"--model_parallel > 1 {MULTI_GPU}")
     if getattr(args, "param_sharding", "1d") == "2d":
         raise NotImplementedError(f"--param_sharding 2d {MULTI_GPU}")
-    if getattr(args, "streaming", False):
-        raise NotImplementedError(
-            "--streaming comes with pseudo-labelling and streaming data: "
-            "ROADMAP.md queue 1, item 4")
-    if getattr(args, "quantize_student", "none") != "none":
-        raise NotImplementedError(QAT_NOT_PORTED)
 
 
 def to_compute_dtype(params, dtype: torch.dtype):
@@ -283,6 +281,10 @@ class Profiler:
 def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
+    if args.streaming and args.preprocessing_only:
+        raise ValueError("--preprocessing_only is incompatible with "
+                         "--streaming: preparation happens on the fly "
+                         "(reference run_distillation.py:1308-1313)")
     setup_logging()
     device = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
@@ -290,6 +292,11 @@ def main(argv=None):
     frozen = []
     if args.freeze_encoder:
         frozen.append("encoder")
+    if args.quantize_student != "none" and args.freeze_decoder:
+        # the straight-through gradients have nowhere to go
+        logger.warning("--quantize_student with --freeze_decoder: the frozen "
+                       "decoder cannot adapt to the quantized numerics; this "
+                       "is equivalent to serving-time PTQ (--quantize_decoder)")
     if args.freeze_decoder:
         # everything under decoder EXCEPT tok_emb (tied to the lm head)
         frozen += ["decoder.pos_emb", "decoder.layers", "decoder.ln"]
@@ -363,27 +370,30 @@ def main(argv=None):
 
     cache_file = (Path(args.preprocessed_cache) / "train_samples.npy"
                   if args.preprocessed_cache else None)
-    if (cache_file is not None and cache_file.exists()
-            and not args.preprocessing_only):
-        # a file this trainer wrote with --preprocessing_only
-        samples = list(np.load(cache_file, allow_pickle=True))
-        logger.info("loaded %d prepared samples from %s",
-                    len(samples), cache_file)
-    else:
-        samples = _prepare_samples(train_ds, tok, teacher_cfg, args,
-                                   normalizer, rng, device)
-        if not samples:
-            raise RuntimeError("no training samples after filtering")
-        if cache_file is not None:
-            cache_file.parent.mkdir(parents=True, exist_ok=True)
-            np.save(cache_file, np.asarray(samples, dtype=object),
-                    allow_pickle=True)
-            logger.info("cached %d prepared samples at %s",
+    # with --streaming the stream starts below, after the eval set
+    samples = None
+    if not args.streaming:
+        if (cache_file is not None and cache_file.exists()
+                and not args.preprocessing_only):
+            # a file this trainer wrote with --preprocessing_only
+            samples = list(np.load(cache_file, allow_pickle=True))
+            logger.info("loaded %d prepared samples from %s",
                         len(samples), cache_file)
-    if args.preprocessing_only:
-        logger.info("--preprocessing_only set: preprocessing finished, "
-                    "skipping training")
-        return str(cache_file) if cache_file else None
+        else:
+            samples = _prepare_samples(train_ds, tok, teacher_cfg, args,
+                                       normalizer, rng, device)
+            if not samples:
+                raise RuntimeError("no training samples after filtering")
+            if cache_file is not None:
+                cache_file.parent.mkdir(parents=True, exist_ok=True)
+                np.save(cache_file, np.asarray(samples, dtype=object),
+                        allow_pickle=True)
+                logger.info("cached %d prepared samples at %s",
+                            len(samples), cache_file)
+        if args.preprocessing_only:
+            logger.info("--preprocessing_only set: preprocessing finished, "
+                        "skipping training")
+            return str(cache_file) if cache_file else None
     eval_samples = None
     if args.eval_dataset_path:
         eval_ds = load_dataset_any(args.eval_dataset_path, "validation")
@@ -394,6 +404,17 @@ def main(argv=None):
                                           "timestamp_probability": 0.0})
         eval_samples = _prepare_samples(eval_ds, tok, teacher_cfg, eval_args,
                                         normalizer, rng, device)
+    stream = None
+    if args.streaming:
+        # rows are prepared on the fly by a producer thread; it starts only
+        # now, so that its label draws from ``rng`` follow the eval set's
+        stream = streaming_batches(
+            train_ds,
+            prepare=lambda row: _prepare_row(row, tok, teacher_cfg, args,
+                                             normalizer, rng, device),
+            collate=collator, batch_size=bsz,
+            shuffle_buffer_size=args.shuffle_buffer_size, seed=args.seed,
+            repeat=True, prefetch_depth=2)
 
     # SIGTERM/SIGINT request a checkpoint at the next step boundary, so a
     # preempted run resumes with --resume_from_checkpoint
@@ -410,7 +431,7 @@ def main(argv=None):
         except ValueError:
             pass  # not the main thread (e.g. under a test runner)
 
-    order = rng.permutation(len(samples))
+    order = rng.permutation(len(samples)) if samples else None
     cursor = 0
     best_wer = float("inf")
     metrics_log = MetricsLogger(
@@ -430,9 +451,17 @@ def main(argv=None):
             cursor += 1
         return idx
 
+    def next_batch():
+        if stream is not None:
+            return next(stream)
+        return collator([samples[i] for i in next_indices()])
+
     # a resumed run skips the batches the checkpoint has trained on
     for _ in range(start_step):
-        next_indices()
+        if stream is not None:
+            next(stream)
+        else:
+            next_indices()
 
     @torch.no_grad()
     def run_eval(step):
@@ -500,7 +529,7 @@ def main(argv=None):
             elif profiler and step == start_step + 2 + args.profile_steps:
                 metrics_log.log(step, profiler.stop(args.profile_steps))
                 profiler = None
-        raw = collator([samples[i] for i in next_indices()])
+        raw = next_batch()
         n_sup = int((raw["labels"] != -100).sum())
         if step == start_step and n_sup == 0:
             raise RuntimeError(

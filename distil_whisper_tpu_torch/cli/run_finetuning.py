@@ -3,8 +3,9 @@
 The port of ``distil_whisper_tpu.cli.run_finetuning`` with its flags: the
 distillation trainer's skeleton with label-smoothed cross-entropy only, the
 same data order, step checkpoints and the final HF-format export.  Runs on
-the GPU unless ``--device cpu``.  ``--distributed``, ``--model_parallel``
-> 1, ``--param_sharding 2d`` and ``--quantize_student`` raise, naming their
+the GPU unless ``--device cpu``.  ``--quantize_student`` trains through
+the int8 serving numerics (QAT, ``ops/qat.py``).  ``--distributed``,
+``--model_parallel`` > 1 and ``--param_sharding 2d`` raise, naming their
 ROADMAP.md item.
 
     python -m distil_whisper_tpu_torch.cli.run_finetuning \\
@@ -54,8 +55,12 @@ def main(argv=None):
     p.add_argument("--freeze_encoder", action="store_true")
     p.add_argument("--quantize_student", default="none",
                    choices=["none", "weights", "w8a8"],
-                   help="quantization-aware training: not ported yet "
-                        "(ROADMAP.md queue 1, QAT); raises unless 'none'")
+                   help="quantization-aware training (ops/qat.py): "
+                        "fake-quantize the model's projections and MLP in "
+                        "the forward (the decoder always, the encoder too "
+                        "unless --freeze_encoder) with straight-through "
+                        "gradients, so the fine-tuned weights serve under "
+                        "the int8 stack")
     p.add_argument("--gradient_checkpointing", action="store_true")
     p.add_argument("--max_label_length", type=int, default=448)
     p.add_argument("--min_duration_s", type=float, default=0.0)

@@ -48,6 +48,7 @@ from ..config import WhisperConfig
 from ..ops.attention import mha, causal_mask, decode_attention
 from ..ops.encoder_attention import fused_self_attention
 from ..ops.int8_mlp import fused_int8_mlp, mlp_supported
+from ..ops.qat import ACT_FQ_KEY, fake_quant_acts
 from ..ops.quant import dense_int8, int_mm, quantize_acts, symmetric_int8
 from .params import layer_slice
 
@@ -114,6 +115,11 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "kernel_q" in p:
         # int8 weights (ops/quant.py): W8A8 product, fp32 rescale epilogue
         return dense_int8(p, x)
+    if ACT_FQ_KEY in p:
+        # QAT w8a8 (ops/qat.py): the kernel is fake-quantized by the tree
+        # transform; the input is fake-quantized here, so the training
+        # forward runs the int8 serving numerics
+        x = fake_quant_acts(x)
     y = torch.matmul(x, p["kernel"].to(x.dtype))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)

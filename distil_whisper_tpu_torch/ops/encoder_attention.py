@@ -24,8 +24,12 @@ probabilities of one layer while it runs (180 MB per batch row at
 large-v3's 20 heads and T = 1500).  On the CPU autograd goes through the
 plain version directly.
 
+``fused_self_attention`` also takes a QAT w8a8 tree (``ops/qat.py``): it
+fake-quantizes the q/k/v input and the out-projection's input, with the
+kernel and its recompute backward in between.
+
 Not ported: the TPU-only ``exp_impl`` and ``fused_qkv`` knobs (measured dead
-on the TPU); the QAT branch of ``fused_self_attention`` comes with QAT.
+on the TPU).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import math
 import torch
 
 from . import _build
+from .qat import ACT_FQ_KEY, fake_quant_acts
 from .quant import dense_int8, quantize_acts
 
 
@@ -190,6 +195,11 @@ def fused_self_attention(p_attn, x_ln: torch.Tensor, n_heads: int,
     b, t, dm = x_ln.shape
     d = dm // n_heads
     quantized = "kernel_q" in p_attn["q"]
+    act_fq = ACT_FQ_KEY in p_attn["q"]
+    if act_fq:
+        # QAT w8a8 tree (ops/qat.py): fake-quant the shared q/k/v input as
+        # the int8 branch quantizes it (one scale a row), straight-through
+        x_ln = fake_quant_acts(x_ln)
     if quantized:
         # W8A8 (ops/quant.py): one activation quantization shared by q/k/v
         xq, xs = quantize_acts(x_ln)
@@ -210,5 +220,9 @@ def fused_self_attention(p_attn, x_ln: torch.Tensor, n_heads: int,
         # JAX scales the out-projection's input per (b, t) over (h, k): the
         # same elements as a per-row scale of the merged [B, T, d] row
         return dense_int8(p_attn["out"], a)
+    if act_fq:
+        # JAX fake-quants the out-projection's input per (b, t) over (h, k):
+        # a per-row fake-quant of the merged [B, T, d] row, as above
+        a = fake_quant_acts(a)
     y = torch.matmul(a, p_attn["out"]["kernel"].to(a.dtype))
     return y + p_attn["out"]["bias"].to(y.dtype)

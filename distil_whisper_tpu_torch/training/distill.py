@@ -23,15 +23,12 @@ import torch
 from ..config import WhisperConfig
 from ..models.params import tree_paths
 from ..models.whisper import decode, encode, forward
+from ..ops.qat import fake_quant_student_params
 from .losses import (chunked_ce_kl, cross_entropy, get_layers_to_supervise,
                      hidden_state_mse, kl_divergence)
 from .state import OptimizerConfig, TrainState, global_norm
 
 Params = Any
-
-QAT_NOT_PORTED = ("--quantize_student (quantization-aware training, "
-                  "ops/qat.py) is not ported yet: ROADMAP.md queue 1, "
-                  "item 4, QAT")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +42,10 @@ class DistillConfig:
     share_encoder: bool = True      # student decodes on teacher enc states
     remat: bool = False
     loss_chunk_size: int = 0        # 0 = off (the same numbers when on)
-    quantize_student: str = "none"  # QAT: not ported (raises)
+    # QAT (ops/qat.py): 'none' | 'weights' | 'w8a8'.  Fake-quantizes the
+    # student's decoder projections and MLP inside the loss (the encoder's
+    # too when it is unfrozen), straight-through gradients
+    quantize_student: str = "none"
 
 
 def gradients(loss: torch.Tensor, state: TrainState
@@ -77,8 +77,6 @@ def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
     batch: input_features [B, M, 3000], decoder_input_ids [B, S], labels
     [B, S] (-100 on prompt/pad), decoder_attention_mask [B, S] optional, all
     tensors on the device.  ``generator`` turns on the student's dropout."""
-    if dcfg.quantize_student != "none":
-        raise NotImplementedError(QAT_NOT_PORTED)
     dtype = opt_cfg.compute_dtype
     share = dcfg.share_encoder and dcfg.freeze_encoder and (
         student_cfg.d_model == teacher_cfg.d_model
@@ -97,6 +95,11 @@ def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
     def compute_losses(params: Params, teacher: Params,
                        batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator] = None):
+        if dcfg.quantize_student != "none":
+            # QAT: fresh scales every step, applied to the live tree
+            params = fake_quant_student_params(
+                params, dcfg.quantize_student,
+                encoder_too=not dcfg.freeze_encoder)
         mel = batch["input_features"]
         dec_in = batch["decoder_input_ids"]
         labels = batch["labels"]
@@ -171,12 +174,16 @@ def build_finetune_step(cfg: WhisperConfig, opt_cfg: OptimizerConfig,
                         freeze_encoder: bool = False,
                         quantize_student: str = "none"):
     """Plain CE fine-tuning: ``train_step(state, batch, generator=None) ->
-    (state, metrics)`` and ``eval_step(params, batch) -> metrics``."""
-    if quantize_student != "none":
-        raise NotImplementedError(QAT_NOT_PORTED)
+    (state, metrics)`` and ``eval_step(params, batch) -> metrics``.
+
+    ``quantize_student`` ('none' | 'weights' | 'w8a8'): QAT (ops/qat.py) of
+    the decoder, and of the encoder too unless it is frozen."""
     dtype = opt_cfg.compute_dtype
 
     def loss_fn(params, batch, generator=None):
+        if quantize_student != "none":
+            params = fake_quant_student_params(
+                params, quantize_student, encoder_too=not freeze_encoder)
         logits, _ = forward(params, cfg, batch["input_features"],
                             batch["decoder_input_ids"],
                             decoder_attention_mask=batch.get(

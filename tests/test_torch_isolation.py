@@ -135,6 +135,37 @@ def test_training_modules_are_checked(tmp_path):
                              "--train_dataset_path", ck, "--output_dir", ck])
 
 
+# the rest of the recipe: QAT, pseudo-labelling with streaming data and
+# its publisher, the checkpoint converter and the sweep runner
+RECIPE_MODULES = (
+    "distil_whisper_tpu_torch.ops.qat",
+    "distil_whisper_tpu_torch.training.data_stream",
+    "distil_whisper_tpu_torch.training.pl_workers",
+    "distil_whisper_tpu_torch.utils.publish",
+    "distil_whisper_tpu_torch.cli.run_pseudo_labelling",
+    "distil_whisper_tpu_torch.cli.convert_checkpoint_to_hf",
+    "distil_whisper_tpu_torch.cli.run_sweep",
+)
+
+
+def test_recipe_modules_are_checked(tmp_path):
+    """The recipe's remaining modules are among those the import checks
+    scan, and its new CLIs default to the card and raise without it."""
+    assert set(RECIPE_MODULES) <= {name for _, name in _modules()}
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the CUDA default is valid here")
+    from distil_whisper_tpu_torch.cli import (convert_checkpoint_to_hf,
+                                              run_pseudo_labelling)
+    ck = str(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_pseudo_labelling.main(["--model_checkpoint", ck,
+                                   "--dataset_path", ck, "--output_dir", ck])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert_checkpoint_to_hf.main(["--checkpoint_dir", ck,
+                                       "--base_checkpoint", ck,
+                                       "--save_dir", ck])
+
+
 def _code_strings(tree):
     """String constants of a module that are not docstrings."""
     docstrings = set()

@@ -206,18 +206,200 @@ def test_resume_continues_the_uninterrupted_run(workspace, runs, tmp_path):
         np.testing.assert_array_equal(np.asarray(a[p]), np.asarray(b[p]), p)
 
 
+# the CLIs other than the trainers, with the arguments they need to parse
+OTHER_CLIS = {
+    "run_pseudo_labelling": ["--model_checkpoint", "m", "--dataset_path", "d",
+                             "--output_dir", "unused"],
+    "convert_checkpoint_to_hf": ["--checkpoint_dir", "c",
+                                 "--base_checkpoint", "b",
+                                 "--save_dir", "unused"],
+}
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--distributed"], "multi-GPU"), (["--model_parallel", "2"], "multi-GPU"),
-    (["--param_sharding", "2d"], "multi-GPU"), (["--streaming"], "streaming"),
-    (["--quantize_student", "w8a8"], "QAT")])
+    (["--param_sharding", "2d"], "multi-GPU"),
+    (["run_pseudo_labelling", "--distributed"], "multi-GPU"),
+    (["convert_checkpoint_to_hf", "--distributed"], "multi-GPU")])
 def test_unported_flags_raise_naming_their_item(flags, item):
+    """Only the multi-GPU flags still raise, naming their ROADMAP.md item:
+    in both trainers, and in the CLI a case names first."""
+    import importlib
     from distil_whisper_tpu_torch.cli import run_distillation, run_finetuning
-    common = ["--output_dir", "unused", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=item):
+    common = ["--device", "cpu"]
+    if flags[0] in OTHER_CLIS:
+        main = importlib.import_module(
+            f"distil_whisper_tpu_torch.cli.{flags[0]}").main
+        calls = [(main, OTHER_CLIS[flags[0]] + flags[1:])]
+    else:
+        calls = [(run_distillation.main,
+                  ["--teacher_checkpoint", "t", "--student_checkpoint", "s",
+                   "--train_dataset_path", "d", "--output_dir", "unused"]
+                  + flags),
+                 (run_finetuning.main,
+                  ["--model_checkpoint", "m", "--train_dataset_path", "d",
+                   "--output_dir", "unused"] + flags)]
+    for fn, argv in calls:
+        with pytest.raises(NotImplementedError, match=item):
+            fn(argv + common)
+
+
+def test_streaming_refuses_preprocessing_only():
+    from distil_whisper_tpu_torch.cli import run_distillation
+    with pytest.raises(ValueError, match="incompatible with --streaming"):
         run_distillation.main(["--teacher_checkpoint", "t",
                                "--student_checkpoint", "s",
-                               "--train_dataset_path", "d"] + common + flags)
-    if "--streaming" not in flags:
-        with pytest.raises(NotImplementedError, match=item):
-            run_finetuning.main(["--model_checkpoint", "m",
-                                 "--train_dataset_path", "d"] + common + flags)
+                               "--train_dataset_path", "d",
+                               "--output_dir", "unused", "--device", "cpu",
+                               "--streaming", "--preprocessing_only"])
+
+
+SWEEP_SPEC = {"method": "grid",
+              "parameters": {"lr": {"values": [1, 2, 3]},
+                             "bs": {"values": [8, 16]},
+                             "steps": {"value": 5}}}
+
+
+@pytest.mark.parametrize("method,max_runs,seed", [
+    ("grid", 0, 0), ("grid", 4, 0), ("random", 5, 0), ("random", 7, 11)])
+def test_sweep_configs_equal_jax(method, max_runs, seed):
+    from distil_whisper_tpu.cli.run_sweep import expand_configs as j_expand
+    from distil_whisper_tpu_torch.cli.run_sweep import expand_configs
+    spec = {**SWEEP_SPEC, "method": method}
+    got = expand_configs(spec, max_runs, seed)
+    assert got == j_expand(spec, max_runs, seed)
+    assert len(got) == (max_runs or 6) and all(c["steps"] == 5 for c in got)
+
+
+def test_sweep_over_run_eval(workspace, runs, tmp_path):
+    """A two-run grid sweep of the port's run_eval over the distilled
+    checkpoint: both runs succeed, the metric is read from run_eval's
+    result, and best.json holds the smaller."""
+    from distil_whisper_tpu_torch.cli.run_sweep import main
+    spec = {"program": "eval", "method": "grid",
+            "metric": {"name": "wer", "goal": "minimize"},
+            "command_args": ["--mode", "short", "--language", "en",
+                             "--dtype", "float32", "--batch_size", "2"],
+            "parameters": {"max_new_tokens": {"values": [2, 8]}}}
+    spec_path = tmp_path / "sweep.json"
+    spec_path.write_text(json.dumps(spec))
+    best = main(["--sweep_config", str(spec_path),
+                 "--output_dir", str(tmp_path / "sweep"), "--",
+                 "--model_checkpoint", runs["port"]["final"],
+                 "--dataset_path", workspace["eval"], "--device", "cpu"])
+    rows = [json.loads(line) for line in
+            (tmp_path / "sweep" / "sweep_results.jsonl").read_text()
+            .splitlines()]
+    assert [r["status"] for r in rows] == ["ok", "ok"]
+    assert [r["config"] for r in rows] == [{"max_new_tokens": 2},
+                                           {"max_new_tokens": 8}]
+    assert all(isinstance(r["value"], float) for r in rows)
+    assert best == json.loads((tmp_path / "sweep" / "best.json").read_text())
+    assert best["value"] == min(r["value"] for r in rows)
+    assert (tmp_path / "sweep" / "run-001" / "result.json").exists()
+
+
+def test_converted_checkpoints_reload_equal(workspace, runs, tmp_path):
+    """convert_checkpoint_to_hf on the port's distillation: the output dir
+    (its newest checkpoint, step 4) gives the end-of-training weights bit
+    for bit, a named checkpoint dir its own params in fp32; a checkpoint
+    of another architecture is refused."""
+    import torch
+    from distil_whisper_tpu_torch.cli import convert_checkpoint_to_hf
+    from distil_whisper_tpu_torch.models import load_params
+    from distil_whisper_tpu_torch.models.params import tree_paths
+    out = runs["port"]["out"]
+    base = runs["port"]["student"]
+
+    def convert(src, dst):
+        convert_checkpoint_to_hf.main(["--checkpoint_dir", str(src),
+                                       "--base_checkpoint", base,
+                                       "--save_dir", str(tmp_path / dst),
+                                       "--device", "cpu"])
+        return tree_paths(load_params(str(tmp_path / dst), device="cpu")[0])
+
+    latest = convert(out, "latest")
+    final = tree_paths(load_params(runs["port"]["final"], device="cpu")[0])
+    assert sorted(latest) == sorted(final)
+    for p in final:
+        assert torch.equal(latest[p], final[p]), p
+    # a named checkpoint dir: its own params, in fp32
+    step2 = convert(out / "checkpoint-2", "step2")
+    sd = torch.load(out / "checkpoint-2" / "state.pt", weights_only=True)
+    for p, x in sd["params"].items():
+        assert torch.equal(step2[p], x.float()), p
+    assert (tmp_path / "latest" / "vocab.json").exists()
+    # the teacher has 4 decoder layers where the checkpoint has 2
+    with pytest.raises(ValueError, match="architecture"):
+        convert_checkpoint_to_hf.main([
+            "--checkpoint_dir", str(out),
+            "--base_checkpoint", workspace["teacher"],
+            "--save_dir", str(tmp_path / "bad"), "--device", "cpu"])
+
+
+def test_converted_checkpoint_loads_in_jax(runs, tmp_path):
+    """JAX's load_params on the converted directory: teacher-forced logits
+    within 1e-5 of the port's on the same weights."""
+    import jax.numpy as jnp
+    import torch
+    from distil_whisper_tpu.models.whisper import decode as j_decode
+    from distil_whisper_tpu.models.whisper import encode as j_encode
+    from distil_whisper_tpu_torch.cli import convert_checkpoint_to_hf
+    from distil_whisper_tpu_torch.models import load_params
+    from distil_whisper_tpu_torch.models.whisper import decode, encode
+    dst = str(tmp_path / "hf")
+    convert_checkpoint_to_hf.main(["--checkpoint_dir",
+                                   str(runs["port"]["out"]),
+                                   "--base_checkpoint", runs["port"]["student"],
+                                   "--save_dir", dst, "--device", "cpu"])
+    rng = np.random.default_rng(5)
+    mel = rng.standard_normal((2, 80, 3000)).astype(np.float32)
+    ids = rng.integers(0, 50257, (2, 6)).astype(np.int32)
+    jp, jcfg = j_load_params(dst)
+    jl, _ = j_decode(jp["decoder"], jcfg, jnp.asarray(ids),
+                     enc=j_encode(jp["encoder"], jcfg, jnp.asarray(mel)))
+    tp, tcfg = load_params(dst, device="cpu")
+    with torch.no_grad():
+        tl, _ = decode(tp["decoder"], tcfg, torch.from_numpy(ids).long(),
+                       enc=encode(tp["encoder"], tcfg, torch.from_numpy(mel)))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5, rtol=0)
+
+
+def test_stage1_to_stage3_streaming_qat(workspace, runs, tmp_path):
+    """The recipe's first and third stages through the port alone: the
+    teacher pseudo-labels the manifest, and the student distils from that
+    manifest with --streaming --quantize_student w8a8 (the random teacher's
+    labels are far from the texts, so the WER filter is opened)."""
+    import jax
+    from distil_whisper_tpu_torch.cli import (run_distillation,
+                                              run_pseudo_labelling)
+    manifest = run_pseudo_labelling.main([
+        "--model_checkpoint", workspace["teacher"],
+        "--dataset_path", workspace["train"],
+        "--output_dir", str(tmp_path / "pl"), "--language", "en",
+        "--max_new_tokens", "8", "--dtype", "float32",
+        "--per_device_batch_size", "4", "--no_concatenate_audio",
+        "--device", "cpu"])
+    rows = [json.loads(line) for line in Path(manifest).read_text()
+            .splitlines()]
+    assert [r["text"] for r in rows] == TEXTS
+    out = tmp_path / "distilled"
+    final = run_distillation.main([
+        "--teacher_checkpoint", workspace["teacher"],
+        "--student_checkpoint", runs["port"]["student"],
+        "--train_dataset_path", manifest, "--output_dir", str(out),
+        "--streaming", "--shuffle_buffer_size", "4",
+        "--quantize_student", "w8a8", "--max_steps", "2",
+        "--per_device_train_batch_size", str(2 * jax.device_count()),
+        "--learning_rate", "1e-3", "--warmup_steps", "0",
+        "--save_steps", "100", "--logging_steps", "1", "--language", "en",
+        "--precision", "full", "--max_label_length", "64",
+        "--wer_threshold", "1000", "--seed", "3", "--device", "cpu"])
+    metrics = [json.loads(line) for line in
+               (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [m["train/loss"] for m in metrics if "train/loss" in m]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    moved = j_tree_paths(j_load_params(final)[0])
+    init = j_tree_paths(j_load_params(runs["port"]["student"])[0])
+    assert np.abs(np.asarray(moved["decoder.layers.fc1.kernel"])
+                  - np.asarray(init["decoder.layers.fc1.kernel"])).max() > 0

@@ -220,15 +220,6 @@ def test_frozen_leaves_get_no_moments(models):
             assert x.dtype == want, p
 
 
-def test_quantize_student_raises():
-    with pytest.raises(NotImplementedError, match="QAT"):
-        T.build_train_step(CFG, CFG, T.DistillConfig(quantize_student="w8a8"),
-                           T.OptimizerConfig())
-    with pytest.raises(NotImplementedError, match="QAT"):
-        T.build_finetune_step(CFG, T.OptimizerConfig(),
-                              quantize_student="weights")
-
-
 @pytest.mark.parametrize("k", [0, 1, 2, 5, 9, 12])
 def test_schedule_matches_optax(k):
     for schedule in ("linear", "constant_with_warmup"):
