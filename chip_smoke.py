@@ -90,7 +90,7 @@
    and (3, 5, 200, 64)/77, its backward timed).
 10. Drives the rest of the recipe (``recipe_path``) through the port's
    CLIs: the random large-v3 teacher pseudo-labels 48 clips of two
-   speakers (batch 16, 128 new tokens, two featurizer workers, WER, a
+   speakers (batch 16, 64 new tokens, two featurizer workers, WER, a
    publish mirror; launches log-mel 1 and encoder attention 32 a batch),
    then one batch with all five int8 flags at 32 tokens (int8 MLP 32 a
    batch); ``run_distillation --streaming --quantize_student w8a8`` trains
@@ -102,7 +102,21 @@
    its int8 decoder projection by projection; the int8 pipeline serves it
    on 16 windows; a tiny fp32 model pseudo-labels on the card as on the
    CPU.
-11. Prints the kernels line (launches from the int8 path's short-form run,
+11. Drives data-parallel multi-GPU (``multigpu_path``, after
+   ``training_path``, on its teacher, student and manifests) over
+   ``max(2, cards)`` spawned ranks (NCCL, a card each; on one card two ranks
+   share it over gloo), each running the CLIs with ``--distributed``:
+   ``run_distillation`` with the inference and the int8 teacher (3 steps of
+   16 rows a rank), ``convert_checkpoint_to_hf``, ``run_eval`` on 32 clips,
+   ``run_pseudo_labelling`` of 48 clips and the small fp32 model's eval and
+   pseudo-labelling; launches counted per rank around each run (log-mel,
+   encoder attention, the int8 MLP in the int8-teacher run).  Here: the
+   step-1 losses against one process on the concatenated global batch, the
+   one-rank step time and pseudo-labelling rate, the small model's WER and
+   pseudo-labels equal to one rank's, ``dryrun_multigpu`` on the card.
+   Ranks print world size and backend, per-rank step and all-reduce times,
+   and summed eval and pseudo-labelling rates in the phase line.
+12. Prints the kernels line (launches from the int8 path's short-form run,
    and per path in ``launches_by_path``), the card's name and power limit,
    and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -1458,13 +1472,19 @@ def speculative_engines(pipe, draft, clips, greedy_text, gamma, alpha):
     return engines, serving_launches
 
 
+# new tokens of the speculative windows (128 until the multi-GPU phase
+# joined the smoke; cut to stay inside the smoke's time)
+SPEC_NEW_TOKENS = 64
+
+
 def phase_speculative_path(tok, bf16):
     """Speculative decoding at full width: large-v3 (32 encoder and 32
     decoder layers) is the teacher, random bf16 weights from seed 0;
     distil-large-v3's 2-layer decoder (seed 1) drafts for it on the
-    teacher's encoder states.  On the main path's 16 windows, greedy, 128
-    new tokens, gamma 5: the teacher's plain greedy, draft speculation
-    through ``WhisperPipeline`` (launches counted from 0 around its first
+    teacher's encoder states.  On the main path's 16 windows, greedy,
+    ``SPEC_NEW_TOKENS`` new tokens (the sequential rung's windows too),
+    gamma 5: the teacher's plain greedy,
+    draft speculation through ``WhisperPipeline`` (launches counted from 0 around its first
     call), then the decode loops on the same encoder states: draft,
     ``synthetic_acceptance`` 0.8 and n-gram lookup with
     ``synthetic_period`` 16 (both synthetic: their tokens are the oracle's,
@@ -1483,7 +1503,7 @@ def phase_speculative_path(tok, bf16):
     from distil_whisper_tpu_torch.pipeline import WhisperPipeline
 
     cfg, dcfg = PRESETS["large-v3"], PRESETS["distil-large-v3"]
-    dtype, gamma, max_new, n = torch.bfloat16, 5, 128, 16
+    dtype, gamma, max_new, n = torch.bfloat16, 5, SPEC_NEW_TOKENS, 16
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     teacher = init_params(cfg, seed=0, device="cuda", dtype=dtype)
@@ -1593,7 +1613,9 @@ def phase_speculative_path(tok, bf16):
              for a in files]
     torch.cuda.synchronize()
     feature_mels = read_counts()["log_mel"]
-    sopts = SequentialOptions(temperatures=(0.0,))
+    # the window budget of the rest of the phase (224 by default; cut to
+    # stay inside the smoke's time)
+    sopts = SequentialOptions(temperatures=(0.0,), max_new_tokens=max_new)
     seq_plain = SequentialTranscriber(teacher, pcfg, tok, sopts,
                                       language="en", batch_size=n,
                                       dtype=dtype, device="cuda")
@@ -1861,7 +1883,28 @@ def state_differences(a, b, path=""):
     return [] if a == b else [path]
 
 
-def phase_training_path(teacher_cfg):
+def shared_inputs(teacher_cfg) -> Path:
+    """A new directory holding what ``training_path`` leaves there for
+    ``multigpu_path`` and ``recipe_path``: the random bf16 teacher (seed
+    0) with the synthetic tokenizer, the training manifests and the 2-layer
+    student; for running either phase alone.  The caller removes it."""
+    import torch
+    from distil_whisper_tpu_torch.cli import create_student_model
+    from distil_whisper_tpu_torch.models import init_params, save_pretrained
+    root = Path(tempfile.mkdtemp(prefix="dw_training_"))
+    save_pretrained(init_params(teacher_cfg, seed=0, device="cuda",
+                                dtype=torch.bfloat16), teacher_cfg,
+                    str(root / "teacher"), dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    synthetic_tokenizer(root / "teacher")
+    training_manifests(root, TRAIN_CLIPS, TRAIN_EVAL_ROWS)
+    create_student_model.main([
+        "--teacher_checkpoint", str(root / "teacher"),
+        "--save_dir", str(root / "student"), "--decoder_layers", "2"])
+    return root
+
+
+def phase_training_path(teacher_cfg, root):
     """Distillation through the port's CLIs, at the width of
     ``teacher_cfg`` (large-v3): a random bf16 teacher (seed 0) written by
     ``save_pretrained``, its encoder held with and without the
@@ -1875,7 +1918,9 @@ def phase_training_path(teacher_cfg):
     uninterrupted run's, bit for bit); ``run_finetuning`` with the unfrozen
     encoder through the encoder-attention kernel and its backward (remat
     on); ``run_eval`` on the distilled checkpoint.  Kernel launches counted
-    from 0 around each run."""
+    from 0 around each run.  The phase works in ``root``, where the
+    teacher, the student and the manifests stay for ``multigpu_path`` and
+    ``recipe_path`` (the caller removes it)."""
     import json
     import logging
     import os
@@ -1890,7 +1935,6 @@ def phase_training_path(teacher_cfg):
     from distil_whisper_tpu_torch.models.params import param_count
 
     logging.basicConfig(level=logging.WARNING)   # the CLIs' INFO stays off
-    root = Path(tempfile.mkdtemp(prefix="dw_training_"))
     report = {"teacher": teacher_cfg.d_model,
               # what earlier phases still hold: inside every peak below
               "allocated_before_gib": torch.cuda.memory_allocated() / 2 ** 30}
@@ -2063,8 +2107,10 @@ def phase_training_path(teacher_cfg):
                        "--batch_size", str(TRAIN_BATCH),
                        "--max_new_tokens", "32", "--dtype", "bfloat16")
         report["eval"]["result"] = result
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    finally:   # the inputs stay; the runs' outputs go
+        for name in ("inference", "ft_src", "ft_trace", "train_teacher",
+                     "int8", "resume", "finetune"):
+            shutil.rmtree(root / name, ignore_errors=True)
 
     emit({"phase": "training_path", **report})
     bad = []
@@ -2122,7 +2168,8 @@ def phase_training_path(teacher_cfg):
 
 RECIPE_CLIPS = 48         # synthetic clips of 5-30 s, two speakers
 RECIPE_BATCH = 16         # pseudo-labelling and QAT distillation batch
-RECIPE_NEW_TOKENS = 128   # the pseudo-labelling budget (32 on the int8 run)
+RECIPE_NEW_TOKENS = 64    # the pseudo-labelling budget (32 on the int8 run;
+#                           128 until the multi-GPU phase joined the smoke)
 STUDENT_LAYERS = 2        # decoder layers of the student (distil-large-v3)
 QAT_STEPS = 4             # QAT distillation steps, and the plain run's
 QAT_FT_STEPS = 3          # QAT fine-tuning steps (the third one profiled)
@@ -2163,14 +2210,8 @@ def recipe_small_reference(root: Path):
     ``whisper_transcript`` and ``condition_on_prev`` must be equal."""
     import json
     from distil_whisper_tpu_torch.cli import run_pseudo_labelling
-    from distil_whisper_tpu_torch.config import PRESETS
-    from distil_whisper_tpu_torch.models import init_params, save_pretrained
 
-    cfg = PRESETS["test-tiny"].replace(d_model=128, encoder_attention_heads=2,
-                                       decoder_attention_heads=2)
-    ckpt = root / "tiny"
-    save_pretrained(init_params(cfg, seed=3, device="cpu"), cfg, str(ckpt))
-    synthetic_tokenizer(ckpt)
+    ckpt = small_checkpoint(root)
     out = {}
     for device in ("cuda", "cpu"):
         manifest = run_pseudo_labelling.main([
@@ -2268,14 +2309,13 @@ def qat_vs_int8_logits(student_dir: Path, root: Path):
             "logits_rel_l2_fp32_vs_int8": rel(l_fp32, l_int8)}
 
 
-def phase_recipe_path(teacher_cfg):
+def phase_recipe_path(teacher_cfg, shared):
     """The rest of the recipe through the port's CLIs, at the width of
     ``teacher_cfg`` (large-v3): a random bf16 teacher (seed 0) pseudo-labels
     ``RECIPE_CLIPS`` clips of two speakers (``RECIPE_BATCH`` a batch,
     ``RECIPE_NEW_TOKENS`` new tokens, two featurizer workers, WER and a
     publish mirror), then one batch with all five int8 flags at 32 tokens;
-    ``create_student_model`` cuts a distil-large-v3-shaped student, which
-    distils from the pseudo-labelled manifest (its audio, texts and
+    the distil-large-v3-shaped student of ``training_path`` distils from the pseudo-labelled manifest (its audio, texts and
     ``condition_on_prev`` prompts) with ``--streaming --quantize_student
     w8a8`` (``QAT_STEPS`` steps, half_mixed, the inference teacher) and
     again without QAT for the step-time comparison;
@@ -2284,8 +2324,10 @@ def phase_recipe_path(teacher_cfg):
     recompute backward (remat); ``convert_checkpoint_to_hf`` exports the QAT
     checkpoint (reloaded bit for bit), whose w8a8 fake-quant decoder agrees
     with its int8 decoder projection by projection, and the port's int8
-    pipeline serves it on 16 windows; a tiny model pseudo-labels on the card as on the CPU.  Kernel
-    launches counted from 0 around each run."""
+    pipeline serves it on 16 windows; a tiny model pseudo-labels on the
+    card as on the CPU.  Kernel launches counted from 0 around each run.
+    The teacher and the student (the same seed and cut) are ``shared``'s,
+    the directory of ``training_path`` (or of :func:`shared_inputs`)."""
     import json
     import logging
     import os
@@ -2295,12 +2337,10 @@ def phase_recipe_path(teacher_cfg):
     import numpy as np
     import torch
     from distil_whisper_tpu_torch.cli import (convert_checkpoint_to_hf,
-                                              create_student_model,
                                               run_distillation, run_finetuning,
                                               run_pseudo_labelling)
     from distil_whisper_tpu_torch.config import WhisperConfig
-    from distil_whisper_tpu_torch.models import (init_params, load_params,
-                                                 save_pretrained)
+    from distil_whisper_tpu_torch.models import load_params
     from distil_whisper_tpu_torch.models.params import tree_paths
     from distil_whisper_tpu_torch.pipeline import WhisperPipeline
 
@@ -2309,13 +2349,7 @@ def phase_recipe_path(teacher_cfg):
     report = {"teacher": teacher_cfg.d_model,
               "allocated_before_gib": torch.cuda.memory_allocated() / 2 ** 30}
     try:
-        teacher_dir = root / "teacher"
-        t0 = time.perf_counter()
-        save_pretrained(init_params(teacher_cfg, seed=0, device="cuda",
-                                    dtype=torch.bfloat16), teacher_cfg,
-                        str(teacher_dir), dtype=torch.bfloat16)
-        report["save_teacher_s"] = time.perf_counter() - t0
-        torch.cuda.empty_cache()
+        teacher_dir = shared / "teacher"
         tok = synthetic_tokenizer(teacher_dir)
         recipe_manifests(root)
 
@@ -2367,11 +2401,7 @@ def phase_recipe_path(teacher_cfg):
                      "--no_concatenate_audio",
                      *[f"--{f}" for f in sorted(INT8_FLAGS)])
 
-        student_dir = root / "student"
-        timed("create_student", create_student_model.main,
-              "--teacher_checkpoint", str(teacher_dir),
-              "--save_dir", str(student_dir),
-              "--decoder_layers", str(STUDENT_LAYERS))
+        student_dir = shared / "student"
 
         def distill(name, *extra):
             timed(name, run_distillation.main,
@@ -2548,6 +2578,455 @@ def phase_recipe_path(teacher_cfg):
     return {name: report[name]["launches"] for name in
             ("pseudo_label", "pseudo_label_int8", "distill_qat",
              "finetune_qat", "int8_pipeline")}
+
+
+MG_BATCH = 16         # distillation rows a rank a step (the global batch:
+#                       this times the ranks)
+MG_STEPS = 3          # data-parallel distillation steps, each teacher
+MG_EVAL_CLIPS = 32    # clips of the distributed eval
+MG_PL_TOKENS = 64     # pseudo-labelling budget of the full-width runs
+MG_PL_BATCH = 4       # its batch: several batches a rank, so that the
+#                       steady rate (first batch excluded) exists at 4 ranks
+MG_SPEAKER_BLOCK = 12  # consecutive clips a speaker in the PL manifest, so
+#                        that 2 or 4 ranks' shards split at speaker changes
+MG_LOSS_TOL = 1e-4    # bf16 step-1 losses, data parallel vs one process
+#                       (relative): tight enough to see per-rank means
+#                       averaged in place of the global token count
+MG_TIMEOUT = 900      # seconds the ranks may take together
+
+
+def small_checkpoint(root: Path) -> Path:
+    """test-tiny with 64-wide heads (seed 3) and the synthetic tokenizer,
+    saved in fp32: the small model of the card-vs-CPU references."""
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.models import init_params, save_pretrained
+    cfg = PRESETS["test-tiny"].replace(d_model=128, encoder_attention_heads=2,
+                                       decoder_attention_heads=2)
+    ckpt = root / "tiny"
+    save_pretrained(init_params(cfg, seed=3, device="cpu"), cfg, str(ckpt))
+    synthetic_tokenizer(ckpt)
+    return ckpt
+
+
+def multigpu_rank(rank: int, world: int, port: int, spec: dict) -> None:
+    """One rank of ``multigpu_path``: joins the job from the environment
+    torchrun would set, then runs the CLIs with ``--distributed`` in turn,
+    each rank's kernel launches counted from 0 around each run; writes
+    ``rank{rank}.json`` (and its first distillation batch) to
+    ``spec["out"]``."""
+    import logging
+    import os
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.basicConfig(level=logging.WARNING)
+    from distil_whisper_tpu_torch.cli import (convert_checkpoint_to_hf,
+                                              run_distillation, run_eval,
+                                              run_pseudo_labelling)
+    from distil_whisper_tpu_torch.parallel import maybe_initialize_distributed
+    maybe_initialize_distributed(force=True)
+    out = Path(spec["out"])
+    report = {"rank": rank, "world": world, "backend": dist.get_backend(),
+              "cuda_device": torch.cuda.current_device()}
+
+    def timed(name, fn, *argv):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(list(argv) + ["--distributed"])
+        torch.cuda.synchronize()
+        report[name] = {"s": time.perf_counter() - t0,
+                        "launches": read_counts()}
+        torch.cuda.empty_cache()
+        return result
+
+    # the first step's batch of this rank, for the one-process reference
+    original = run_distillation.build_train_step
+
+    def recording_build(*args, **kwargs):
+        train_step, eval_step = original(*args, **kwargs)
+
+        def recorded(state, teacher, batch, generator=None):
+            path = out / f"batch-rank{rank}.pt"
+            if not path.exists():
+                torch.save({k: v.cpu() for k, v in batch.items()}, path)
+            return train_step(state, teacher, batch, generator)
+
+        recorded.data_parallel = train_step.data_parallel
+        return recorded, eval_step
+
+    def distill(name, precision):
+        return ["--teacher_checkpoint", spec["teacher"],
+                "--student_checkpoint", spec["student"],
+                "--train_dataset_path", spec["train"],
+                "--output_dir", str(out / name),
+                "--teacher_precision", precision, "--precision", "half_mixed",
+                "--per_device_train_batch_size", str(MG_BATCH),
+                "--max_label_length", "128", "--max_steps", str(MG_STEPS),
+                "--warmup_steps", "2", "--learning_rate", "1e-4",
+                "--save_steps", str(MG_STEPS), "--eval_steps", "1000",
+                "--logging_steps", "1", "--language", "en", "--seed", "42",
+                "--wer_threshold", "10"]
+
+    run_distillation.build_train_step = recording_build
+    report["checkpoint"] = timed("distill_inference", run_distillation.main,
+                                 *distill("inference", "inference"))
+    run_distillation.build_train_step = original
+    timed("distill_int8_teacher", run_distillation.main,
+          *distill("int8", "int8"))
+    timed("convert", convert_checkpoint_to_hf.main,
+          "--checkpoint_dir", report["checkpoint"],
+          "--base_checkpoint", spec["student"], "--save_dir", str(out / "hf"))
+    report["eval_result"] = timed(
+        "eval", run_eval.main, "--model_checkpoint", str(out / "hf"),
+        "--dataset_path", spec["eval"], "--mode", "short", "--language", "en",
+        "--batch_size", str(MG_BATCH), "--max_new_tokens", "32",
+        "--dtype", "bfloat16")
+    timed("pseudo_label", run_pseudo_labelling.main,
+          "--model_checkpoint", spec["teacher"], "--dataset_path", spec["pl"],
+          "--output_dir", str(out / "pl"), "--per_device_batch_size",
+          str(MG_PL_BATCH), "--language", "en", "--max_new_tokens",
+          str(MG_PL_TOKENS), "--speaker_id_column_name", "speaker_id")
+    report["small_eval_result"] = timed(
+        "small_eval", run_eval.main, "--model_checkpoint", spec["small"],
+        "--dataset_path", spec["eval"], "--mode", "short", "--language", "en",
+        "--batch_size", "8", "--max_new_tokens", "16", "--dtype", "float32")
+    timed("small_pseudo_label", run_pseudo_labelling.main,
+          "--model_checkpoint", spec["small"], "--dataset_path", spec["pl"],
+          "--output_dir", str(out / "small_pl"), "--per_device_batch_size",
+          "8", "--language", "en", "--max_new_tokens", "16",
+          "--dtype", "float32", "--speaker_id_column_name", "speaker_id")
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_ranks(world: int, spec: dict) -> list:
+    """``multigpu_rank`` in ``world`` spawned processes; their reports in
+    rank order.  A rank that fails, or outlives ``MG_TIMEOUT``, fails the
+    phase; every rank is killed on the way out."""
+    import torch.multiprocessing as mp
+    from distil_whisper_tpu_torch.parallel.dryrun import _free_port
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=multigpu_rank, args=(r, world, port, spec))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + MG_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise RuntimeError(f"multigpu_path: rank exit codes {codes}")
+    return [json.loads((Path(spec["out"]) / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def pl_rows_equal(a_dir: Path, b_dir: Path) -> bool:
+    """Whether two pseudo-labelling output directories (every rank's
+    manifest, in rank order) hold the same rows: texts, transcripts and
+    conditioning equal, stored audio equal sample for sample."""
+    import numpy as np
+    from distil_whisper_tpu_torch.audio.io import load_audio
+    from distil_whisper_tpu_torch.cli.common import load_dataset_any
+    a, b = (load_dataset_any(str(d)) for d in (a_dir, b_dir))
+    keys = ("text", "whisper_transcript", "condition_on_prev")
+    return len(a) == len(b) and all(
+        all(x[k] == y[k] for k in keys) and np.array_equal(
+            load_audio(x["audio"], 16000), load_audio(y["audio"], 16000))
+        for x, y in zip(a, b))
+
+
+def pad_cat(parts):
+    """The ranks' batches as one global batch, the label axis padded to the
+    longest (labels -100, mask 0): positions after a row's last label
+    change nothing before them in a causal decoder."""
+    import torch
+    s = max(p["labels"].shape[1] for p in parts)
+    fill = {"labels": -100, "decoder_input_ids": 50257,
+            "decoder_attention_mask": 0}
+    return {k: torch.cat([p[k] if k == "input_features" else
+                          torch.nn.functional.pad(
+                              p[k], (0, s - p[k].shape[1]), value=fill[k])
+                          for p in parts]) for k in parts[0]}
+
+
+def one_process_reference(teacher_dir: Path, student_dir: Path, batches):
+    """One process on the card, as ``run_distillation --teacher_precision
+    inference --precision half_mixed`` builds its step: the loss of the
+    ranks' concatenated first batches (the data-parallel step-1 loss must
+    match it), and the step time at one rank's batch (median of 3 after a
+    warm-up)."""
+    import torch
+    from distil_whisper_tpu_torch.cli.run_distillation import to_compute_dtype
+    from distil_whisper_tpu_torch.models import load_params
+    from distil_whisper_tpu_torch.training import (
+        DistillConfig, OptimizerConfig, TrainState, build_train_step)
+    from distil_whisper_tpu_torch.utils.profiling import StepTimer
+    teacher, tcfg = load_params(str(teacher_dir), device="cuda")
+    tcfg = tcfg.replace(fast_bf16_attention=True, use_flash_encoder=True)
+    teacher = to_compute_dtype(teacher, torch.bfloat16)
+    student, scfg = load_params(str(student_dir), device="cuda")
+    opt = OptimizerConfig(learning_rate=1e-4, warmup_steps=2,
+                          total_steps=MG_STEPS,
+                          schedule="constant_with_warmup",
+                          precision="half_mixed", frozen_prefixes=("encoder",))
+    state = TrainState.create(student, opt)
+    del student
+    step, eval_step = build_train_step(scfg, tcfg, DistillConfig(), opt)
+    cuda = [{k: v.cuda() for k, v in b.items()} for b in batches]
+    with torch.no_grad():
+        ref = {k: float(v) for k, v in
+               eval_step(state.params, teacher, pad_cat(cuda)).items()}
+    timer = StepTimer("cuda")
+    for i in range(4):
+        if i:
+            with timer:
+                state, _ = step(state, teacher, cuda[0])
+        else:
+            state, _ = step(state, teacher, cuda[0])
+    ref["step_ms_one_rank"] = statistics.median(timer.times) * 1e3
+    del state, teacher
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phase_multigpu_path(teacher_cfg, root):
+    """Data-parallel multi-GPU through the port's CLIs with
+    ``--distributed``, at the width of ``teacher_cfg`` (large-v3), over
+    ``max(2, cards)`` ranks: NCCL when every rank has a card, else two ranks
+    sharing one card over gloo.  Each rank: ``run_distillation`` with the
+    inference teacher and with the int8 teacher (``MG_STEPS`` steps of
+    ``MG_BATCH`` rows a rank, half_mixed), ``convert_checkpoint_to_hf`` of
+    the first run's checkpoint (each rank restores, rank 0 writes),
+    ``run_eval`` of the converted student on ``MG_EVAL_CLIPS`` clips (bf16),
+    ``run_pseudo_labelling`` of ``TRAIN_CLIPS`` clips by the teacher
+    (``MG_PL_TOKENS`` new tokens), and the small fp32 model's eval and
+    pseudo-labelling; launches counted per rank around each run.  In this
+    process: the data-parallel step-1 loss against one process's on the
+    concatenated global batch (bf16, ``MG_LOSS_TOL``), the one-rank step
+    time, the one-rank pseudo-labelling rate, the small model's one-rank
+    eval WER and pseudo-labels (equal to the ranks' summed WER and
+    concatenated rows), and ``dryrun_multigpu`` (fp32 parameters after a
+    data-parallel step: the summed gradient, the parameters and the loss
+    within 1e-5 relative of one process's).  ``root`` holds the teacher, student
+    and manifests of ``training_path`` (or of :func:`shared_inputs`)."""
+    import logging
+    import shutil
+    import torch
+    from distil_whisper_tpu_torch.cli import run_eval, run_pseudo_labelling
+    from distil_whisper_tpu_torch.cli.common import shard_rows, write_jsonl
+    from distil_whisper_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    logging.basicConfig(level=logging.WARNING)
+    cards = torch.cuda.device_count()
+    world = max(2, cards)
+    report = {"world": world, "cards": cards,
+              "backend": "nccl" if cards >= world else "gloo"}
+    try:
+        rows = [json.loads(line) for line in
+                (root / "train.jsonl").read_text().splitlines()]
+        mg = root / "multigpu"
+        mg.mkdir()
+        write_jsonl(str(mg / "eval.jsonl"), rows[:MG_EVAL_CLIPS])
+        pl_in = [{"audio": r["audio"], "text": r["text"],
+                  "speaker_id": f"s{i // MG_SPEAKER_BLOCK}"}
+                 for i, r in enumerate(rows)]
+        write_jsonl(str(mg / "pl.jsonl"), pl_in)
+        # one rank's rate needs a few batches, not the whole set
+        write_jsonl(str(mg / "pl_one.jsonl"), pl_in[:2 * MG_SPEAKER_BLOCK])
+        spec = {"teacher": str(root / "teacher"),
+                "student": str(root / "student"),
+                "train": str(root / "train.jsonl"),
+                "eval": str(mg / "eval.jsonl"), "pl": str(mg / "pl.jsonl"),
+                "small": str(small_checkpoint(mg)), "out": str(mg / "out")}
+        Path(spec["out"]).mkdir()
+        t0 = time.perf_counter()
+        ranks = run_ranks(world, spec)
+        report["ranks_s"] = time.perf_counter() - t0
+        out = Path(spec["out"])
+
+        # the ranks' distillation, as rank 0 logged it
+        metrics = _train_rows(_metrics(out / "inference"))
+        int8 = _train_rows(_metrics(out / "int8"))
+        steps = {"loss": [m["train/loss"] for m in metrics],
+                 "grad_norm": [m["train/grad_norm"] for m in metrics],
+                 "label_tokens": [m["train/label_tokens"] for m in metrics],
+                 "step_ms_ranks": [[t * 1e3 for t in m[
+                     "train/step_time_s_ranks"]] for m in metrics],
+                 "allreduce_ms_ranks": [[t * 1e3 for t in m[
+                     "train/allreduce_s_ranks"]] for m in metrics],
+                 "int8_teacher_loss": [m["train/loss"] for m in int8],
+                 "int8_step_ms_ranks": [[t * 1e3 for t in m[
+                     "train/step_time_s_ranks"]] for m in int8]}
+        late = steps["step_ms_ranks"][1:]
+        steps["step_ms_median_after_first"] = statistics.median(
+            max(r) for r in late)
+        steps["allreduce_ms_median_after_first"] = statistics.median(
+            max(r) for r in steps["allreduce_ms_ranks"][1:])
+        steps["allreduce_share"] = (steps["allreduce_ms_median_after_first"]
+                                    / steps["step_ms_median_after_first"])
+        report["distill"] = steps
+
+        ref = one_process_reference(
+            root / "teacher", root / "student",
+            [torch.load(out / f"batch-rank{r}.pt", weights_only=True)
+             for r in range(world)])
+        report["step1_vs_one_process"] = {
+            k: [metrics[0][f"train/{k}"], ref[k]]
+            for k in ("loss", "ce_loss", "kl_loss")}
+        report["step1_rel_diff"] = max(
+            abs(a - b) / abs(b)
+            for a, b in report["step1_vs_one_process"].values())
+        report["step_ms_one_rank"] = ref["step_ms_one_rank"]
+
+        # eval: every rank reports the summed WER
+        evals = [r["eval_result"] for r in ranks]
+        report["eval"] = {
+            "wer_ranks": [e.get("wer") for e in evals],
+            "audio_s_per_s_summed": sum(e["rtfx"] for e in evals),
+            "samples_ranks": [e["num_samples"] for e in evals]}
+
+        # pseudo-labelling: the ranks' rates summed, against one rank here
+        stats = [json.loads((out / "pl" / f"pl_stats-{r}.json").read_text())
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        reset_counts()
+        run_pseudo_labelling.main([
+            "--model_checkpoint", spec["teacher"], "--dataset_path",
+            str(mg / "pl_one.jsonl"), "--output_dir", str(mg / "pl_one"),
+            "--per_device_batch_size", str(MG_PL_BATCH), "--language", "en",
+            "--max_new_tokens", str(MG_PL_TOKENS),
+            "--speaker_id_column_name", "speaker_id"])
+        one = json.loads((mg / "pl_one" / "pl_stats.json").read_text())
+        report["pseudo_label"] = {
+            "rows_ranks": [s["rows"] for s in stats],
+            "batches_ranks": [s["batches"] for s in stats],
+            "audio_s_ranks": [s["audio_s"] for s in stats],
+            "audio_s_per_s_steady_summed": sum(s["rtfx_steady_state"]
+                                               for s in stats),
+            "audio_s_per_s_wall_summed": sum(
+                s["audio_s"] / r["pseudo_label"]["s"]
+                for s, r in zip(stats, ranks)),
+            "one_rank_audio_s_per_s_steady": one["rtfx_steady_state"],
+            "one_rank_audio_s_per_s_wall": one["audio_s"]
+            / (time.perf_counter() - t0),
+            "one_rank_rows": one["rows"], "one_rank_launches": read_counts()}
+
+        # the small fp32 model: one rank here equals the ranks together
+        small_eval = run_eval.main([
+            "--model_checkpoint", spec["small"], "--dataset_path",
+            spec["eval"], "--mode", "short", "--language", "en",
+            "--batch_size", "8", "--max_new_tokens", "16",
+            "--dtype", "float32"])
+        run_pseudo_labelling.main([
+            "--model_checkpoint", spec["small"], "--dataset_path", spec["pl"],
+            "--output_dir", str(mg / "small_pl_one"),
+            "--per_device_batch_size", "8", "--language", "en",
+            "--max_new_tokens", "16", "--dtype", "float32",
+            "--speaker_id_column_name", "speaker_id"])
+        pl_rows_in = [json.loads(line) for line in
+                      Path(spec["pl"]).read_text().splitlines()]
+        shard_texts = [" ".join(r["text"] for r in shard_rows(
+            sorted(pl_rows_in, key=lambda r: r["speaker_id"]), world, k))
+            for k in range(world)]
+        report["small"] = {
+            "eval_wer_ranks": [r["small_eval_result"].get("wer")
+                               for r in ranks],
+            "eval_wer_one_rank": small_eval.get("wer"),
+            "pl_rows_equal": pl_rows_equal(out / "small_pl",
+                                           mg / "small_pl_one"),
+            "pl_shards_follow_the_rule": [
+                " ".join(json.loads(line)["text"] for line in
+                         (out / "small_pl" / f"dataset-{k}.jsonl")
+                         .read_text().splitlines()) == shard_texts[k]
+                for k in range(world)]}
+        report["launches"] = {run: [r[run]["launches"] for r in ranks]
+                              for run in ("distill_inference",
+                                          "distill_int8_teacher", "eval",
+                                          "pseudo_label")}
+        report["run_s"] = {run: [round(r[run]["s"], 2) for r in ranks]
+                           for run in ("distill_inference",
+                                       "distill_int8_teacher", "convert",
+                                       "eval", "pseudo_label", "small_eval",
+                                       "small_pseudo_label")}
+        report["rank_devices"] = [r["cuda_device"] for r in ranks]
+        report["rank_backends"] = [r["backend"] for r in ranks]
+        report["exported"] = sorted(p.name for p in (out / "hf").iterdir())
+        # raises when the step parts from one process's (1e-5 relative)
+        dry = dryrun_multigpu(world)
+        report["dryrun"] = {k: dry[k] for k in (
+            "backend", "grad_err", "param_err", "loss_rel_err", "loss",
+            "update_err", "worst_element")}
+        shard = [len(shard_rows(rows, world, k)) for k in range(world)]
+    finally:
+        shutil.rmtree(root / "multigpu", ignore_errors=True)
+
+    emit({"phase": "multigpu_path", **report})
+    bad = []
+    n_layers = teacher_cfg.encoder_layers
+    if report["rank_backends"] != [report["backend"]] * world:
+        bad.append(f"backends {report['rank_backends']}")
+    if report["backend"] == "nccl" and report["rank_devices"] != list(
+            range(world)):
+        bad.append(f"ranks on cards {report['rank_devices']}")
+    d = report["distill"]
+    if len(d["loss"]) != MG_STEPS or len(d["int8_teacher_loss"]) != MG_STEPS \
+            or not all(map(math.isfinite, d["loss"] + d["grad_norm"]
+                           + d["int8_teacher_loss"])):
+        bad.append(f"distillation: {d}")
+    if not report["step1_rel_diff"] <= MG_LOSS_TOL:
+        bad.append(f"step 1 vs one process: {report['step1_vs_one_process']}")
+    for r in range(world):
+        want = {"distill_inference": dict(
+                    log_mel=shard[r], encoder_attention=n_layers * MG_STEPS,
+                    int8_mlp=0),
+                "distill_int8_teacher": dict(
+                    log_mel=shard[r], encoder_attention=n_layers * MG_STEPS,
+                    int8_mlp=MG_STEPS * (n_layers
+                                         + teacher_cfg.decoder_layers)),
+                "eval": dict(log_mel=1, encoder_attention=n_layers,
+                             int8_mlp=0),
+                "pseudo_label": dict(
+                    log_mel=report["pseudo_label"]["batches_ranks"][r],
+                    encoder_attention=n_layers * report[
+                        "pseudo_label"]["batches_ranks"][r], int8_mlp=0)}
+        for run, counts in want.items():
+            got = report["launches"][run][r]
+            if any(got[k] != v for k, v in counts.items()):
+                bad.append(f"rank {r} {run} launches {got}, want {counts}")
+    e = report["eval"]
+    if len(set(e["wer_ranks"])) != 1 or e["wer_ranks"][0] is None:
+        bad.append(f"eval WER differs over the ranks: {e['wer_ranks']}")
+    s = report["small"]
+    if not (len(set(s["eval_wer_ranks"])) == 1
+            and s["eval_wer_ranks"][0] == s["eval_wer_one_rank"]
+            and s["eval_wer_one_rank"] is not None):
+        bad.append(f"small eval WER: {s}")
+    if not (s["pl_rows_equal"] and all(s["pl_shards_follow_the_rule"])):
+        bad.append(f"small pseudo-labels: {s}")
+    pl = report["pseudo_label"]
+    if (min(pl["batches_ranks"]) < 2
+            or pl["one_rank_rows"] < 2 * MG_PL_BATCH):
+        bad.append(f"pseudo-labelling ran too few batches for a rate: {pl}")
+    if "model.safetensors" not in report["exported"]:
+        bad.append(f"converter wrote {report['exported']}")
+    if bad:
+        raise AssertionError("multigpu path: " + "; ".join(bad))
+    return {f"multigpu_{run}_rank{r}": report["launches"][run][r]
+            for run in report["launches"] for r in range(world)}
 
 
 def phase_small_reference(tok):
@@ -2871,9 +3350,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_small_reference(tok)
     from distil_whisper_tpu_torch.config import PRESETS
-    training = phase_training_path(PRESETS["large-v3"])
+    # the teacher, student and manifests of training_path serve
+    # multigpu_path and recipe_path too
+    shared = Path(tempfile.mkdtemp(prefix="dw_training_"))
+    try:
+        training = phase_training_path(PRESETS["large-v3"], shared)
+        multigpu = phase_multigpu_path(PRESETS["large-v3"], shared)
+        recipe = phase_recipe_path(PRESETS["large-v3"], shared)
+    finally:
+        import shutil
+        shutil.rmtree(shared, ignore_errors=True)
     longform.update({f"training_{k}": v for k, v in training.items()})
-    recipe = phase_recipe_path(PRESETS["large-v3"])
+    longform.update(multigpu)
     longform.update({f"recipe_{k}": v for k, v in recipe.items()})
     # the gradient row's launches: the kernel forwards of the fine-tuning
     # run, each of which its recompute backward followed

@@ -146,10 +146,12 @@ def log10_mel_fused(audio: torch.Tensor, num_mel_bins: int) -> torch.Tensor:
     basis, filters, bands = _device_constants(num_mel_bins, audio.device)
     out = torch.empty((b, num_mel_bins, n_frames), dtype=torch.float32,
                       device=audio.device)
-    err = _lib().dw_log_mel(
-        audio.data_ptr(), basis.data_ptr(), filters.data_ptr(), bands.data_ptr(),
-        out.data_ptr(), b, n, n_frames, num_mel_bins,
-        torch.cuda.current_stream(audio.device).cuda_stream)
+    # the .so launches on the CUDA runtime's current card
+    with torch.cuda.device(audio.device):
+        err = _lib().dw_log_mel(
+            audio.data_ptr(), basis.data_ptr(), filters.data_ptr(),
+            bands.data_ptr(), out.data_ptr(), b, n, n_frames, num_mel_bins,
+            torch.cuda.current_stream(audio.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mel kernel launch failed (cudaError {err})")
     _build.count_launch(log10_mel_fused)

@@ -20,10 +20,45 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 
+from ..parallel.mesh import NEXT_SLICE
+
 logger = logging.getLogger("distil_whisper_tpu_torch")
 
-# what the flags of the multi-GPU slice raise with
-MULTI_GPU = "comes with multi-GPU: ROADMAP.md queue 1, item 5"
+# what the flags of the next multi-GPU slice (tensor parallelism and 2-D
+# parameter sharding) raise with
+MULTI_GPU = NEXT_SLICE
+
+
+def setup_data_parallel(distributed: bool, device: str = "cuda"):
+    """Join the job's process group (``--distributed`` forces it and raises
+    without one; a ``torchrun`` environment joins it anyway) and return the
+    ``(data, 1)`` device mesh, or None in a single process.  Imported
+    lazily: featurizer workers import this module."""
+    from ..parallel import make_mesh, maybe_initialize_distributed
+    if not maybe_initialize_distributed(force=distributed, device=device):
+        return None
+    return make_mesh()
+
+
+def summed_word_errors(stats, *extra: int):
+    """``stats`` (a ``WordErrors``) with its counts summed over the ranks,
+    and each of ``extra`` summed alike: ``(stats, *extra)``.  Every rank
+    must call it, one whose rows have no reference words too."""
+    from ..parallel.multihost import sum_over_ranks
+    counts = sum_over_ranks(np.asarray(
+        [stats.hits, stats.substitutions, stats.insertions, stats.deletions,
+         stats.num_ref_words, *extra], np.int64)).tolist()
+    summed = type(stats)(hits=counts[0], substitutions=counts[1],
+                         insertions=counts[2], deletions=counts[3],
+                         num_ref_words=counts[4])
+    return (summed, *counts[5:]) if extra else summed
+
+
+def rank_suffix() -> str:
+    """``-{rank}`` for the per-rank output files of a multi-process run,
+    else empty."""
+    from ..parallel.multihost import is_distributed, rank
+    return f"-{rank()}" if is_distributed() else ""
 
 
 def setup_logging(verbose: bool = True) -> None:
@@ -54,13 +89,18 @@ def load_dataset_any(path: str, split: Optional[str] = None):
     path, or ``{"array": ..., "sampling_rate": ...}``) and ``text``.
 
     Accepts a JSONL manifest (one JSON object a line; read with the standard
-    library), or a ``datasets`` save_to_disk directory (Dataset or
-    DatasetDict, ``split`` picks one) or ``.arrow`` file.
+    library), a pseudo-labelling output directory (its ``dataset.jsonl``,
+    or the per-rank ``dataset-{rank}.jsonl`` of a multi-GPU run,
+    concatenated in rank order), or a ``datasets`` save_to_disk directory
+    (Dataset or DatasetDict, ``split`` picks one) or ``.arrow`` file.
     """
     p = Path(path)
     if p.suffix in (".jsonl", ".json") and p.is_file():
         with open(p) as f:
             return [json.loads(line) for line in f if line.strip()]
+    manifests = pl_manifests(p) if p.is_dir() else []
+    if manifests:
+        return [row for m in manifests for row in load_dataset_any(str(m))]
     if p.is_dir():
         import datasets
         ds = datasets.load_from_disk(str(p))
@@ -71,6 +111,21 @@ def load_dataset_any(path: str, split: Optional[str] = None):
         import datasets
         return datasets.Dataset.from_file(str(p))  # memory-mapped
     raise FileNotFoundError(f"cannot interpret dataset path {path}")
+
+
+def pl_manifests(out_dir: Path) -> List[Path]:
+    """The manifests of a pseudo-labelling output directory, in rank
+    order: ``dataset.jsonl``, or ``dataset-0.jsonl``, ``dataset-1.jsonl``,
+    ... of a multi-GPU run."""
+    single = out_dir / "dataset.jsonl"
+    if single.is_file():
+        return [single]
+    ranks = {}
+    for m in out_dir.glob("dataset-*.jsonl"):
+        tail = m.stem[len("dataset-"):]
+        if tail.isdigit():
+            ranks[int(tail)] = m
+    return [ranks[r] for r in sorted(ranks)]
 
 
 def sort_rows(ds, column: str):

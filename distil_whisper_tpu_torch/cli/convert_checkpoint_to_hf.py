@@ -7,7 +7,10 @@ states: this reads the parameters of one checkpoint dir, or of the newest
 one under a run's output dir, checks them against the architecture of
 ``--base_checkpoint`` (the student init), and writes ``config.json``, an
 fp32 ``model.safetensors`` and the tokenizer files.  Runs on the GPU unless
-``--device cpu``; ``--distributed`` comes with multi-GPU and raises.
+``--device cpu``.  ``--distributed`` (under ``torchrun``, after a data-
+parallel run): every rank restores the checkpoint, rank 0 writes the
+export while the others wait at a barrier (JAX lets every host write the
+same files).
 
     python -m distil_whisper_tpu_torch.cli.convert_checkpoint_to_hf \\
         --checkpoint_dir ./run/checkpoint-80000 \\
@@ -25,7 +28,9 @@ from ..device import resolve_device
 from ..models import load_params, save_pretrained
 from ..models.params import to_fp32, tree_paths, unflatten_paths
 from ..training.checkpoint import STATE_FILE, CheckpointManager
-from .common import MULTI_GPU, copy_tokenizer_files, logger, setup_logging
+from ..parallel.multihost import barrier, rank
+from .common import (copy_tokenizer_files, logger, setup_data_parallel,
+                     setup_logging)
 
 
 def checkpoint_params(path: Path, template, device):
@@ -56,20 +61,22 @@ def main(argv=None):
                    help="HF dir defining the architecture (student init)")
     p.add_argument("--save_dir", required=True)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-GPU checkpoints come with a later slice; "
-                        "raises")
+                   help="join the torchrun job first (each rank restores, "
+                        "rank 0 writes); fails fast unless the job has "
+                        "several ranks")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda or cpu)")
     args = p.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(f"--distributed {MULTI_GPU}")
     setup_logging()
+    setup_data_parallel(args.distributed, args.device)
     device = resolve_device(args.device)
     base, cfg = load_params(args.base_checkpoint, device=device)
     step, params = checkpoint_params(Path(args.checkpoint_dir), base, device)
-    save_pretrained(to_fp32(params), cfg, args.save_dir)
-    copy_tokenizer_files(args.base_checkpoint, args.save_dir)
-    logger.info("checkpoint %s exported to %s", step, args.save_dir)
+    if rank() == 0:
+        save_pretrained(to_fp32(params), cfg, args.save_dir)
+        copy_tokenizer_files(args.base_checkpoint, args.save_dir)
+        logger.info("checkpoint %s exported to %s", step, args.save_dir)
+    barrier()
     return args.save_dir
 
 

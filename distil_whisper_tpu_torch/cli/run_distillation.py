@@ -1,5 +1,5 @@
 """Knowledge distillation trainer (pseudo-labelled data -> distil student),
-single process, one GPU.
+on one GPU or data parallel over several (one process a GPU).
 
 The port of ``distil_whisper_tpu.cli.run_distillation`` with its flags and
 defaults: WER-threshold filtering of pseudo-labels, timestamp / condition-
@@ -14,14 +14,26 @@ same shuffle buffer over rows prepared on the fly by a producer thread); a
 resumed run skips the batches its checkpoint has seen, so it continues as
 the uninterrupted run would.  Runs on the GPU unless ``--device cpu``.
 
-Not ported yet (they raise, naming their ROADMAP.md item): ``--distributed``,
-``--model_parallel`` > 1 and ``--param_sharding 2d`` (multi-GPU).
+Data parallel (``--distributed`` under ``torchrun``, one rank a GPU, as the
+JAX trainer's multi-process branches): every rank holds a replica of the
+student, broadcast from rank 0, prepares its contiguous shard of the
+training set and feeds ``--per_device_train_batch_size`` rows of it a step
+(the global batch is that times the world size); gradients are summed over
+the ranks.  The eval set is sliced into equal parts (the eval runs
+collectives per batch) and its error counts summed; rank 0 writes the
+metrics, predictions and checkpoints; a SIGTERM stop is agreed at logging,
+eval and save boundaries; the run ends with its last checkpoint, which
+``convert_checkpoint_to_hf`` exports.  Not ported yet (they raise, naming
+their ROADMAP.md item): ``--model_parallel`` > 1 and ``--param_sharding
+2d``.
 
     python -m distil_whisper_tpu_torch.cli.run_distillation \\
         --teacher_checkpoint /ckpts/whisper-large-v3 \\
         --student_checkpoint ./distil-init \\
         --train_dataset_path ./pl_out/train.jsonl --output_dir ./distil-run \\
         --max_steps 80000 --per_device_train_batch_size 64
+    torchrun --nproc_per_node 4 -m distil_whisper_tpu_torch.cli.run_distillation \\
+        ... --distributed
 """
 
 from __future__ import annotations
@@ -44,15 +56,20 @@ from ..models import load_params, save_pretrained
 from ..models.convert import FP32_LEAVES
 from ..models.params import map_with_path, to_fp32
 from ..ops.quant import quantize_teacher_params
+from ..parallel import process_local_slice, shard_params
+from ..parallel.multihost import (any_over_ranks, gather_rows,
+                                  is_distributed, rank, sum_over_ranks,
+                                  world_size)
 from ..tokenizer import (BasicTextNormalizer, EnglishTextNormalizer,
                          WhisperTokenizer)
 from ..training import (Collator, CheckpointManager, DistillConfig,
                         OptimizerConfig, TrainState, build_train_step,
-                        is_wer_in_range, prepare_labels)
+                        is_wer_in_range, place_state, prepare_labels)
 from ..training.data_stream import streaming_batches
 from ..utils.profiling import MetricsLogger, StepTimer, device_time_ms
 from .common import (MULTI_GPU, copy_tokenizer_files, load_dataset_any,
-                     load_multiple_datasets, logger, setup_logging)
+                     load_multiple_datasets, logger, setup_data_parallel,
+                     setup_logging, shard_rows, summed_word_errors)
 
 
 def parse_args(argv=None):
@@ -110,7 +127,8 @@ def parse_args(argv=None):
                    help="directory for the prepared-sample cache (written by "
                         "--preprocessing_only, reused on the training run)")
     p.add_argument("--param_sharding", default="1d", choices=["1d", "2d"],
-                   help="2d (FSDP-style) comes with multi-GPU; raises")
+                   help="2d (FSDP-style) comes with the tensor-parallel "
+                        "slice; raises")
     p.add_argument("--ce_weight", type=float, default=0.8)
     p.add_argument("--kl_weight", type=float, default=1.0)
     p.add_argument("--mse_weight", type=float, default=0.0)
@@ -137,10 +155,12 @@ def parse_args(argv=None):
     p.add_argument("--profile_dir", default=None,
                    help="trace output dir (default <output_dir>/trace)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-GPU training comes with a later slice; raises")
+                   help="data-parallel training, one process a GPU under "
+                        "torchrun; fails fast unless the job has several "
+                        "ranks")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="> 1 comes with multi-GPU; raises")
+                   help="> 1 comes with the tensor-parallel slice; raises")
     p.add_argument("--resume_from_checkpoint", action="store_true")
     p.add_argument("--gradient_checkpointing", action="store_true")
     p.add_argument("--eval_max_new_tokens", type=int, default=128)
@@ -175,8 +195,6 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """The flags of later slices raise, naming their ROADMAP.md item."""
-    if getattr(args, "distributed", False):
-        raise NotImplementedError(f"--distributed {MULTI_GPU}")
     if getattr(args, "model_parallel", 1) > 1:
         raise NotImplementedError(f"--model_parallel > 1 {MULTI_GPU}")
     if getattr(args, "param_sharding", "1d") == "2d":
@@ -246,6 +264,22 @@ def to_device(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def step_times(timer, train_step, label_tokens: int) -> dict:
+    """A logged step's times and label tokens.  Data parallel: the global
+    label-token count, the slowest rank's step time, every rank's step
+    time and gradient all-reduce time (CUDA events) in rank order."""
+    step_s = timer.times[-1]
+    if not is_distributed():
+        return {"train/step_time_s": step_s,
+                "train/label_tokens": label_tokens}
+    reduce_s = train_step.data_parallel.timer.times[-1]
+    per_rank = gather_rows(np.asarray([[step_s, reduce_s, label_tokens]]))
+    return {"train/step_time_s": float(per_rank[:, 0].max()),
+            "train/label_tokens": int(per_rank[:, 2].sum()),
+            "train/step_time_s_ranks": per_rank[:, 0].tolist(),
+            "train/allreduce_s_ranks": per_rank[:, 1].tolist()}
+
+
 class Profiler:
     """``--profile_steps``: a ``torch.profiler`` window over some steps,
     exported as a Chrome trace, its device and wall time per step
@@ -254,6 +288,8 @@ class Profiler:
     def __init__(self, trace_dir: str, device: torch.device):
         from torch.profiler import ProfilerActivity, profile
         self.dir, self.device = Path(trace_dir), device
+        if is_distributed():
+            self.dir = self.dir / f"rank{rank()}"
         acts = [ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
@@ -286,7 +322,9 @@ def main(argv=None):
                          "--streaming: preparation happens on the fly "
                          "(reference run_distillation.py:1308-1313)")
     setup_logging()
+    mesh = setup_data_parallel(args.distributed, args.device)
     device = resolve_device(args.device)
+    n_proc, rank_ = world_size(), rank()
     rng = np.random.default_rng(args.seed)
 
     frozen = []
@@ -322,9 +360,9 @@ def main(argv=None):
             use_flash_encoder=(args.precision != "full"))
         if args.teacher_precision == "int8":
             teacher = quantize_teacher_params(teacher)
-    teacher = to_compute_dtype(teacher, dtype)
+    teacher = shard_params(to_compute_dtype(teacher, dtype), mesh)
     student, student_cfg = load_params(args.student_checkpoint, device=device)
-    state = TrainState.create(student, opt_cfg)
+    state = place_state(TrainState.create(student, opt_cfg), mesh)
     del student
     tok = WhisperTokenizer.from_pretrained(args.teacher_checkpoint)
     normalizer = (EnglishTextNormalizer(tok.spelling_mapping)
@@ -340,7 +378,7 @@ def main(argv=None):
         loss_chunk_size=args.loss_chunk_size,
         quantize_student=args.quantize_student)
     train_step, eval_step = build_train_step(student_cfg, teacher_cfg, dcfg,
-                                             opt_cfg)
+                                             opt_cfg, mesh=mesh)
 
     mgr = CheckpointManager(args.output_dir,
                             save_total_limit=args.save_total_limit,
@@ -350,6 +388,7 @@ def main(argv=None):
         resumed = mgr.resume_latest(state)
         if resumed is not None:
             start_step, state = resumed
+            state = place_state(state, mesh)
             logger.info("resumed from step %d", start_step)
 
     train_ds = load_multiple_datasets(args.train_dataset_path,
@@ -366,6 +405,8 @@ def main(argv=None):
     collator = Collator(decoder_start_token_id=tok.sot,
                         pad_token_id=teacher_cfg.pad_token_id,
                         max_target_length=args.max_label_length)
+    # each rank feeds its own rows: the global batch is this times the
+    # world size
     bsz = args.per_device_train_batch_size
 
     cache_file = (Path(args.preprocessed_cache) / "train_samples.npy"
@@ -373,6 +414,7 @@ def main(argv=None):
     # with --streaming the stream starts below, after the eval set
     samples = None
     if not args.streaming:
+        prep_sharded = False
         if (cache_file is not None and cache_file.exists()
                 and not args.preprocessing_only):
             # a file this trainer wrote with --preprocessing_only
@@ -380,11 +422,18 @@ def main(argv=None):
             logger.info("loaded %d prepared samples from %s",
                         len(samples), cache_file)
         else:
-            samples = _prepare_samples(train_ds, tok, teacher_cfg, args,
+            prep_ds = train_ds
+            if n_proc > 1 and not args.preprocessing_only:
+                # shard BEFORE preparation (audio load, mel and the WER
+                # filter are the start-up cost); the train loop cycles, so
+                # unequal counts after filtering are fine
+                prep_ds = shard_rows(train_ds, n_proc, rank_)
+                prep_sharded = True
+            samples = _prepare_samples(prep_ds, tok, teacher_cfg, args,
                                        normalizer, rng, device)
             if not samples:
                 raise RuntimeError("no training samples after filtering")
-            if cache_file is not None:
+            if cache_file is not None and rank_ == 0:
                 cache_file.parent.mkdir(parents=True, exist_ok=True)
                 np.save(cache_file, np.asarray(samples, dtype=object),
                         allow_pickle=True)
@@ -394,6 +443,8 @@ def main(argv=None):
             logger.info("--preprocessing_only set: preprocessing finished, "
                         "skipping training")
             return str(cache_file) if cache_file else None
+        if n_proc > 1 and not prep_sharded:
+            samples = samples[process_local_slice(len(samples))]
     eval_samples = None
     if args.eval_dataset_path:
         eval_ds = load_dataset_any(args.eval_dataset_path, "validation")
@@ -404,17 +455,25 @@ def main(argv=None):
                                           "timestamp_probability": 0.0})
         eval_samples = _prepare_samples(eval_ds, tok, teacher_cfg, eval_args,
                                         normalizer, rng, device)
+        if n_proc > 1 and eval_samples:
+            # every rank prepares the whole set and takes an EQUAL slice:
+            # the eval runs collectives per batch, so every rank needs the
+            # same number of batches (the counts are summed below)
+            eval_samples = eval_samples[process_local_slice(
+                len(eval_samples))]
     stream = None
     if args.streaming:
         # rows are prepared on the fly by a producer thread; it starts only
         # now, so that its label draws from ``rng`` follow the eval set's
+        # each rank streams its own contiguous shard: distinct shuffle
+        # seeds alone would feed every rank the whole corpus
         stream = streaming_batches(
-            train_ds,
+            shard_rows(train_ds, n_proc, rank_) if n_proc > 1 else train_ds,
             prepare=lambda row: _prepare_row(row, tok, teacher_cfg, args,
                                              normalizer, rng, device),
             collate=collator, batch_size=bsz,
-            shuffle_buffer_size=args.shuffle_buffer_size, seed=args.seed,
-            repeat=True, prefetch_depth=2)
+            shuffle_buffer_size=args.shuffle_buffer_size,
+            seed=args.seed + rank_, repeat=True, prefetch_depth=2)
 
     # SIGTERM/SIGINT request a checkpoint at the next step boundary, so a
     # preempted run resumes with --resume_from_checkpoint
@@ -430,6 +489,19 @@ def main(argv=None):
             signal.signal(sig, _request_stop)
         except ValueError:
             pass  # not the main thread (e.g. under a test runner)
+
+    def stop_agreed(step: int) -> bool:
+        """The stop request, agreed over the ranks at logging, eval, save
+        and last-step boundaries only: a signal lands at another step on
+        each rank, and ranks entering the save's barrier at different steps
+        would hang; polling every step would put a host sync in the loop."""
+        if n_proc == 1:
+            return stop_requested["flag"]
+        done = step + 1
+        if (done % args.logging_steps and done % args.eval_steps
+                and done % args.save_steps and done != args.max_steps):
+            return False
+        return any_over_ranks(stop_requested["flag"])
 
     order = rng.permutation(len(samples)) if samples else None
     cursor = 0
@@ -495,8 +567,12 @@ def main(argv=None):
         pairs = [(r, h) for r, h in zip(refs, hyps) if r.strip()]
         stats = (process_words([r for r, _ in pairs], [h for _, h in pairs])
                  if pairs else WordErrors())
+        if n_proc > 1:
+            # the error counts summed over the ranks' slices; every rank
+            # enters the collective, an empty slice too
+            stats = summed_word_errors(stats)
         if not stats.num_ref_words:
-            return
+            return      # a global decision: the same on every rank
         wer = 100 * stats.wer
         logger.info("eval @%d: ce=%.4f wer=%.2f%% (I=%d S=%d D=%d)",
                     step, np.mean(losses), wer, stats.insertions,
@@ -506,11 +582,13 @@ def main(argv=None):
                                "eval/insertions": stats.insertions,
                                "eval/substitutions": stats.substitutions,
                                "eval/deletions": stats.deletions})
-        pred_path = Path(args.output_dir) / f"eval_predictions-{step}.jsonl"
-        with open(pred_path, "w") as f:
-            for r, h in zip(refs, hyps):
-                f.write(json.dumps({"norm_ref": r, "norm_pred": h,
-                                    "correct": r == h}) + "\n")
+        if rank_ == 0:
+            pred_path = (Path(args.output_dir)
+                         / f"eval_predictions-{step}.jsonl")
+            with open(pred_path, "w") as f:
+                for r, h in zip(refs, hyps):
+                    f.write(json.dumps({"norm_ref": r, "norm_pred": h,
+                                        "correct": r == h}) + "\n")
         if wer < best_wer:
             best_wer = wer
             mgr.save_best(step, state, wer)
@@ -531,7 +609,9 @@ def main(argv=None):
                 profiler = None
         raw = next_batch()
         n_sup = int((raw["labels"] != -100).sum())
-        if step == start_step and n_sup == 0:
+        # the first batch's check is agreed over the ranks: one rank
+        # raising while the others enter the step's collectives would hang
+        if step == start_step and not sum_over_ranks(np.asarray([n_sup]))[0]:
             raise RuntimeError(
                 "first batch has zero supervised tokens: check that the "
                 "checkpoint's special-token ids match its tokenizer")
@@ -547,14 +627,13 @@ def main(argv=None):
             metrics_log.log(step + 1,
                             {**{f"train/{k}": v for k, v in m.items()},
                              "train/steps_per_second": sps,
-                             "train/step_time_s": timer.times[-1],
-                             "train/label_tokens": n_sup,
+                             **step_times(timer, train_step, n_sup),
                              **peak_memory(device)})
         if (step + 1) % args.eval_steps == 0:
             run_eval(step + 1)
         if (step + 1) % args.save_steps == 0:
             mgr.save(step + 1, state)
-        if stop_requested["flag"]:
+        if stop_agreed(step):
             mgr.save(step + 1, state, metadata={"preempted": True})
             logger.warning("preemption checkpoint written at step %d; "
                            "resume with --resume_from_checkpoint", step + 1)
@@ -568,6 +647,16 @@ def main(argv=None):
     if args.max_steps % args.save_steps != 0:  # else just saved in the loop
         mgr.save(args.max_steps, state)
     final_dir = Path(args.output_dir) / "end-of-training-weights"
+    if n_proc > 1:
+        # the multi-process ending (JAX's): the last checkpoint is the
+        # run's artifact, exported by the converter
+        ckpt_dir = Path(args.output_dir) / f"checkpoint-{args.max_steps}"
+        logger.info("multi-process run: convert the final checkpoint with "
+                    "python -m distil_whisper_tpu_torch.cli."
+                    "convert_checkpoint_to_hf --checkpoint_dir %s "
+                    "--base_checkpoint %s --save_dir %s --distributed",
+                    ckpt_dir, args.student_checkpoint, final_dir)
+        return str(ckpt_dir)
     save_pretrained(to_fp32(state.params), student_cfg, str(final_dir))
     copy_tokenizer_files(args.teacher_checkpoint, str(final_dir))
     logger.info("final weights exported to %s (best val WER %.2f%%)",

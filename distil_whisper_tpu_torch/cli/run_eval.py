@@ -17,8 +17,10 @@ and output keys, on one GPU (``--device``, default ``cuda``):
 
 The sequential and chunked modes speculate too with
 ``--assistant_checkpoint`` or ``--speculative_method ngram`` (sequential at
-its temperature-0 rung).  ``--distributed`` comes with multi-GPU; it
-raises here.
+its temperature-0 rung).  ``--distributed`` (under ``torchrun``, one rank
+a GPU) evaluates a contiguous shard of the dataset on each rank and sums
+the error counts (and repeated 5-grams) over the ranks, so every rank
+reports the same WER; ``--output_json`` gets a ``-{rank}`` suffix.
 
 Metrics: WER (+I/S/D splits), RTFx = audio-time / transcription-time,
 tokens/s, and the hallucination stats IER/SER/DER + repeated 5-grams.
@@ -40,17 +42,20 @@ import torch
 
 from ..audio import compute_mel
 from ..audio.io import load_audio
+from ..device import resolve_device
 from ..generation import (GenerationOptions, SequentialOptions,
                           SequentialTranscriber, encode_and_beam_search,
                           encode_and_generate, generate)
 from ..metrics import WordErrors, count_repeated_ngrams, process_words
 from ..models import load_params
 from ..models.whisper import cross_kv, encode
+from ..parallel.multihost import rank, world_size
 from ..pipeline import WhisperPipeline
 from ..tokenizer import (BasicTextNormalizer, EnglishTextNormalizer,
                          WhisperTokenizer)
 from .common import (add_noise_at_snr, batched, load_dataset_any, logger,
-                     parse_args_with_json, setup_logging)
+                     parse_args_with_json, rank_suffix, setup_data_parallel,
+                     setup_logging, shard_rows, summed_word_errors)
 
 QUANTIZE_FLAGS = ("quantize_cross_kv", "quantize_encoder", "quantize_decoder",
                   "quantize_self_kv", "quantize_lm_head")
@@ -113,8 +118,9 @@ def parse_args(argv=None):
                    help="condition generation on this text via "
                         "<|startofprev|> prompt ids")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-GPU evaluation comes with a later slice; "
-                        "raises")
+                   help="one process a GPU under torchrun, each on its "
+                        "shard of the dataset, the error counts summed; "
+                        "fails fast unless the job has several ranks")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda or cpu)")
     return parse_args_with_json(p, argv)
@@ -131,12 +137,6 @@ def seq_options_from_args(args) -> SequentialOptions:
         condition_on_prev_tokens=args.condition_on_prev,
         max_new_tokens=args.max_new_tokens,
         num_beams=args.num_beams)
-
-
-def _refuse_unported(args) -> None:
-    if args.distributed:
-        raise NotImplementedError("multi-GPU evaluation comes with a later "
-                                  "slice of the port")
 
 
 def _speculation(args, dtype, device):
@@ -285,9 +285,10 @@ def _chunked(args, pipe, audios):
 
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
     setup_logging()
-    device = torch.device(args.device)
+    distributed = setup_data_parallel(args.distributed,
+                                      args.device) is not None
+    device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
 
     params, cfg = load_params(args.model_checkpoint, dtype=dtype,
@@ -311,9 +312,12 @@ def main(argv=None):
                   if args.language in (None, "en", "english")
                   else BasicTextNormalizer())
 
+    ds = load_dataset_any(args.dataset_path, args.split)
+    if distributed:
+        ds = shard_rows(ds, world_size(), rank())
     audios, texts = [], []
     noise_rng = np.random.default_rng(0)
-    for row in load_dataset_any(args.dataset_path, args.split):
+    for row in ds:
         a = load_audio(row["audio"], cfg.sampling_rate)
         if args.noise_snr_db is not None:
             a = add_noise_at_snr(a, args.noise_snr_db, noise_rng)
@@ -361,6 +365,9 @@ def main(argv=None):
     stats = (process_words([r for r, _ in pairs], [h for _, h in pairs])
              if pairs else WordErrors())
     rep5 = sum(count_repeated_ngrams(h, 5) for h in hyps_n)
+    if distributed:
+        # summed over the ranks' shards, every rank in the collective
+        stats, rep5 = summed_word_errors(stats, rep5)
     if stats.num_ref_words:
         result.update({
             "wer": round(100 * stats.wer, 4),
@@ -374,6 +381,9 @@ def main(argv=None):
     print(json.dumps(result))
     if args.output_json:
         out_path = Path(args.output_json)
+        # a file a rank: predictions are the rank's own
+        out_path = out_path.with_name(
+            f"{out_path.stem}{rank_suffix()}{out_path.suffix}")
         out_path.parent.mkdir(parents=True, exist_ok=True)
         with open(out_path, "w") as f:
             json.dump({**result, "predictions": hyps, "references": texts},

@@ -1,12 +1,16 @@
-"""Plain CE fine-tuning (no teacher), single process, one GPU.
+"""Plain CE fine-tuning (no teacher), on one GPU or data parallel over
+several (one process a GPU).
 
 The port of ``distil_whisper_tpu.cli.run_finetuning`` with its flags: the
 distillation trainer's skeleton with label-smoothed cross-entropy only, the
 same data order, step checkpoints and the final HF-format export.  Runs on
 the GPU unless ``--device cpu``.  ``--quantize_student`` trains through
-the int8 serving numerics (QAT, ``ops/qat.py``).  ``--distributed``,
-``--model_parallel`` > 1 and ``--param_sharding 2d`` raise, naming their
-ROADMAP.md item.
+the int8 serving numerics (QAT, ``ops/qat.py``).  ``--distributed`` (under
+``torchrun``) runs data parallel as ``run_distillation`` does: each rank
+prepares its contiguous shard and feeds ``--per_device_train_batch_size``
+rows a step, rank 0 writes, and the run ends with its last checkpoint for
+``convert_checkpoint_to_hf``.  ``--model_parallel`` > 1 and
+``--param_sharding 2d`` raise, naming their ROADMAP.md item.
 
     python -m distil_whisper_tpu_torch.cli.run_finetuning \\
         --model_checkpoint /ckpts/whisper-small \\
@@ -27,13 +31,14 @@ from ..models import load_params, save_pretrained
 from ..models.params import to_fp32
 from ..tokenizer import (BasicTextNormalizer, EnglishTextNormalizer,
                          WhisperTokenizer)
+from ..parallel.multihost import rank, world_size
 from ..training import (Collator, CheckpointManager, OptimizerConfig,
-                        TrainState, build_finetune_step)
+                        TrainState, build_finetune_step, place_state)
 from ..utils.profiling import MetricsLogger, StepTimer
 from .common import (copy_tokenizer_files, load_dataset_any, logger,
-                     setup_logging)
+                     setup_data_parallel, setup_logging, shard_rows)
 from .run_distillation import (Profiler, _prepare_samples, peak_memory,
-                               refuse_unported, to_device)
+                               refuse_unported, step_times, to_device)
 
 
 def main(argv=None):
@@ -79,7 +84,9 @@ def main(argv=None):
     p.add_argument("--profile_dir", default=None,
                    help="trace output dir (default <output_dir>/trace)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-GPU training comes with a later slice; raises")
+                   help="data-parallel training, one process a GPU under "
+                        "torchrun; fails fast unless the job has several "
+                        "ranks")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--param_sharding", default="1d", choices=["1d", "2d"])
@@ -88,7 +95,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     refuse_unported(args)
     setup_logging()
+    mesh = setup_data_parallel(args.distributed, args.device)
     device = resolve_device(args.device)
+    n_proc, rank_ = world_size(), rank()
     rng = np.random.default_rng(args.seed)
 
     params, cfg = load_params(args.model_checkpoint, device=device)
@@ -102,18 +111,22 @@ def main(argv=None):
         b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon,
         precision=args.precision,
         frozen_prefixes=("encoder",) if args.freeze_encoder else ())
-    state = TrainState.create(params, opt_cfg)
+    state = place_state(TrainState.create(params, opt_cfg), mesh)
     del params
     train_step, _ = build_finetune_step(
         cfg, opt_cfg, label_smoothing=args.label_smoothing,
         remat=args.gradient_checkpointing, freeze_encoder=args.freeze_encoder,
-        quantize_student=args.quantize_student)
+        quantize_student=args.quantize_student, mesh=mesh)
 
     ft_args = argparse.Namespace(**{**vars(args), "use_pseudo_labels": False,
                                     "wer_threshold": None,
                                     "timestamp_probability": 0.0,
                                     "condition_on_prev_probability": 0.0})
     train_ds = load_dataset_any(args.train_dataset_path, "train")
+    if n_proc > 1:
+        # shard BEFORE preparation: each rank pays the mel and filter cost
+        # of its own rows only (the loop cycles: unequal counts are fine)
+        train_ds = shard_rows(train_ds, n_proc, rank_)
     samples = _prepare_samples(train_ds, tok, cfg, ft_args, normalizer, rng,
                                device)
     # mask prompts with the tokenizer's SOT (see run_distillation)
@@ -161,8 +174,8 @@ def main(argv=None):
             metrics_log.log(step + 1, {
                 "train/loss": loss,
                 "train/steps_per_second": sps,
-                "train/step_time_s": timer.times[-1],
-                "train/label_tokens": int((raw["labels"] != -100).sum()),
+                **step_times(timer, train_step,
+                             int((raw["labels"] != -100).sum())),
                 **peak_memory(device)})
         if (step + 1) % args.save_steps == 0:
             mgr.save(step + 1, state)
@@ -172,6 +185,14 @@ def main(argv=None):
     if args.max_steps % args.save_steps != 0:
         mgr.save(args.max_steps, state)
     final_dir = Path(args.output_dir) / "end-of-training-weights"
+    if n_proc > 1:
+        ckpt_dir = Path(args.output_dir) / f"checkpoint-{args.max_steps}"
+        logger.info("multi-process run: convert the final checkpoint with "
+                    "python -m distil_whisper_tpu_torch.cli."
+                    "convert_checkpoint_to_hf --checkpoint_dir %s "
+                    "--base_checkpoint %s --save_dir %s --distributed",
+                    ckpt_dir, args.model_checkpoint, final_dir)
+        return str(ckpt_dir)
     save_pretrained(to_fp32(state.params), cfg, str(final_dir))
     copy_tokenizer_files(args.model_checkpoint, str(final_dir))
     logger.info("final weights exported to %s", final_dir)

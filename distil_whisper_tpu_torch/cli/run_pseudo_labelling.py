@@ -1,5 +1,5 @@
 """Pseudo-labelling: large-batch teacher transcription of a training corpus,
-on one GPU.
+on one GPU or several (one process a GPU).
 
 The port of ``distil_whisper_tpu.cli.run_pseudo_labelling`` with its flags
 and defaults: speaker-aware 30 s audio packing with ``condition_on_prev``
@@ -14,7 +14,13 @@ The corpus streams: rows are loaded and packed lazily, by a producer thread
 or by ``--featurizer_workers`` subprocesses, and each batch is uploaded as
 int16 PCM with its log-mel computed on the device (the mel kernel), while
 the main thread generates and writes.  Runs on the GPU unless ``--device
-cpu``; ``--distributed`` comes with multi-GPU and raises.
+cpu``.  ``--distributed`` (under ``torchrun``): labelling is embarrassingly
+parallel, so each rank labels a contiguous shard of the (speaker-sorted)
+corpus with its own replica and writes its own files,
+``transcriptions-{rank}.csv``, ``dataset-{rank}.jsonl``, ``audio-{rank}/``
+and ``pl_stats-{rank}.json``; only the WER counts are summed over the
+ranks.  ``load_dataset_any`` reads the output directory's per-rank
+manifests in rank order.
 
 The one difference of output from the JAX package: the labelled dataset is
 a JSONL manifest, ``<output_dir>/dataset.jsonl``, one row a packed sample
@@ -53,15 +59,16 @@ from ..generation.beam import encode_and_beam_search
 from ..metrics import WordErrors, process_words
 from ..models import load_params
 from ..ops.quant import maybe_quantize_encoder
+from ..parallel.multihost import rank, world_size
 from ..tokenizer import (BasicTextNormalizer, EnglishTextNormalizer,
                          WhisperTokenizer)
 from ..training.data import pack_samples_iter, prev_prompt_from_output
 from ..training.data_stream import Prefetcher
 from ..utils.publish import make_publisher
-from .common import (MULTI_GPU, load_dataset_any, logger, setup_logging,
-                     sort_rows)
+from .common import (load_dataset_any, logger, rank_suffix,
+                     setup_data_parallel, setup_logging, shard_rows,
+                     sort_rows, summed_word_errors)
 
-MANIFEST = "dataset.jsonl"
 QUANTIZE_FLAGS = ("quantize_cross_kv", "quantize_self_kv", "quantize_encoder",
                   "quantize_decoder", "quantize_lm_head")
 
@@ -105,7 +112,9 @@ def parse_args(argv=None):
                    help="int8 logits against an int8 copy of the tied "
                         "embedding")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-GPU labelling comes with a later slice; raises")
+                   help="one process a GPU under torchrun, each labelling "
+                        "its contiguous shard into per-rank files; fails "
+                        "fast unless the job has several ranks")
     p.add_argument("--publish_dir", default=None,
                    help="mirror artifacts (CSV flushes, the final dataset) "
                         "into this directory as the run progresses")
@@ -126,9 +135,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(f"--distributed {MULTI_GPU}")
     setup_logging()
+    distributed = setup_data_parallel(args.distributed,
+                                      args.device) is not None
+    host_shard = (rank(), world_size())
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     params, cfg = load_params(args.model_checkpoint, dtype=dtype,
@@ -146,6 +156,10 @@ def main(argv=None):
                             output_all_columns=True)
     if args.concatenate_audio and args.speaker_id_column_name:
         ds = sort_rows(ds, args.speaker_id_column_name)
+    if distributed:
+        # contiguous shards keep same-speaker runs (and condition-on-prev
+        # chains) within one rank
+        ds = shard_rows(ds, host_shard[1], host_shard[0])
 
     def raw_rows():
         for row in ds:
@@ -185,13 +199,14 @@ def main(argv=None):
                                    dtype=dtype, device=device)
 
     out_dir = Path(args.output_dir)
-    audio_dir = out_dir / "audio"
+    suffix = rank_suffix()
+    audio_dir = out_dir / f"audio{suffix}"
     audio_dir.mkdir(parents=True, exist_ok=True)
-    csv_path = out_dir / "transcriptions.csv"
+    csv_path = out_dir / f"transcriptions{suffix}.csv"
     csv_f = open(csv_path, "w", newline="")
     csv_w = csv.writer(csv_f)
     csv_w.writerow(["index", "whisper_transcript", "text"])
-    manifest_path = out_dir / MANIFEST
+    manifest_path = out_dir / f"dataset{suffix}.jsonl"
     manifest_f = open(manifest_path, "w")
     publisher = make_publisher(publish_dir=args.publish_dir,
                                push_to_hub=args.push_to_hub,
@@ -214,7 +229,7 @@ def main(argv=None):
                         concatenate=args.concatenate_audio,
                         sampling_rate=cfg.sampling_rate,
                         n_samples=cfg.n_samples, local_bsz=bsz,
-                        host_shard=(0, 1))
+                        host_shard=host_shard)
             for item in worker_feature_batches(spec, args.featurizer_workers):
                 n = item["n"]
                 group = [{
@@ -315,8 +330,11 @@ def main(argv=None):
     finally:
         csv_f.close()
         manifest_f.close()
+    if distributed and args.compute_wer:
+        # summed over the ranks' shards, every rank in the collective
+        wer_stats = summed_word_errors(wer_stats)
     rtfx = rated_audio_s / max(gen_seconds, 1e-9)
-    (out_dir / "pl_stats.json").write_text(json.dumps({
+    (out_dir / f"pl_stats{suffix}.json").write_text(json.dumps({
         "rows": n_samples, "batches": n_batches, "audio_s": audio_seconds,
         "generated_tokens": gen_tokens, "rtfx_steady_state": rtfx,
         "wer_counts": dataclasses.asdict(wer_stats)}))

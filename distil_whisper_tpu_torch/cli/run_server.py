@@ -25,7 +25,9 @@ greedy ones on the continuous scheduler.
     curl -s -X POST --data-binary @audio.wav \\
         'localhost:8000/v1/transcribe?language=en&timestamps=1&max_tokens=64'
 
-There is no device mesh: one GPU serves (multi-GPU is a later slice).
+There is no device mesh: one GPU serves (the pipeline's mesh, which
+shards the model over several GPUs, comes with the tensor-parallel slice,
+ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations

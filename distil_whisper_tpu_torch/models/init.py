@@ -90,3 +90,45 @@ def init_params(cfg: WhisperConfig, seed: int = 0, device="cuda",
             "ln": ln(),
         },
     }
+
+
+def _attn_axes():
+    kern = ("layers", "embed", "joined_kv")
+    bias = ("layers", "joined_kv")
+    return {"q": {"kernel": kern, "bias": bias}, "k": {"kernel": kern},
+            "v": {"kernel": kern, "bias": bias},
+            "out": {"kernel": ("layers", "joined_kv", "embed"),
+                    "bias": ("layers", "embed")}}
+
+
+def param_axes(cfg: WhisperConfig) -> Params:
+    """Tree of logical-axis tuples, the structure of :func:`init_params`
+    (the JAX package's table; ``parallel.mesh`` maps it onto mesh axes)."""
+    ln_l = {"scale": ("layers", "embed"), "bias": ("layers", "embed")}
+    ln_0 = {"scale": ("embed",), "bias": ("embed",)}
+    mlp_l = {
+        "fc1": {"kernel": ("layers", "embed", "mlp"),
+                "bias": ("layers", "mlp")},
+        "fc2": {"kernel": ("layers", "mlp", "embed"),
+                "bias": ("layers", "embed")},
+    }
+    return {
+        "encoder": {
+            "conv1": {"kernel": ("stack", "unmodeled", "embed"),
+                      "bias": ("embed",)},
+            "conv2": {"kernel": ("stack", "unmodeled", "embed"),
+                      "bias": ("embed",)},
+            "pos_emb": ("length", "embed"),
+            "layers": {"self_attn": _attn_axes(), "self_attn_ln": ln_l,
+                       "final_ln": ln_l, **mlp_l},
+            "ln_post": ln_0,
+        },
+        "decoder": {
+            "tok_emb": ("vocab", "embed"),
+            "pos_emb": ("length", "embed"),
+            "layers": {"self_attn": _attn_axes(), "self_attn_ln": ln_l,
+                       "cross_attn": _attn_axes(), "cross_attn_ln": ln_l,
+                       "final_ln": ln_l, **mlp_l},
+            "ln": ln_0,
+        },
+    }

@@ -17,12 +17,10 @@ import struct
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from ..config import WhisperConfig
 from ..device import resolve_device
-from .convert import params_from_numpy
 from .params import tree_paths, unflatten_paths
 
 Params = Dict[str, Any]
@@ -70,40 +68,44 @@ _TOP_MAP = [
 _SAFETENSORS_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16",
                       torch.float16: "F16"}
 _SAFETENSORS_DTYPES = {
-    "F64": np.float64, "F32": np.float32, "F16": np.float16,
-    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
-    "U8": np.uint8, "BOOL": np.bool_,
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
 }
 
 
-def read_safetensors(path: Path) -> Dict[str, np.ndarray]:
-    """All tensors of one ``.safetensors`` file as numpy arrays (BF16 is
-    widened to float32, which holds every bf16 value exactly)."""
+def read_safetensors(path: Path) -> Dict[str, torch.Tensor]:
+    """All tensors of one ``.safetensors`` file as CPU tensors in their
+    stored dtype (little-endian, as the format is): views of one buffer
+    read at once, a tensor whose offset does not align with its dtype
+    copied out."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = f.read()
-    out: Dict[str, np.ndarray] = {}
+        data = bytearray(path.stat().st_size - 8 - n)
+        f.readinto(data)
+    buf = torch.frombuffer(data, dtype=torch.uint8) if data else None
+    out: Dict[str, torch.Tensor] = {}
     for name, info in header.items():
         if name == "__metadata__":
             continue
-        begin, end = info["data_offsets"]
-        raw = data[begin:end]
-        if info["dtype"] == "BF16":
-            bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
-            arr = bits.view(np.float32)
-        elif info["dtype"] in _SAFETENSORS_DTYPES:
-            arr = np.frombuffer(raw, np.dtype(_SAFETENSORS_DTYPES[info["dtype"]])
-                                .newbyteorder("<"))
-        else:
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
             raise ValueError(f"{path}: unsupported safetensors dtype "
                              f"{info['dtype']} for {name}")
-        out[name] = arr.reshape(info["shape"])
+        begin, end = info["data_offsets"]
+        raw = (buf[begin:end] if end > begin
+               else torch.empty(0, dtype=torch.uint8))
+        if begin % torch.empty((), dtype=dtype).element_size():
+            raw = raw.clone()
+        out[name] = raw.view(dtype).reshape(info["shape"])
     return out
 
 
-def _read_state_dict(path: Path) -> Dict[str, np.ndarray]:
-    """Read all tensors from a local HF checkpoint dir as numpy arrays."""
+def _read_state_dict(path: Path) -> Dict[str, torch.Tensor]:
+    """Read all tensors from a local HF checkpoint dir (CPU, stored
+    dtypes)."""
     single = path / "model.safetensors"
     index = path / "model.safetensors.index.json"
     if single.exists():
@@ -111,33 +113,35 @@ def _read_state_dict(path: Path) -> Dict[str, np.ndarray]:
     if index.exists():
         with open(index) as f:
             shard_names = sorted(set(json.load(f)["weight_map"].values()))
-        out: Dict[str, np.ndarray] = {}
+        out: Dict[str, torch.Tensor] = {}
         for name in shard_names:
             out.update(read_safetensors(path / name))
         return out
     torch_bin = path / "pytorch_model.bin"
     if torch_bin.exists():
-        sd = torch.load(str(torch_bin), map_location="cpu", weights_only=True)
-        return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
-                for k, v in sd.items()}
+        return torch.load(str(torch_bin), map_location="cpu",
+                          weights_only=True)
     raise FileNotFoundError(f"no model.safetensors / pytorch_model.bin in {path}")
 
 
-def params_from_state_dict(sd: Dict[str, np.ndarray], cfg: WhisperConfig,
+def params_from_state_dict(sd: Dict[str, Any], cfg: WhisperConfig,
                            device="cpu",
                            dtype: torch.dtype = torch.float32) -> Params:
-    """HF state dict (numpy) -> stacked param tree of tensors on ``device``."""
-    flat: Dict[str, np.ndarray] = {}
-    sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    """HF state dict (tensors or numpy arrays) -> stacked param tree of
+    tensors on ``device``: floating leaves moved in their stored dtype and
+    cast to ``dtype`` there (a bf16 checkpoint crosses to the card in half
+    the bytes of fp32; the values are the same as casting first)."""
+    flat: Dict[str, torch.Tensor] = {}
+    sd = {k.removeprefix("model."): torch.as_tensor(v) for k, v in sd.items()}
     for hf, ours in _TOP_MAP:
         hf = hf.removeprefix("model.")
         if hf in sd:
-            flat[ours] = np.asarray(sd[hf])
+            flat[ours] = sd[hf]
     # conv stem: HF (out, in, k) -> (k, in, out)
     for name in ("conv1", "conv2"):
-        flat[f"encoder.{name}.kernel"] = np.asarray(
-            sd[f"encoder.{name}.weight"]).transpose(2, 1, 0)
-        flat[f"encoder.{name}.bias"] = np.asarray(sd[f"encoder.{name}.bias"])
+        flat[f"encoder.{name}.kernel"] = sd[f"encoder.{name}.weight"].permute(
+            2, 1, 0)
+        flat[f"encoder.{name}.bias"] = sd[f"encoder.{name}.bias"]
     for side, n_layers in (("encoder", cfg.encoder_layers),
                            ("decoder", cfg.decoder_layers)):
         for hf_tail, our_tail, transpose in _LAYER_MAP:
@@ -146,10 +150,13 @@ def params_from_state_dict(sd: Dict[str, np.ndarray], cfg: WhisperConfig,
             keys = [f"{side}.layers.{i}.{hf_tail}" for i in range(n_layers)]
             if not all(k in sd for k in keys):
                 continue
-            per_layer = [np.asarray(sd[k]) for k in keys]
-            flat[f"{side}.layers.{our_tail}"] = np.stack(
-                [w.T if transpose else w for w in per_layer])
-    return params_from_numpy(unflatten_paths(flat), device, dtype)
+            flat[f"{side}.layers.{our_tail}"] = torch.stack(
+                [sd[k].T if transpose else sd[k] for k in keys])
+    out = {}
+    for path, t in flat.items():
+        t = t.contiguous().to(device)
+        out[path] = t.to(dtype) if t.is_floating_point() else t
+    return unflatten_paths(out)
 
 
 def load_params(checkpoint_dir: str, cfg: Optional[WhisperConfig] = None,

@@ -120,10 +120,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     strides = [s for x in (q, k, v, out) for s in _tma_geometry(x)[1]]
     scale_log2 = d ** -0.5 * math.log2(math.e)
-    err = _lib().dw_encoder_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t,
-        t_real, scale_log2, *strides,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # the .so launches on the CUDA runtime's current card
+    with torch.cuda.device(q.device):
+        err = _lib().dw_encoder_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t,
+            t_real, scale_log2, *strides,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder attention kernel launch failed "
                            f"(cudaError {err})")

@@ -177,11 +177,14 @@ def int8_decode_attention(q: torch.Tensor, kq: torch.Tensor,
         mask_ptr = mask.data_ptr()
         mask_bstride = t if mask.shape[0] == b and b > 1 else 0
     out = torch.empty_like(q)
-    err = _lib().dw_int8_decode_attention(
-        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), int(k_per_head), int(v_per_head), mask_ptr,
-        mask_bstride, out.data_ptr(), b, n_heads, t, 64 ** -0.5,
-        *_cluster_split(t), torch.cuda.current_stream(q.device).cuda_stream)
+    # the .so launches on the CUDA runtime's current card
+    with torch.cuda.device(q.device):
+        err = _lib().dw_int8_decode_attention(
+            q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
+            vs.data_ptr(), int(k_per_head), int(v_per_head), mask_ptr,
+            mask_bstride, out.data_ptr(), b, n_heads, t, 64 ** -0.5,
+            *_cluster_split(t),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 decode attention kernel launch failed "
                            f"(cudaError {err})")

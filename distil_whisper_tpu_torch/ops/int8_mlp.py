@@ -197,13 +197,15 @@ def fused_int8_mlp(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     clusters = [tile_grid(m, n, p, n_sm)[0]
                 for p, n in (("fc1", f), ("fc2", d))]
-    err = _lib().dw_int8_mlp(
-        xm.data_ptr(), w1q.data_ptr(), w1s.data_ptr(), b1.data_ptr(),
-        w2q.data_ptr(), w2s.data_ptr(), b2.data_ptr(),
-        xq.data_ptr(), xs.data_ptr(), hq.data_ptr(), hs.data_ptr(),
-        out.data_ptr(), m, d, f,
-        *(geo[k][1] for k in ("x", "w1q", "w2q", "xq", "hq")), *clusters,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # the .so launches on the CUDA runtime's current card
+    with torch.cuda.device(x.device):
+        err = _lib().dw_int8_mlp(
+            xm.data_ptr(), w1q.data_ptr(), w1s.data_ptr(), b1.data_ptr(),
+            w2q.data_ptr(), w2s.data_ptr(), b2.data_ptr(),
+            xq.data_ptr(), xs.data_ptr(), hq.data_ptr(), hs.data_ptr(),
+            out.data_ptr(), m, d, f,
+            *(geo[k][1] for k in ("x", "w1q", "w2q", "xq", "hq")), *clusters,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 MLP kernel launch failed (cudaError {err})")
     _build.count_launch(fused_int8_mlp)

@@ -1,0 +1,11 @@
+"""Data-parallel multi-GPU: process groups, the device mesh and its rules,
+host-side collectives, and a multi-process dry run (``parallel.dryrun``)."""
+
+from .mesh import (  # noqa: F401
+    DEFAULT_RULES, RULES_2D, make_mesh, spec_for_axes, shardings_for_tree,
+    shard_params, shard_batch, data_sharding, replicated,
+)
+from .multihost import (  # noqa: F401
+    maybe_initialize_distributed, host_local_batch_to_global,
+    process_local_slice, gather_rows, global_row_positions,
+)

@@ -13,7 +13,7 @@ _EXPORTS = {
     "losses": ("cross_entropy", "kl_divergence", "hidden_state_mse",
                "get_layers_to_supervise", "chunked_ce_kl", "token_mask",
                "LABEL_PAD"),
-    "state": ("TrainState", "OptimizerConfig", "make_schedule"),
+    "state": ("TrainState", "OptimizerConfig", "make_schedule", "place_state"),
     "distill": ("DistillConfig", "build_train_step", "build_finetune_step",
                 "optax_global_norm"),
     "student": ("init_student_from_teacher", "student_layer_map"),

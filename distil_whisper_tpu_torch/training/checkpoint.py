@@ -10,6 +10,11 @@ train state's tensors (params, AdamW moments, the accumulated gradient) and
 counters, written with ``torch.save``.  ``restore`` copies them into a
 template state of the same layout, dtype for dtype, so a resumed run
 continues bit for bit.
+
+Data parallel: the replicas are bit-identical, so rank 0 alone writes,
+clears and rotates, and every rank waits at a barrier until the checkpoint
+is complete (a shared filesystem sees one writer); every rank restores the
+same file.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..parallel.multihost import barrier, rank
 from .state import TrainState
 
 CKPT_PATTERN = re.compile(r"^checkpoint-(\d+)$")
@@ -49,17 +55,21 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState,
              metadata: Optional[dict] = None) -> str:
         path = self.dir / f"checkpoint-{step}"
-        self._write(path, state)
-        if metadata is not None:
-            with open(path / "meta.json", "w") as f:
-                json.dump({"step": step, **metadata}, f)
-        self._rotate()
+        if rank() == 0:
+            self._write(path, state)
+            if metadata is not None:
+                with open(path / "meta.json", "w") as f:
+                    json.dump({"step": step, **metadata}, f)
+            self._rotate()
+        barrier()
         return str(path)
 
     def save_best(self, step: int, state: TrainState, val_wer: float) -> str:
         path = self.dir / f"checkpoint-{step}-val-wer-{val_wer:.3f}"
-        self._write(path, state)
-        self._rotate_best()
+        if rank() == 0:
+            self._write(path, state)
+            self._rotate_best()
+        barrier()
         return str(path)
 
     # ------------------------------------------------------------------

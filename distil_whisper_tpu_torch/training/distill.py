@@ -11,6 +11,17 @@ teacher's width and mel bins, the window is encoded once, by the teacher,
 and both decoders read the same encoder states.  The chunked CE+KL
 (``loss_chunk_size``) applies only there, without the hidden-state MSE.
 Every term is normalised by the batch's token count, ``max(n, 1)``.
+
+Data parallel (a ``mesh`` from ``parallel.make_mesh`` with more than one
+rank on 'data'): each rank computes its rows' loss sums, divided by the
+GLOBAL token count (the ranks' counts all-reduced first), so the sum over
+ranks of the local gradients is the gradient of the global batch's loss,
+which JAX's sharded step computes.  The gradients are summed over the
+ranks in a few large fp32 buckets (``None`` leaves stay ``None``: which
+leaves the loss reaches does not depend on the data), the global norm is
+taken after the sum, and the loss metrics are summed for logging, so every
+rank holds the same state and the same metrics.  Ranks holding different
+token counts are why the per-rank means are not simply averaged.
 """
 
 from __future__ import annotations
@@ -24,6 +35,9 @@ from ..config import WhisperConfig
 from ..models.params import tree_paths
 from ..models.whisper import decode, encode, forward
 from ..ops.qat import fake_quant_student_params
+from ..parallel.mesh import data_group
+from ..parallel.multihost import all_reduce_sum
+from ..utils.profiling import StepTimer
 from .losses import (chunked_ce_kl, cross_entropy, get_layers_to_supervise,
                      hidden_state_mse, kl_divergence)
 from .state import OptimizerConfig, TrainState, global_norm
@@ -58,10 +72,48 @@ def gradients(loss: torch.Tensor, state: TrainState
     return dict(zip(leaves, grads))
 
 
+class DataParallel:
+    """The sums a data-parallel step takes over the mesh's 'data' axis;
+    each is the identity without data parallelism.  ``timer`` holds the
+    device time of each step's gradient reduction."""
+
+    def __init__(self, mesh=None):
+        self.group = data_group(mesh)
+        self.timer: Optional[StepTimer] = None
+
+    def count(self, n: torch.Tensor) -> torch.Tensor:
+        """The global token count of a local one."""
+        if self.group is None:
+            return n
+        return all_reduce_sum([n], self.group)[0].to(n.dtype)
+
+    def metrics(self, metrics: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Loss terms of the local rows (local sums over the global
+        count) summed into the global batch's."""
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.group is None:
+            return metrics
+        summed = all_reduce_sum(list(metrics.values()), self.group)
+        return {k: s.to(v.dtype) for (k, v), s in zip(metrics.items(), summed)}
+
+    def gradients(self, grads: Dict[str, Optional[torch.Tensor]]
+                  ) -> Dict[str, Optional[torch.Tensor]]:
+        """Gradients summed over the ranks (fp32)."""
+        if self.group is None:
+            return grads
+        live = [p for p, g in grads.items() if g is not None]
+        if self.timer is None:
+            self.timer = StepTimer(grads[live[0]].device if live else "cpu")
+        with self.timer:
+            summed = all_reduce_sum([grads[p] for p in live], self.group)
+        return {**grads, **dict(zip(live, summed))}
+
+
 def _step(state: TrainState, loss: torch.Tensor, metrics: Dict,
-          grad_norm: bool = True):
-    grads = gradients(loss, state)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+          dp: DataParallel, grad_norm: bool = True):
+    grads = dp.gradients(gradients(loss, state))
+    metrics = dp.metrics(metrics)
     if grad_norm:
         metrics["grad_norm"] = global_norm(grads)
     state.apply_gradients(grads)
@@ -69,15 +121,20 @@ def _step(state: TrainState, loss: torch.Tensor, metrics: Dict,
 
 
 def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
-                     dcfg: DistillConfig, opt_cfg: OptimizerConfig):
+                     dcfg: DistillConfig, opt_cfg: OptimizerConfig, mesh=None):
     """Returns ``train_step(state, teacher_params, batch, generator=None)
     -> (state, metrics)`` and ``eval_step(params, teacher_params, batch)
-    -> metrics``.
+    -> metrics``; ``train_step.data_parallel`` is the step's
+    :class:`DataParallel`.
 
     batch: input_features [B, M, 3000], decoder_input_ids [B, S], labels
     [B, S] (-100 on prompt/pad), decoder_attention_mask [B, S] optional, all
-    tensors on the device.  ``generator`` turns on the student's dropout."""
+    tensors on the device; under data parallelism, this rank's rows (every
+    rank calls each step, and each eval step, alike).  ``generator`` turns
+    on the student's dropout (one seeded with (seed, rank) under data
+    parallelism: ``parallel.multihost.rank_generator``)."""
     dtype = opt_cfg.compute_dtype
+    dp = DataParallel(mesh)
     share = dcfg.share_encoder and dcfg.freeze_encoder and (
         student_cfg.d_model == teacher_cfg.d_model
         and student_cfg.num_mel_bins == teacher_cfg.num_mel_bins)
@@ -87,7 +144,7 @@ def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
     chunked = dcfg.loss_chunk_size > 0 and share and not use_mse
 
     def weighted(ce_sum, kl_sum, n_tok):
-        n_tok = torch.clamp(n_tok, min=1.0)
+        n_tok = torch.clamp(dp.count(n_tok), min=1.0)
         ce, kl = ce_sum / n_tok, kl_sum / n_tok
         loss = dcfg.ce_weight * ce + dcfg.kl_weight * kl
         return loss, {"ce_loss": ce, "kl_loss": kl}
@@ -148,7 +205,7 @@ def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
         loss, metrics = weighted(ce_sum, kl_sum, n_tok)
         if use_mse:
             mse_sum, mse_n = hidden_state_mse(t_hs, s_hs, layer_map, labels)
-            mse = mse_sum / torch.clamp(mse_n, min=1.0)
+            mse = mse_sum / torch.clamp(dp.count(mse_n), min=1.0)
             loss = loss + dcfg.mse_weight * mse
             metrics["mse_loss"] = mse
         metrics["loss"] = loss
@@ -159,26 +216,29 @@ def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
                    generator: Optional[torch.Generator] = None):
         loss, metrics = compute_losses(state.params, teacher_params, batch,
                                        generator)
-        return _step(state, loss, metrics)
+        return _step(state, loss, metrics, dp)
 
     @torch.no_grad()
     def eval_step(params: Params, teacher_params: Params,
                   batch: Dict[str, torch.Tensor]):
-        return compute_losses(params, teacher_params, batch)[1]
+        return dp.metrics(compute_losses(params, teacher_params, batch)[1])
 
+    train_step.data_parallel = dp
     return train_step, eval_step
 
 
 def build_finetune_step(cfg: WhisperConfig, opt_cfg: OptimizerConfig,
                         label_smoothing: float = 0.0, remat: bool = False,
                         freeze_encoder: bool = False,
-                        quantize_student: str = "none"):
+                        quantize_student: str = "none", mesh=None):
     """Plain CE fine-tuning: ``train_step(state, batch, generator=None) ->
-    (state, metrics)`` and ``eval_step(params, batch) -> metrics``.
+    (state, metrics)`` and ``eval_step(params, batch) -> metrics``, data
+    parallel over ``mesh`` as :func:`build_train_step`.
 
     ``quantize_student`` ('none' | 'weights' | 'w8a8'): QAT (ops/qat.py) of
     the decoder, and of the encoder too unless it is frozen."""
     dtype = opt_cfg.compute_dtype
+    dp = DataParallel(mesh)
 
     def loss_fn(params, batch, generator=None):
         if quantize_student != "none":
@@ -192,18 +252,19 @@ def build_finetune_step(cfg: WhisperConfig, opt_cfg: OptimizerConfig,
                             freeze_encoder=freeze_encoder,
                             generator=generator)
         ce_sum, n_tok = cross_entropy(logits, batch["labels"], label_smoothing)
-        loss = ce_sum / torch.clamp(n_tok, min=1.0)
+        loss = ce_sum / torch.clamp(dp.count(n_tok), min=1.0)
         return loss, {"loss": loss}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
         loss, metrics = loss_fn(state.params, batch, generator)
-        return _step(state, loss, metrics, grad_norm=False)
+        return _step(state, loss, metrics, dp, grad_norm=False)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        return loss_fn(params, batch)[1]
+        return dp.metrics(loss_fn(params, batch)[1])
 
+    train_step.data_parallel = dp
     return train_step, eval_step
 
 

@@ -37,6 +37,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..models.params import tree_paths, unflatten_paths
+from ..parallel.mesh import shard_params
 
 Params = Any
 
@@ -230,3 +231,14 @@ class TrainState:
         device = next(iter(self.leaves().values())).device
         self.acc = {p: a.to(device) for p, a in sd["acc"].items()}
         return self
+
+
+def place_state(state: TrainState, mesh=None) -> TrainState:
+    """JAX ``place_state``'s counterpart under data parallelism: params,
+    AdamW moments and the accumulated gradient replicated, overwritten in
+    place with the first data rank's values (after a resume too, so every
+    replica continues from bit-identical state).  No-op without data
+    parallelism."""
+    shard_params({"params": state.params, "mu": state.mu, "nu": state.nu,
+                  "acc": state.acc}, mesh)
+    return state

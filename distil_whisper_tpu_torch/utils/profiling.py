@@ -147,12 +147,17 @@ class MetricsLogger:
     (the file ``path``), ``stdout``, ``tensorboard`` and ``wandb`` where
     they can be imported (an unavailable sink is skipped with a warning,
     never an error).  Values are converted to floats where they can be
-    (a 0-dim tensor waits for the device here)."""
+    (a 0-dim tensor waits for the device here).  Data parallel: only rank
+    0 writes; every rank logs the same global values, and appends from
+    several processes to one file would interleave."""
 
     def __init__(self, path: str, report_to: tuple = ("jsonl",),
                  tensorboard_dir: Optional[str] = None,
                  run_name: Optional[str] = None):
+        from ..parallel.multihost import rank
         self.sinks: List[Any] = []
+        if rank() != 0:
+            return
         for kind in report_to:
             try:
                 if kind == "jsonl":

@@ -4,7 +4,8 @@ files and the tiny checkpoint: ``--mode short``, ``chunked`` and
 speculative`` (draft and n-gram) gives the hypotheses of the JAX CLI's
 short mode, and the speculation flags of the sequential and chunked modes
 leave their hypotheses as they were.  Also: the copied normalizers and WER equal the
-JAX package's, and JAX's argument errors and ``--distributed`` raise."""
+JAX package's, JAX's argument errors raise, and ``--distributed`` fails
+fast without a multi-GPU job."""
 
 import json
 import logging
@@ -99,14 +100,15 @@ def test_long_form_cli_defaults_to_chunked(setup):
 
 
 def test_unported_modes_raise(setup):
-    """Speculation is ported now: ``--distributed`` still raises, and so do
-    JAX's argument errors (the n-gram method with a draft checkpoint, the
+    """Speculation and ``--distributed`` are ported now: ``--distributed``
+    without a multi-GPU job fails fast (as JAX's), and JAX's argument
+    errors raise (the n-gram method with a draft checkpoint, the
     speculative mode's draft method without one) and the speculative mode
     with beam search."""
     ck, data, _, _ = setup
     base = ["--model_checkpoint", ck, "--dataset_path", data["short"],
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no multi-GPU job"):
         run_eval.main(base + ["--distributed"])
     for extra in (["--mode", "speculative"],
                   ["--mode", "sequential", "--speculative_method", "ngram",

@@ -166,6 +166,32 @@ def test_recipe_modules_are_checked(tmp_path):
                                        "--save_dir", ck])
 
 
+# data-parallel multi-GPU: process groups, the mesh and its rules, the
+# dry run
+PARALLEL_MODULES = (
+    "distil_whisper_tpu_torch.parallel",
+    "distil_whisper_tpu_torch.parallel.mesh",
+    "distil_whisper_tpu_torch.parallel.multihost",
+    "distil_whisper_tpu_torch.parallel.dryrun",
+)
+
+
+def test_parallel_modules_are_checked():
+    """The parallel package is among the modules the import checks scan
+    (no jax, nothing of the JAX package), and importing it loads neither
+    the model nor a kernel module."""
+    assert set(PARALLEL_MODULES) <= {name for _, name in _modules()}
+    code = ("import sys\n"
+            "import distil_whisper_tpu_torch.parallel.dryrun\n"
+            "heavy = [m for m in sys.modules if m.startswith("
+            "('distil_whisper_tpu_torch.models', "
+            "'distil_whisper_tpu_torch.ops', 'jax'))]\n"
+            "print('HEAVY', heavy)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "HEAVY []", (out.stdout, out.stderr[-2000:])
+
+
 def _code_strings(tree):
     """String constants of a module that are not docstrings."""
     docstrings = set()

@@ -170,6 +170,26 @@ def test_load_params_matches_jax_leaf_for_leaf(tmp_path):
     np_tree_equal(tp, to_numpy_tree(jp))
 
 
+def test_load_params_of_a_bf16_checkpoint_matches_jax(tmp_path):
+    """A checkpoint stored in bf16 (as the smoke's teacher is): the port
+    reads it in its stored dtype and casts on the device; loaded as fp32
+    and as bf16 it equals JAX's loader leaf for leaf."""
+    from helpers import make_tiny_checkpoint
+    from distil_whisper_tpu_torch.models import save_pretrained
+    tp, cfg = load_params(make_tiny_checkpoint(tmp_path / "tiny"),
+                          device="cpu")
+    ck = str(tmp_path / "bf16")
+    save_pretrained(tp, cfg, ck, dtype=torch.bfloat16)
+    jp, _ = j_load_params(ck)
+    np_tree_equal(load_params(ck, device="cpu")[0], to_numpy_tree(jp))
+    ours16 = load_params(ck, device="cpu", dtype=torch.bfloat16)[0]
+    for p, x in tree_paths(ours16).items():
+        assert x.dtype == torch.bfloat16, p
+        np.testing.assert_array_equal(
+            x.float().numpy(), np.asarray(tree_paths(to_numpy_tree(jp))[p],
+                                          np.float32), p)
+
+
 # ----------------------------------------------------------------------
 # The training forward
 # ----------------------------------------------------------------------

@@ -222,8 +222,11 @@ OTHER_CLIS = {
     (["run_pseudo_labelling", "--distributed"], "multi-GPU"),
     (["convert_checkpoint_to_hf", "--distributed"], "multi-GPU")])
 def test_unported_flags_raise_naming_their_item(flags, item):
-    """Only the multi-GPU flags still raise, naming their ROADMAP.md item:
-    in both trainers, and in the CLI a case names first."""
+    """Only the flags of the next multi-GPU slice (``--model_parallel`` >
+    1, ``--param_sharding 2d``) still raise NotImplementedError, naming
+    their ROADMAP.md item; ``--distributed`` is ported and, with no
+    multi-GPU job to join, fails fast with RuntimeError: in both trainers,
+    and in the CLI a case names first."""
     import importlib
     from distil_whisper_tpu_torch.cli import run_distillation, run_finetuning
     common = ["--device", "cpu"]
@@ -239,8 +242,9 @@ def test_unported_flags_raise_naming_their_item(flags, item):
                  (run_finetuning.main,
                   ["--model_checkpoint", "m", "--train_dataset_path", "d",
                    "--output_dir", "unused"] + flags)]
+    error = RuntimeError if "--distributed" in flags else NotImplementedError
     for fn, argv in calls:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=item):
             fn(argv + common)
 
 
