@@ -13,11 +13,12 @@
    replay of a CUDA graph of 20 calls, since at tens of microseconds the
    host's launch work would be timed).  Encoder attention is held and
    timed both contiguous and as the main path's [B, H, T, 64] views of
-   [B, T, 1280] projections, and held on ragged shapes (T 1536 with 1500
-   live keys; B 3, H 5, T 200, 77 live keys); the int8 MLP also at one
-   window (1500 rows) and at the gate's 300 rows; decode attention also at
-   T 32 and 8192 and with one mask row for the batch.  Each row carries
-   its source's ptxas report.
+   [B, T, 1280] projections, held as the tensor-parallel path's views of
+   [B, T, 640] and [B, T, 320] projections, and on ragged shapes (T 1536
+   with 1500 live keys; B 3, H 5, T 200, 77 live keys); the int8 MLP also
+   at one window (1500 rows) and at the gate's 300 rows; decode attention
+   also at T 32 and 8192 and with one mask row for the batch.  Each row
+   carries its source's ptxas report.
 3. Drives the main path at the full width of distil-large-v3 (random weights
    from a seed, bf16): a ``WhisperPipeline`` transcribes a batch of 16
    synthetic 30 s windows short-form (greedy, 128-token budget), again for
@@ -46,7 +47,8 @@
    flight, every sampled request reproduced under its seed; the same on
    the int8 flags (int8 MLP 32 an encode); an HTTP drive over loopback
    (healthz, POST, stream=1, /v1/stats); the engine step loop's device
-   idle share and host syncs a block.
+   idle share and host syncs a block; the near-tie report of every
+   greedy request whose text parts from the pipeline's.
 7. Drives speculative decoding (``speculative_path``) with large-v3 at full
    width as the teacher (32 + 32 layers, random bf16 weights from seed 0)
    and distil-large-v3's 2-layer decoder as its draft (seed 1, on the
@@ -54,7 +56,7 @@
    speculation through ``WhisperPipeline`` on the 16 windows (launches
    log-mel 1, encoder attention 32), then the decode loops alone: the
    draft (rounds, acceptance, the share of tokens equal to greedy's in
-   bf16), ``synthetic_acceptance`` 0.8 against the prefix law and n-gram
+   bf16, the near-tie report of the rows that part), ``synthetic_acceptance`` 0.8 against the prefix law and n-gram
    lookup with ``synthetic_period`` 16 (both synthetic tokens), and the
    sequential t = 0 rung with the draft on 4 long files against the plain
    rung; then the continuous engine serving large-v3 (16 requests, 64-token
@@ -116,7 +118,22 @@
    pseudo-labels equal to one rank's, ``dryrun_multigpu`` on the card.
    Ranks print world size and backend, per-rank step and all-reduce times,
    and summed eval and pseudo-labelling rates in the phase line.
-12. Prints the kernels line (launches from the int8 path's short-form run,
+12. Drives tensor parallelism (``tensor_parallel_path``, after
+   ``multigpu_path``) over ``max(2, cards)`` spawned ranks on a
+   ``(ranks / 2, 2)`` mesh (two ranks sharing one card over gloo; on four
+   cards a (2, 2) mesh over NCCL, plus tp 4): the bf16, fp32 and int8
+   distil-large-v3 pipelines with ``mesh=`` on 4 windows against one
+   rank's (launches a rank: log-mel 1, encoder attention 32, the int8 MLP
+   32 in its partial mode; texts equal, each parting with its near-tie
+   report against the drift of one rank's other numerics (its cached
+   step over its einsum encoder's states); the sharded encode against
+   one rank's, relative L2, under ``TP_ENCODE_REL_L2``; encode and
+   all-reduce times), the partial mode against its plain version bit for
+   bit and summed against the unsharded kernel,
+   ``run_distillation --distributed --model_parallel 2`` (step-1 loss
+   against one process), the small fp32 model's greedy and n-gram tokens
+   equal one rank's, ``dryrun_multigpu(world, model_parallel=2)``.
+13. Prints the kernels line (launches from the int8 path's short-form run,
    and per path in ``launches_by_path``), the card's name and power limit,
    and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -253,6 +270,190 @@ def synthetic_audio(n: int, seconds: float, seed: int):
     return clips
 
 
+# Where two greedy decodes of the same windows part, and whether the
+# reference step there was a near-tie.  Two decodes of one model that round
+# differently (bf16 at other batch sizes, the einsum verify window against
+# the single-token step, a tensor-parallel sum against one product) may
+# choose different tokens only where the reference's top two logits are
+# about equal.  For each row whose tokens part from the reference row,
+# near_tie_report finds the first differing position and the gap between
+# the top two logits of the reference step that chose the token there (a
+# teacher-forced pass of the reference tokens), and calls the parting a
+# near-tie when the gap is under NEAR_TIE (the int8 tests' 5e-3).  Its
+# yardstick of rounding (``drift_logits``) is a second numerics of the
+# *reference* model that varies what the decode under test varies (the
+# decoder's path, the encoder's), never the decode under test itself
+# (whose drift grows with any fault of its own): the largest difference
+# of its logits from the teacher-forced pass there is ``logit_drift``, and
+# a parting whose gap is under it is explained by rounding; one above it
+# points at a fault of the decode that parted.
+NEAR_TIE = 5e-3
+
+
+def first_parting(ref, test, start=0):
+    """The first position >= ``start`` where the rows differ (a row that
+    ends first differs where it ends), or -1 where they are equal."""
+    n = min(len(ref), len(test))
+    for j in range(start, n):
+        if ref[j] != test[j]:
+            return j
+    return -1 if len(ref) == len(test) else n
+
+
+def near_tie_report(dec_params, cfg, cross, ref_rows, test_rows, prompt_len,
+                    dtype=None, tol=NEAR_TIE, drift_logits=None,
+                    test_logits=None):
+    """The parting rows of ``test_rows`` against ``ref_rows`` (token lists
+    that start with a prompt of ``prompt_len``; row ``b`` decoded from
+    the windows whose cross K/V are ``cross``'s row ``b``), each with its
+    first differing position, both tokens, and the top-two gap of the
+    reference's logits there (``dec_params``, a teacher-forced pass).
+    ``all_near_ties`` is true when every parting is under ``tol``
+    (vacuously when no row parts).  ``drift_logits(b, prefix)``: the
+    reference model's fp32 logits [V] after the token list ``prefix`` of
+    row ``b`` by another path (``cached_step_logits``); each parting then
+    carries ``logit_drift`` and ``within_drift`` (its gap under the drift),
+    summed up in ``all_within_drift``.  ``test_logits``, the same for the
+    decode under test, adds its distance from the reference there
+    (``test_drift``) and its own top-two gap for the two tokens
+    (``test_top2_gap``).  Every rank of a model group must call it alike
+    when either decode is sharded."""
+    import torch
+    from distil_whisper_tpu_torch.models.whisper import decode
+    dtype = torch.float32 if dtype is None else dtype
+    parts = []
+    for b, (r, t) in enumerate(zip(ref_rows, test_rows)):
+        j = first_parting(r, t, prompt_len)
+        if 0 < j < len(r):
+            parts.append((b, j))
+    rows = []
+    with torch.no_grad():
+        if parts:
+            idx = torch.tensor([b for b, _ in parts])
+            width = max(j for _, j in parts)
+            device = next(iter(cross.values())).device
+            # the reference up to each parting (causal: what follows it
+            # changes nothing there), padded
+            tokens = torch.tensor([ref_rows[b][:j] + [0] * (width - j)
+                                   for b, j in parts], device=device)
+            sub = {k: v[:, idx.to(v.device)] for k, v in cross.items()}
+            logits, _ = decode(dec_params, cfg, tokens, cross=sub,
+                               dtype=dtype)
+        for k, (b, j) in enumerate(parts):
+            ref_logits = logits[k, j - 1].float()
+            top = torch.topk(ref_logits, 2).values
+            gap = float(top[0] - top[1])
+            row = {"row": b, "position": j, "ref_token": int(ref_rows[b][j]),
+                   "test_token": (int(test_rows[b][j])
+                                  if j < len(test_rows[b]) else None),
+                   "top2_gap": gap, "near_tie": gap < tol}
+            prefix = ref_rows[b][:j]
+            if drift_logits is not None:
+                other = drift_logits(b, prefix).float().to(ref_logits.device)
+                row["logit_drift"] = float((other - ref_logits).abs().max())
+                row["within_drift"] = gap <= row["logit_drift"]
+            if test_logits is not None:
+                other = test_logits(b, prefix).float().to(ref_logits.device)
+                row["test_drift"] = float((other - ref_logits).abs().max())
+                if row["test_token"] is not None:
+                    row["test_top2_gap"] = float(other[row["ref_token"]]
+                                                 - other[row["test_token"]])
+            rows.append(row)
+    out = {"rows": len(ref_rows), "parting": len(rows), "tol": tol,
+           "all_near_ties": all(r["near_tie"] for r in rows),
+           "partings": rows}
+    if drift_logits is not None:
+        out["all_within_drift"] = all(r["within_drift"] for r in rows)
+    return out
+
+
+def teacher_forced_logits(dec_params, cfg, cross, dtype=None):
+    """Logits for :func:`near_tie_report` by the reference's own path (a
+    teacher-forced pass) over other parameters or cross K/V: another
+    tensor-parallel layout, another batch composition."""
+    import torch
+    from distil_whisper_tpu_torch.models.whisper import decode
+
+    def fn(b, prefix):
+        device = next(iter(cross.values())).device
+        sub = {k: v[:, b:b + 1] for k, v in cross.items()}
+        with torch.no_grad():
+            logits, _ = decode(dec_params, cfg,
+                               torch.tensor([prefix], device=device),
+                               cross=sub, dtype=dtype or torch.float32)
+        return logits[0, -1]
+    return fn
+
+
+def cached_step_logits(dec_params, cfg, cross, dtype=None):
+    """Logits for :func:`near_tie_report` by the cached single-token step
+    that greedy decoding takes (a prefill of all but the prefix's last
+    token, then one step), to set beside the teacher-forced pass (the
+    multi-token path a speculative verify window takes)."""
+    import torch
+    from distil_whisper_tpu_torch.models.whisper import (decode, init_cache,
+                                                         kv_width)
+    dtype = dtype or torch.float32
+
+    def fn(b, prefix):
+        device = next(iter(cross.values())).device
+        sub = {k: v[:, b:b + 1] for k, v in cross.items()}
+        tokens = torch.tensor([prefix], device=device)
+        cache = init_cache(cfg, 1, dtype=dtype, max_len=len(prefix),
+                           device=device, width=kv_width(dec_params))
+        with torch.no_grad():
+            decode(dec_params, cfg, tokens[:, :-1], cross=sub, cache=cache,
+                   pos_offset=0, dtype=dtype)
+            logits, _ = decode(dec_params, cfg, tokens[:, -1:], cross=sub,
+                               cache=cache, pos_offset=len(prefix) - 1,
+                               dtype=dtype)
+        return logits[0, -1]
+    return fn
+
+
+def text_near_ties(pipe, mels, ref_seqs, ref_lens, texts, ref_texts,
+                   prompt, budgets):
+    """The near-tie report (:func:`near_tie_report`) of the requests whose
+    text parts from the reference's, over the reference's tokens
+    (``ref_seqs`` rows, cut at each request's budget) and the request's
+    tokens read back from its text: the synthetic tokenizer spells each
+    token past the bytes as " w<id>", so the word tokens of a text are its
+    ids (a byte token is not read back, so a parting there is not seen).
+    The drift set beside each gap: a cached single-token step (the
+    engine's and greedy's kind of step) against the teacher-forced pass."""
+    import re
+    from distil_whisper_tpu_torch.models import whisper as W
+    p, eot = len(prompt), 50257
+    ref, test, rows = [], [], []
+    for i, (a, b) in enumerate(zip(texts, ref_texts)):
+        if a == b:
+            continue
+        r = ref_seqs[i][:min(int(ref_lens[i]), p + budgets[i])].tolist()
+        words = [j for j in range(p, len(r)) if 256 <= r[j] < eot]
+        got = [int(w) for w in re.findall(r" w(\d+)", a)]
+        k = next((k for k, (j, w) in enumerate(zip(words, got))
+                  if r[j] != w), min(len(words), len(got)))
+        if k >= len(words):
+            continue       # the reference ends first: no step to read
+        j = words[k]
+        rows.append(i)
+        ref.append(r)
+        test.append(r[:j] + ([got[k]] if k < len(got) else []))
+    if not rows:
+        return {"rows": len(texts), "parting": 0, "all_near_ties": True,
+                "partings": []}
+    cross = W.cross_kv(pipe.params["decoder"], pipe.cfg, W.encode(
+        pipe.params["encoder"], pipe.cfg, mels[rows], dtype=pipe.dtype))
+    rep = near_tie_report(pipe.params["decoder"], pipe.cfg, cross, ref, test,
+                          p, pipe.dtype, drift_logits=cached_step_logits(
+                              pipe.params["decoder"], pipe.cfg, cross,
+                              pipe.dtype))
+    for r in rep["partings"]:
+        r["row"] = rows[r["row"]]
+    rep["rows"] = len(texts)
+    return rep
+
+
 def phase_build():
     from distil_whisper_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -381,7 +582,10 @@ def mel_long_file(gen, m: int):
 def kernel_row_encoder_attention(gen):
     """Encoder attention at (16, 20, 1500, 64) bf16 in two layouts:
     contiguous [B, H, T, 64], and the main path's [B, H, T, 64] views of
-    three [B, T, 1280] projections; plus ragged cases against the plain
+    three [B, T, 1280] projections; the tensor-parallel path's views of a
+    rank's [B, T, 640] and [B, T, 320] projections (H 10 and 5, tp 2 and
+    4) against the plain version at the same tolerance; plus ragged cases
+    against the plain
     version (T 1536 with 1500 live keys, as the JAX package pads, and a
     small odd shape), which hold TMA's zero fill and the -inf key mask of
     partial tiles."""
@@ -410,6 +614,17 @@ def kernel_row_encoder_attention(gen):
     qm, km, vm = (rand(b, t, h * d).view(b, t, h, d).transpose(1, 2)
                   for _ in range(3))
     err_main = check(qm, km, vm, t)
+    # the tensor-parallel layouts: a rank's heads, views of its [B, T,
+    # 1280 / tp] projections (rows of 1280 / tp x 2 bytes)
+    tp_layouts = []
+    for tp in (2, 4):
+        ht = h // tp
+        qt, kt, vt = (rand(b, t, ht * d).view(b, t, ht, d).transpose(1, 2)
+                      for _ in range(3))
+        tp_layouts.append({"tp": tp, "shape": [b, ht, t, d],
+                           "row_bytes": ht * d * 2,
+                           "max_abs_err": check(qt, kt, vt, t)})
+        del qt, kt, vt
     ragged = []
     for shape, t_real in (((16, 20, 1536, 64), 1500), ((3, 5, 200, 64), 77)):
         qr, kr, vr = (rand(*shape) for _ in range(3))
@@ -439,6 +654,7 @@ def kernel_row_encoder_attention(gen):
         "ms_main_layout": ms_main, "tflops_main_layout": ops / ms_main / 1e9,
         "library_ms_main_layout": cuda_ms(lambda: sdpa(qm, km, vm)),
         "max_abs_err_main_layout": err_main, "ragged": ragged,
+        "tensor_parallel_layouts": tp_layouts,
         "shape": [b, h, t, d], "ptxas": ptxas_report("encoder_attention")}
     del q, k, v, qm, km, vm
     torch.cuda.empty_cache()
@@ -1381,6 +1597,12 @@ def phase_serving_path(tok, bf16):
                         a == r["text"] for a, r in zip(again, results[24:32]))
                 if lane_name == "bf16" and sched == "continuous":
                     rep["http"] = http_drive(tr, clips[0])
+                    # where the engine's greedy texts part from the
+                    # pipeline's: the reference step's top-two gap
+                    rep["near_ties"] = text_near_ties(
+                        pipe, mels, seqs, lens,
+                        [r["text"] for r in results[:24]], ref, prompt,
+                        [reqs[i][1]["max_new_tokens"] for i in range(24)])
             finally:
                 tr.stop()
             if lane_name == "bf16" and sched == "continuous":
@@ -1583,6 +1805,17 @@ def phase_speculative_path(tok, bf16):
                "share_equal_to_greedy": share.mean().item()}
         if not bool((out.seq_len > p).all()):
             raise AssertionError(f"{name}: a lane emitted nothing")
+        if not synthetic:
+            # where the tokens part from greedy's: the greedy step's
+            # top-two gap there
+            row["near_ties"] = near_tie_report(
+                teacher["decoder"], pcfg, t_cross,
+                [greedy.sequences[b, :int(greedy.seq_len[b])].tolist()
+                 for b in range(n)],
+                [out.sequences[b, :int(out.seq_len[b])].tolist()
+                 for b in range(n)], p, dtype,
+                drift_logits=cached_step_logits(teacher["decoder"], pcfg,
+                                                t_cross, dtype))
         report[name] = row
         return row
 
@@ -2274,9 +2507,9 @@ def qat_vs_int8_logits(student_dir: Path, root: Path):
         """Logits, and the (params, input) of every projection in order."""
         calls, dense = [], W.dense
 
-        def recording(p, x):
+        def recording(p, x, group=None):
             calls.append((p, x))
-            return dense(p, x)
+            return dense(p, x, group)
         W.dense = recording
         try:
             return W.decode(dec, cfg, tokens, enc=enc)[0], calls
@@ -2706,15 +2939,16 @@ def multigpu_rank(rank: int, world: int, port: int, spec: dict) -> None:
     dist.destroy_process_group()
 
 
-def run_ranks(world: int, spec: dict) -> list:
-    """``multigpu_rank`` in ``world`` spawned processes; their reports in
-    rank order.  A rank that fails, or outlives ``MG_TIMEOUT``, fails the
-    phase; every rank is killed on the way out."""
+def run_ranks(world: int, spec: dict, target=None) -> list:
+    """``target`` (``multigpu_rank`` by default) in ``world`` spawned
+    processes; their reports in rank order.  A rank that fails, or outlives
+    ``MG_TIMEOUT``, fails the phase; every rank is killed on the way out."""
     import torch.multiprocessing as mp
     from distil_whisper_tpu_torch.parallel.dryrun import _free_port
     ctx = mp.get_context("spawn")
     port = _free_port()
-    procs = [ctx.Process(target=multigpu_rank, args=(r, world, port, spec))
+    procs = [ctx.Process(target=target or multigpu_rank,
+                         args=(r, world, port, spec))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -2729,7 +2963,8 @@ def run_ranks(world: int, spec: dict) -> list:
                 p.join()
     codes = [p.exitcode for p in procs]
     if any(c != 0 for c in codes):
-        raise RuntimeError(f"multigpu_path: rank exit codes {codes}")
+        raise RuntimeError(f"{(target or multigpu_rank).__name__}: rank "
+                           f"exit codes {codes}")
     return [json.loads((Path(spec["out"]) / f"rank{r}.json").read_text())
             for r in range(world)]
 
@@ -3028,6 +3263,443 @@ def phase_multigpu_path(teacher_cfg, root):
     return {f"multigpu_{run}_rank{r}": report["launches"][run][r]
             for run in report["launches"] for r in range(world)}
 
+
+TP_DEGREE = 2         # the model axis of tensor_parallel_path
+TP_WINDOWS = 4        # windows of its pipeline runs
+TP_NEW_TOKENS = 64    # their budget
+TP_BATCH = 4          # distillation rows a data rank a step (each row's
+#                       activations cross the model group at every layer)
+TP_STEPS = 2          # tensor-parallel distillation steps
+TP_MLP_ROWS = 24000   # rows of the int8 MLP partial mode's timing (the
+#                       encoder's 16 windows); the ffn is a rank's shard
+# the sharded encode of a data rank's windows against one rank's encode
+# of them, relative L2, a lane, set over the readings on one H100: bf16
+# 1.363e-2 (one rank's einsum encoder lies 1.410e-2 from its kernel
+# encoder), int8 2.445e-2, fp32 2.11e-6
+TP_ENCODE_REL_L2 = {"bf16": 2e-2, "fp32": 1e-5, "int8": 4e-2}
+
+
+def _events_ms(fn, calls: int = 3) -> float:
+    """Median device time of ``fn`` over ``calls`` calls after one warm-up,
+    CUDA events around each (a collective inside may not be replayed the
+    hundred times ``cuda_ms`` would: every rank runs the same calls)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(calls):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def tp_rank(rank: int, world: int, port: int, spec: dict) -> None:
+    """One rank of ``tensor_parallel_path`` on a ``(world / TP_DEGREE,
+    TP_DEGREE)`` mesh (and, on four cards or more, a ``(1, world)`` one):
+    the bf16 and int8 pipelines with ``mesh=`` against one rank's, the
+    encode and its all-reduces timed, the int8 MLP's partial mode, the
+    tensor-parallel ``run_distillation`` and the small fp32 model's greedy
+    and n-gram speculation; writes ``rank{rank}.json``."""
+    import logging
+    import os
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.basicConfig(level=logging.WARNING)
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.cli import run_distillation
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import (GenerationOptions,
+                                                     encode_and_generate)
+    from distil_whisper_tpu_torch.generation import speculative as S
+    from distil_whisper_tpu_torch.models import init_params, load_params
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.models.params import layer_slice
+    from distil_whisper_tpu_torch.ops.int8_mlp import (fused_int8_mlp,
+                                                       fused_int8_mlp_plain)
+    from distil_whisper_tpu_torch.ops.quant import maybe_quantize_encoder
+    from distil_whisper_tpu_torch.parallel import (
+        make_mesh, maybe_initialize_distributed, tensor_parallel as TP)
+    from distil_whisper_tpu_torch.parallel.mesh import (coordinates,
+                                                        model_group,
+                                                        shard_params)
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+    from distil_whisper_tpu_torch.tokenizer import WhisperTokenizer
+    maybe_initialize_distributed(force=True)
+    out = Path(spec["out"])
+    tok = WhisperTokenizer.from_pretrained(spec["tok"])
+    mesh = make_mesh((world // TP_DEGREE, TP_DEGREE))
+    d, n_data, m, tp = coordinates(mesh)
+    report = {"rank": rank, "world": world, "backend": dist.get_backend(),
+              "mesh": [n_data, tp], "coordinate": [d, m]}
+    encodes = {}    # one rank's encode of this data rank's windows, a lane
+    dtype = torch.bfloat16
+    full = init_params(PRESETS["distil-large-v3"], seed=0, device="cuda",
+                       dtype=dtype)
+    clips = synthetic_audio(TP_WINDOWS, 30.0, seed=1)
+    prompt = tok.prompt_ids(language="en")
+
+    def pipelines(flags, mesh_, dtype):
+        """(the pipeline on ``mesh_``, one rank's) over ``full``."""
+        cfg = PRESETS["distil-large-v3"].replace(**flags)
+        return [WhisperPipeline(None, dtype=dtype, batch_size=TP_WINDOWS,
+                                max_new_tokens=TP_NEW_TOKENS, params=full,
+                                cfg=cfg, tokenizer=tok, device="cuda",
+                                mesh=mm) for mm in (mesh_, None)]
+
+    def drive(name, flags, mesh_, dtype=dtype):
+        """The pipeline with ``mesh_`` on the windows, launches and the
+        model group's all-reduces counted around it; the share of texts
+        equal to one rank's and the near-tie report of the parting rows
+        (with the logit drift of the sharded teacher-forced pass from one
+        rank's); the encode of this data rank's windows timed, sharded
+        and whole."""
+        pipe, one = pipelines(flags, mesh_, dtype)
+        group = model_group(mesh_)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with TP.timed() as rec:
+            texts = [r["text"] for r in pipe(clips, language="en")]
+        torch.cuda.synchronize()
+        row = {"s": time.perf_counter() - t0, "launches": read_counts(),
+               "all_reduce_count": rec.count,
+               "all_reduce_ms": rec.ms(), "all_reduce_host_ms": rec.host_ms}
+        ref = [r["text"] for r in one(clips, language="en")]
+        row["text_equal_to_one_rank"] = sum(
+            a == b for a, b in zip(texts, ref)) / len(ref)
+        mels = compute_mel(np.stack(clips), one.cfg, device="cuda").to(dtype)
+        if row["text_equal_to_one_rank"] < 1:
+            opts = GenerationOptions.from_config(
+                one.cfg, max_new_tokens=TP_NEW_TOKENS,
+                no_speech_token_id=tok.no_speech)
+            seqs = [p._decode_batch(mels, [prompt] * len(clips), opts, 1,
+                                    1.0) for p in (pipe, one)]
+            rows = [[s[j][:int(n[j])].tolist() for j in range(len(clips))]
+                    for s, n, _ in seqs]
+            enc, enc_tp, enc_alt = (W.encode(
+                p.params["encoder"], c, mels, dtype=dtype) for p, c in (
+                    (one, one.cfg), (pipe, pipe.cfg),
+                    (one, one.cfg.replace(use_flash_encoder=False))))
+            dec, dec_tp = one.params["decoder"], pipe.params["decoder"]
+            cross, cross_alt = (W.cross_kv(dec, one.cfg, e)
+                                for e in (enc, enc_alt))
+            # the yardstick: one rank's decode by its other numerics on
+            # both sides, as the sharded decode differs on both (the
+            # cached single-token step over its einsum encoder's states,
+            # against the teacher-forced pass over the kernel encoder's);
+            # the sharded teacher-forced pass beside it
+            rep = near_tie_report(
+                dec, one.cfg, cross, rows[1], rows[0], len(prompt), dtype,
+                drift_logits=cached_step_logits(dec, one.cfg, cross_alt,
+                                                dtype),
+                test_logits=teacher_forced_logits(
+                    dec_tp, pipe.cfg, W.cross_kv(dec_tp, pipe.cfg, enc_tp),
+                    dtype))
+            # each share apart at each parting, from one rank's
+            # teacher-forced pass: the decoder's numerics (the cached
+            # step, same states), the encoder's (the einsum states), the
+            # sharded decoder over one rank's states
+            base = teacher_forced_logits(dec, one.cfg, cross, dtype)
+            shares = {
+                "decoder_drift": cached_step_logits(dec, one.cfg, cross,
+                                                    dtype),
+                "encoder_drift": teacher_forced_logits(dec, one.cfg,
+                                                       cross_alt, dtype),
+                "tp_decoder_share": teacher_forced_logits(
+                    dec_tp, pipe.cfg, W.cross_kv(dec_tp, pipe.cfg, enc),
+                    dtype)}
+            for part in rep["partings"]:
+                b_, prefix = part["row"], rows[1][part["row"]][
+                    :part["position"]]
+                ref_l = base(b_, prefix).float()
+                for k, fn in shares.items():
+                    part[k] = float((fn(b_, prefix).float() - ref_l)
+                                    .abs().max())
+            row["near_ties"] = rep
+            del enc, enc_tp, enc_alt, cross, cross_alt
+        d_, n_d, _, _ = coordinates(mesh_)
+        mine = mels[d_ * len(clips) // n_d:(d_ + 1) * len(clips) // n_d]
+        # the sharded encode of this data rank's windows against one
+        # rank's on the same mels
+        a, b, alt = (W.encode(p.params["encoder"], c, mine,
+                              dtype=dtype).double() for p, c in (
+            (pipe, pipe.cfg), (one, one.cfg),
+            (one, one.cfg.replace(use_flash_encoder=False))))
+        row["encode_rel_l2_vs_one_rank"] = float((a - b).norm() / b.norm())
+        # two numerics of the unsharded encoder: the einsum attention
+        # against the kernel (0 in fp32, where both are the einsum)
+        row["encode_rel_l2_einsum_vs_kernel_one_rank"] = float(
+            (alt - b).norm() / b.norm())
+        encodes[name] = b.float()
+        del a, b, alt
+        with TP.timed() as enc_rec:
+            row["encode_ms"] = _events_ms(lambda: W.encode(
+                pipe.params["encoder"], pipe.cfg, mine, dtype=dtype))
+        calls = 4     # _events_ms: a warm-up and three timed
+        row["encode_all_reduces"] = enc_rec.count // calls
+        row["all_reduce_ms_per_layer"] = enc_rec.ms() / calls / \
+            pipe.cfg.encoder_layers
+        row["all_reduce_host_ms_per_layer"] = enc_rec.host_ms / calls / \
+            pipe.cfg.encoder_layers
+        row["encode_ms_one_rank"] = _events_ms(lambda: W.encode(
+            one.params["encoder"], one.cfg, mine, dtype=dtype))
+        row["encode_windows"] = int(mine.shape[0])
+        row["model_ranks"] = TP.size(group)
+        report[name] = row
+        return pipe, one
+
+    drive("bf16", {}, mesh)
+    # the same weights in fp32 (einsum encoder): whether tensor
+    # parallelism alone parts the texts at full width
+    drive("fp32", {}, mesh, torch.float32)
+    torch.cuda.empty_cache()
+    pipe8, one8 = drive("int8", INT8_FLAGS, mesh)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    # the yardsticks of the encodes' agreement: one rank's bf16 against
+    # its fp32 (bf16 rounding), its int8 against its bf16
+    report["encode_yardsticks"] = {
+        "bf16_vs_fp32_one_rank": rel(encodes["bf16"], encodes["fp32"]),
+        "int8_vs_bf16_one_rank": rel(encodes["int8"], encodes["bf16"])}
+    encodes.clear()
+
+    # the int8 MLP's partial mode on this rank's shard of layer 0: against
+    # its plain version bit for bit; summed over the model group plus the
+    # bias, against the unsharded kernel
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((3000, 1280), generator=gen, device="cuda").to(dtype)
+    lp = layer_slice(pipe8.params["encoder"]["layers"], 0)
+    lp1 = layer_slice(one8.params["encoder"]["layers"], 0)
+    part = fused_int8_mlp(lp["fc1"], lp["fc2"], x, partial=True)
+    plain = fused_int8_mlp_plain(lp["fc1"], lp["fc2"], x, partial=True)
+    summed = TP.reduce_sum(part, model_group(mesh)) + lp["fc2"]["bias"].float()
+    whole = fused_int8_mlp(lp1["fc1"], lp1["fc2"], x).float()
+    report["int8_mlp_partial"] = {
+        "rows": x.shape[0], "ffn_shard": int(lp["fc1"]["kernel_q"].shape[-1]),
+        "bit_equal_to_plain": bool(torch.equal(part, plain)),
+        "max_abs_err_plain": float((part - plain).abs().max()),
+        "sum_max_abs_err_vs_unsharded": float(
+            (summed.to(dtype).float() - whole).abs().max()),
+        "unsharded_max_abs": float(whole.abs().max())}
+    if rank == 0:
+        xl = torch.randn((TP_MLP_ROWS, 1280), generator=gen,
+                         device="cuda").to(dtype)
+        report["int8_mlp_partial"].update(
+            timing_rows=TP_MLP_ROWS,
+            partial_ms=cuda_ms(lambda: fused_int8_mlp(
+                lp["fc1"], lp["fc2"], xl, partial=True)),
+            full_mode_ms=cuda_ms(lambda: fused_int8_mlp(
+                lp["fc1"], lp["fc2"], xl)),
+            unsharded_ms=cuda_ms(lambda: fused_int8_mlp(
+                lp1["fc1"], lp1["fc2"], xl)))
+        del xl
+    del pipe8, one8, lp, lp1, x, part, plain, summed, whole
+    if world >= 4:
+        # every card on the model axis: tp = world, bf16
+        drive(f"bf16_tp{world}", {}, make_mesh((1, world)))
+    del full
+    torch.cuda.empty_cache()
+
+    # tensor-parallel distillation through the CLI; the first batch of
+    # this rank recorded for the one-process reference
+    original = run_distillation.build_train_step
+
+    def recording_build(*args, **kwargs):
+        train_step, eval_step = original(*args, **kwargs)
+
+        def recorded(state, teacher, batch, generator=None):
+            path = out / f"tp-batch-rank{rank}.pt"
+            if not path.exists():
+                torch.save({k: v.cpu() for k, v in batch.items()}, path)
+            return train_step(state, teacher, batch, generator)
+
+        recorded.data_parallel = train_step.data_parallel
+        return recorded, eval_step
+
+    run_distillation.build_train_step = recording_build
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_distillation.main([
+        "--teacher_checkpoint", spec["teacher"],
+        "--student_checkpoint", spec["student"],
+        "--train_dataset_path", spec["train"],
+        "--output_dir", str(out / "distill"),
+        "--teacher_precision", "inference", "--precision", "half_mixed",
+        "--per_device_train_batch_size", str(TP_BATCH),
+        "--max_label_length", "128", "--max_steps", str(TP_STEPS),
+        "--warmup_steps", "2", "--learning_rate", "1e-4",
+        "--save_steps", str(TP_STEPS), "--eval_steps", "1000",
+        "--logging_steps", "1", "--language", "en", "--seed", "42",
+        "--wer_threshold", "10", "--distributed",
+        "--model_parallel", str(TP_DEGREE)])
+    torch.cuda.synchronize()
+    run_distillation.build_train_step = original
+    report["distill"] = {"s": time.perf_counter() - t0,
+                         "launches": read_counts()}
+    torch.cuda.empty_cache()
+
+    # the small fp32 model: greedy and n-gram speculation on the shards,
+    # token for token one rank's greedy
+    small, scfg = load_params(spec["small"], device="cuda")
+    sharded = shard_params(small, mesh, cfg=scfg)
+    wavs = np.zeros((2, scfg.n_samples), np.float32)
+    for j, c in enumerate(synthetic_audio(2, 10.0, seed=7)):
+        wavs[j, :len(c)] = c
+    mel = compute_mel(wavs, scfg, device="cuda")
+    sprompt = torch.tensor([prompt] * 2, device="cuda")
+    opts = GenerationOptions.from_config(scfg, max_new_tokens=16)
+    one = encode_and_generate(small, scfg, mel, sprompt, opts,
+                              device="cuda").sequences
+    greedy = encode_and_generate(sharded, scfg, mel, sprompt, opts,
+                                 device="cuda").sequences
+    cross = W.cross_kv(sharded["decoder"], scfg,
+                       W.encode(sharded["encoder"], scfg, mel))
+    ngram = S.ngram_speculative_generate_batched(
+        sharded["decoder"], scfg, cross, sprompt, opts, gamma=5,
+        max_ngram=3).sequences
+    report["small"] = {"greedy_equal": bool(torch.equal(greedy, one)),
+                       "ngram_equal": bool(torch.equal(ngram, one))}
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_tensor_parallel_path(teacher_cfg, root):
+    """Tensor parallelism over the mesh's 'model' axis (``TP_DEGREE``)
+    across ``max(2, cards)`` spawned ranks: NCCL when every rank has a
+    card (a (2, 2) mesh on four cards), else two ranks sharing one card
+    over gloo (a (1, 2) mesh).  Each rank (``tp_rank``): the bf16 and int8
+    distil-large-v3 pipelines with ``mesh=`` on ``TP_WINDOWS`` windows
+    (launches a rank: log-mel 1, encoder attention 32, the int8 MLP 32 on
+    the int8 flags; texts against one rank's, with the near-tie report of
+    every parting row; the encode of the rank's windows and its
+    all-reduces timed), the int8 MLP's partial mode (bit for bit its plain
+    version; summed plus the bias against the unsharded kernel),
+    ``run_distillation --distributed --model_parallel`` with the large-v3
+    teacher (``TP_STEPS`` steps of ``TP_BATCH`` rows a data rank), the
+    small fp32 model's greedy and n-gram speculation.  On four cards, also
+    the bf16 pipeline at tp 4.  Here: the step-1 loss against one process
+    on the data ranks' concatenated batches (``MG_LOSS_TOL``) and
+    ``dryrun_multigpu(world, model_parallel=TP_DEGREE)``.  ``root`` holds
+    the teacher, student and manifests of ``training_path``."""
+    import logging
+    import shutil
+    import torch
+    from distil_whisper_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    logging.basicConfig(level=logging.WARNING)
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    world = max(2, cards)
+    report = {"world": world, "cards": cards,
+              "mesh": [world // TP_DEGREE, TP_DEGREE],
+              "backend": "nccl" if cards >= world else "gloo"}
+    tp_dir = root / "tensor_parallel"
+    try:
+        tp_dir.mkdir()
+        synthetic_tokenizer(tp_dir)
+        spec = {"teacher": str(root / "teacher"),
+                "student": str(root / "student"),
+                "train": str(root / "train.jsonl"), "tok": str(tp_dir),
+                "small": str(small_checkpoint(tp_dir)),
+                "out": str(tp_dir / "out")}
+        Path(spec["out"]).mkdir()
+        t0 = time.perf_counter()
+        ranks = run_ranks(world, spec, tp_rank)
+        report["ranks_s"] = time.perf_counter() - t0
+        out = Path(spec["out"])
+        for key in ("bf16", "fp32", "int8", f"bf16_tp{world}"):
+            if key in ranks[0]:
+                report[key] = [r[key] for r in ranks]
+        report["int8_mlp_partial"] = [r["int8_mlp_partial"] for r in ranks]
+        report["encode_yardsticks"] = [r["encode_yardsticks"] for r in ranks]
+        report["small"] = [r["small"] for r in ranks]
+        metrics = _train_rows(_metrics(out / "distill"))
+        report["distill"] = {
+            "loss": [m["train/loss"] for m in metrics],
+            "grad_norm": [m["train/grad_norm"] for m in metrics],
+            "step_ms_ranks": [[t * 1e3 for t in m["train/step_time_s_ranks"]]
+                              for m in metrics],
+            "label_tokens": [m["train/label_tokens"] for m in metrics],
+            "launches": [r["distill"]["launches"] for r in ranks],
+            "s": [round(r["distill"]["s"], 2) for r in ranks]}
+        # the data ranks' first batches: the first rank of each model group
+        ref = one_process_reference(
+            root / "teacher", root / "student",
+            [torch.load(out / f"tp-batch-rank{r}.pt", weights_only=True)
+             for r in range(0, world, TP_DEGREE)])
+        report["step1_vs_one_process"] = {
+            k: [metrics[0][f"train/{k}"], ref[k]]
+            for k in ("loss", "ce_loss", "kl_loss")}
+        report["step1_rel_diff"] = max(
+            abs(a - b) / abs(b)
+            for a, b in report["step1_vs_one_process"].values())
+        report["step_ms_one_process_one_rank_batch"] = ref["step_ms_one_rank"]
+        # raises when the step or the tokens part from one process's
+        dry = dryrun_multigpu(world, model_parallel=TP_DEGREE)
+        report["dryrun"] = {k: dry[k] for k in (
+            "backend", "model_parallel", "grad_err", "param_err",
+            "loss_rel_err", "update_err", "generate_tokens_equal")}
+    finally:
+        shutil.rmtree(tp_dir, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "tensor_parallel_path", **report})
+
+    bad = []
+    layers = 32    # distil-large-v3's encoder
+    for r in range(world):
+        for key, limit in TP_ENCODE_REL_L2.items():
+            got = report[key][r]["encode_rel_l2_vs_one_rank"]
+            if not got <= limit:
+                bad.append(f"rank {r}: the {key} encode is {got} from one "
+                           f"rank's (relative L2), over {limit}")
+        fp32 = report["fp32"][r]
+        if not fp32.get("near_ties", {"all_near_ties": True})[
+                "all_near_ties"]:
+            bad.append(f"rank {r}: fp32 texts part from one rank's beyond "
+                       f"a near-tie: {fp32['near_ties']}")
+        for key, mlp in (("bf16", 0), ("int8", layers)):
+            got = report[key][r]["launches"]
+            want = dict(log_mel=1, encoder_attention=layers, int8_mlp=mlp,
+                        int8_decode_attention=0)
+            if got != want:
+                bad.append(f"rank {r} {key} launches {got}, want {want}")
+        p = report["int8_mlp_partial"][r]
+        if not p["bit_equal_to_plain"]:
+            bad.append(f"rank {r}: partial mode vs plain {p}")
+        if not p["sum_max_abs_err_vs_unsharded"] <= \
+                2 ** -7 * p["unsharded_max_abs"]:
+            bad.append(f"rank {r}: summed partials vs unsharded {p}")
+        if not all(report["small"][r].values()):
+            bad.append(f"rank {r}: small model {report['small'][r]}")
+        got = report["distill"]["launches"][r]
+        if got["encoder_attention"] != teacher_cfg.encoder_layers * TP_STEPS:
+            bad.append(f"rank {r} distill launches {got}")
+    d = report["distill"]
+    if len(d["loss"]) != TP_STEPS or not all(
+            map(math.isfinite, d["loss"] + d["grad_norm"])):
+        bad.append(f"distillation: {d}")
+    if not report["step1_rel_diff"] <= MG_LOSS_TOL:
+        bad.append(f"step 1 vs one process: {report['step1_vs_one_process']}")
+    if bad:
+        raise AssertionError("tensor parallel path: " + "; ".join(bad))
+    return {f"tp_{key}_rank{r}": report[key][r]["launches"]
+            for key in ("bf16", "int8") for r in range(world)} | {
+        f"tp_distill_rank{r}": report["distill"]["launches"][r]
+        for r in range(world)}
 
 def phase_small_reference(tok):
     """A small model on the card against the CPU: fp32 greedy tokens
@@ -3356,6 +4028,8 @@ def main() -> int:
     try:
         training = phase_training_path(PRESETS["large-v3"], shared)
         multigpu = phase_multigpu_path(PRESETS["large-v3"], shared)
+        multigpu.update(phase_tensor_parallel_path(PRESETS["large-v3"],
+                                                   shared))
         recipe = phase_recipe_path(PRESETS["large-v3"], shared)
     finally:
         import shutil

@@ -24,28 +24,45 @@ from ..parallel.mesh import NEXT_SLICE
 
 logger = logging.getLogger("distil_whisper_tpu_torch")
 
-# what the flags of the next multi-GPU slice (tensor parallelism and 2-D
-# parameter sharding) raise with
+# what the flags of the next multi-GPU slice (2-D parameter sharding, the
+# serving schedulers under a mesh) raise with
 MULTI_GPU = NEXT_SLICE
 
 
-def setup_data_parallel(distributed: bool, device: str = "cuda"):
+def setup_data_parallel(distributed: bool, device: str = "cuda",
+                        model_parallel: int = 1):
     """Join the job's process group (``--distributed`` forces it and raises
     without one; a ``torchrun`` environment joins it anyway) and return the
-    ``(data, 1)`` device mesh, or None in a single process.  Imported
-    lazily: featurizer workers import this module."""
+    ``(world / model_parallel, model_parallel)`` device mesh, or None in a
+    single process.  A ``model_parallel`` > 1 raises ``ValueError`` unless
+    it divides the world size of a multi-process job.  Imported lazily:
+    featurizer workers import this module."""
     from ..parallel import make_mesh, maybe_initialize_distributed
+    from ..parallel.multihost import world_size
+    if model_parallel > 1 and not distributed:
+        raise ValueError(
+            f"--model_parallel {model_parallel} needs a multi-process job "
+            "whose world size it divides (--distributed under torchrun); "
+            "this process runs alone, at world size 1")
     if not maybe_initialize_distributed(force=distributed, device=device):
         return None
-    return make_mesh()
+    n = world_size()
+    if n % model_parallel:
+        raise ValueError(f"--model_parallel {model_parallel} does not divide "
+                         f"the world size {n}")
+    return make_mesh((n // model_parallel, model_parallel))
 
 
-def summed_word_errors(stats, *extra: int):
+def summed_word_errors(stats, *extra: int, mesh=None):
     """``stats`` (a ``WordErrors``) with its counts summed over the ranks,
     and each of ``extra`` summed alike: ``(stats, *extra)``.  Every rank
-    must call it, one whose rows have no reference words too."""
+    must call it, one whose rows have no reference words too.  On a
+    ``mesh`` with a model axis each data rank's counts are taken once
+    (the model ranks of a data group hold the same rows)."""
+    from ..parallel.mesh import coordinates
     from ..parallel.multihost import sum_over_ranks
-    counts = sum_over_ranks(np.asarray(
+    once = coordinates(mesh)[2] == 0
+    counts = sum_over_ranks(once * np.asarray(
         [stats.hits, stats.substitutions, stats.insertions, stats.deletions,
          stats.num_ref_words, *extra], np.int64)).tolist()
     summed = type(stats)(hits=counts[0], substitutions=counts[1],

@@ -18,14 +18,18 @@ Data parallel (``--distributed`` under ``torchrun``, one rank a GPU, as the
 JAX trainer's multi-process branches): every rank holds a replica of the
 student, broadcast from rank 0, prepares its contiguous shard of the
 training set and feeds ``--per_device_train_batch_size`` rows of it a step
-(the global batch is that times the world size); gradients are summed over
+(the global batch is that times the data axis); gradients are summed over
 the ranks.  The eval set is sliced into equal parts (the eval runs
 collectives per batch) and its error counts summed; rank 0 writes the
 metrics, predictions and checkpoints; a SIGTERM stop is agreed at logging,
 eval and save boundaries; the run ends with its last checkpoint, which
-``convert_checkpoint_to_hf`` exports.  Not ported yet (they raise, naming
-their ROADMAP.md item): ``--model_parallel`` > 1 and ``--param_sharding
-2d``.
+``convert_checkpoint_to_hf`` exports.  ``--model_parallel N`` (with
+``--distributed``) runs a ``(world / N, N)`` mesh: the teacher and the
+student's state are sharded over the model axis (tensor parallelism,
+``parallel/tensor_parallel.py``), the rows are sharded by the data
+coordinate, the global batch is the per-device batch times the data axis,
+and checkpoints hold the gathered state.  Not ported yet (it raises,
+naming its ROADMAP.md item): ``--param_sharding 2d``.
 
     python -m distil_whisper_tpu_torch.cli.run_distillation \\
         --teacher_checkpoint /ckpts/whisper-large-v3 \\
@@ -57,6 +61,7 @@ from ..models.convert import FP32_LEAVES
 from ..models.params import map_with_path, to_fp32
 from ..ops.quant import quantize_teacher_params
 from ..parallel import process_local_slice, shard_params
+from ..parallel.mesh import coordinates
 from ..parallel.multihost import (any_over_ranks, gather_rows,
                                   is_distributed, rank, sum_over_ranks,
                                   world_size)
@@ -160,7 +165,10 @@ def parse_args(argv=None):
                         "ranks")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="> 1 comes with the tensor-parallel slice; raises")
+                   help="tensor parallelism: ranks a model group (the mesh "
+                        "is (world / N, N)); needs --distributed and a "
+                        "degree that divides the world size, the heads and "
+                        "the ffn widths")
     p.add_argument("--resume_from_checkpoint", action="store_true")
     p.add_argument("--gradient_checkpointing", action="store_true")
     p.add_argument("--eval_max_new_tokens", type=int, default=128)
@@ -195,8 +203,6 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """The flags of later slices raise, naming their ROADMAP.md item."""
-    if getattr(args, "model_parallel", 1) > 1:
-        raise NotImplementedError(f"--model_parallel > 1 {MULTI_GPU}")
     if getattr(args, "param_sharding", "1d") == "2d":
         raise NotImplementedError(f"--param_sharding 2d {MULTI_GPU}")
 
@@ -264,16 +270,20 @@ def to_device(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def step_times(timer, train_step, label_tokens: int) -> dict:
+def step_times(timer, train_step, label_tokens: int, mesh=None) -> dict:
     """A logged step's times and label tokens.  Data parallel: the global
-    label-token count, the slowest rank's step time, every rank's step
-    time and gradient all-reduce time (CUDA events) in rank order."""
+    label-token count (each data rank's once), the slowest rank's step
+    time, every rank's step time and gradient all-reduce time (CUDA
+    events) in rank order."""
     step_s = timer.times[-1]
     if not is_distributed():
         return {"train/step_time_s": step_s,
                 "train/label_tokens": label_tokens}
-    reduce_s = train_step.data_parallel.timer.times[-1]
-    per_rank = gather_rows(np.asarray([[step_s, reduce_s, label_tokens]]))
+    dp_timer = train_step.data_parallel.timer
+    reduce_s = dp_timer.times[-1] if dp_timer is not None else 0.0
+    once = coordinates(mesh)[2] == 0
+    per_rank = gather_rows(np.asarray([[step_s, reduce_s,
+                                        label_tokens * once]]))
     return {"train/step_time_s": float(per_rank[:, 0].max()),
             "train/label_tokens": int(per_rank[:, 2].sum()),
             "train/step_time_s_ranks": per_rank[:, 0].tolist(),
@@ -322,9 +332,13 @@ def main(argv=None):
                          "--streaming: preparation happens on the fly "
                          "(reference run_distillation.py:1308-1313)")
     setup_logging()
-    mesh = setup_data_parallel(args.distributed, args.device)
+    mesh = setup_data_parallel(args.distributed, args.device,
+                               args.model_parallel)
     device = resolve_device(args.device)
     n_proc, rank_ = world_size(), rank()
+    # which rows this rank feeds: its data coordinate among the data ranks
+    # (the model ranks of a data group feed the same rows)
+    d_idx, n_data, _, _ = coordinates(mesh)
     rng = np.random.default_rng(args.seed)
 
     frozen = []
@@ -360,7 +374,8 @@ def main(argv=None):
             use_flash_encoder=(args.precision != "full"))
         if args.teacher_precision == "int8":
             teacher = quantize_teacher_params(teacher)
-    teacher = shard_params(to_compute_dtype(teacher, dtype), mesh)
+    teacher = shard_params(to_compute_dtype(teacher, dtype), mesh,
+                           cfg=teacher_cfg)
     student, student_cfg = load_params(args.student_checkpoint, device=device)
     state = place_state(TrainState.create(student, opt_cfg), mesh)
     del student
@@ -405,8 +420,8 @@ def main(argv=None):
     collator = Collator(decoder_start_token_id=tok.sot,
                         pad_token_id=teacher_cfg.pad_token_id,
                         max_target_length=args.max_label_length)
-    # each rank feeds its own rows: the global batch is this times the
-    # world size
+    # each data rank feeds its own rows: the global batch is this times
+    # the data axis
     bsz = args.per_device_train_batch_size
 
     cache_file = (Path(args.preprocessed_cache) / "train_samples.npy"
@@ -423,11 +438,11 @@ def main(argv=None):
                         len(samples), cache_file)
         else:
             prep_ds = train_ds
-            if n_proc > 1 and not args.preprocessing_only:
+            if n_data > 1 and not args.preprocessing_only:
                 # shard BEFORE preparation (audio load, mel and the WER
                 # filter are the start-up cost); the train loop cycles, so
                 # unequal counts after filtering are fine
-                prep_ds = shard_rows(train_ds, n_proc, rank_)
+                prep_ds = shard_rows(train_ds, n_data, d_idx)
                 prep_sharded = True
             samples = _prepare_samples(prep_ds, tok, teacher_cfg, args,
                                        normalizer, rng, device)
@@ -443,8 +458,9 @@ def main(argv=None):
             logger.info("--preprocessing_only set: preprocessing finished, "
                         "skipping training")
             return str(cache_file) if cache_file else None
-        if n_proc > 1 and not prep_sharded:
-            samples = samples[process_local_slice(len(samples))]
+        if n_data > 1 and not prep_sharded:
+            samples = samples[process_local_slice(len(samples), d_idx,
+                                                  n_data)]
     eval_samples = None
     if args.eval_dataset_path:
         eval_ds = load_dataset_any(args.eval_dataset_path, "validation")
@@ -455,12 +471,12 @@ def main(argv=None):
                                           "timestamp_probability": 0.0})
         eval_samples = _prepare_samples(eval_ds, tok, teacher_cfg, eval_args,
                                         normalizer, rng, device)
-        if n_proc > 1 and eval_samples:
+        if n_data > 1 and eval_samples:
             # every rank prepares the whole set and takes an EQUAL slice:
             # the eval runs collectives per batch, so every rank needs the
             # same number of batches (the counts are summed below)
             eval_samples = eval_samples[process_local_slice(
-                len(eval_samples))]
+                len(eval_samples), d_idx, n_data)]
     stream = None
     if args.streaming:
         # rows are prepared on the fly by a producer thread; it starts only
@@ -468,12 +484,12 @@ def main(argv=None):
         # each rank streams its own contiguous shard: distinct shuffle
         # seeds alone would feed every rank the whole corpus
         stream = streaming_batches(
-            shard_rows(train_ds, n_proc, rank_) if n_proc > 1 else train_ds,
+            shard_rows(train_ds, n_data, d_idx) if n_data > 1 else train_ds,
             prepare=lambda row: _prepare_row(row, tok, teacher_cfg, args,
                                              normalizer, rng, device),
             collate=collator, batch_size=bsz,
             shuffle_buffer_size=args.shuffle_buffer_size,
-            seed=args.seed + rank_, repeat=True, prefetch_depth=2)
+            seed=args.seed + d_idx, repeat=True, prefetch_depth=2)
 
     # SIGTERM/SIGINT request a checkpoint at the next step boundary, so a
     # preempted run resumes with --resume_from_checkpoint
@@ -570,7 +586,7 @@ def main(argv=None):
         if n_proc > 1:
             # the error counts summed over the ranks' slices; every rank
             # enters the collective, an empty slice too
-            stats = summed_word_errors(stats)
+            stats = summed_word_errors(stats, mesh=mesh)
         if not stats.num_ref_words:
             return      # a global decision: the same on every rank
         wer = 100 * stats.wer
@@ -627,7 +643,7 @@ def main(argv=None):
             metrics_log.log(step + 1,
                             {**{f"train/{k}": v for k, v in m.items()},
                              "train/steps_per_second": sps,
-                             **step_times(timer, train_step, n_sup),
+                             **step_times(timer, train_step, n_sup, mesh),
                              **peak_memory(device)})
         if (step + 1) % args.eval_steps == 0:
             run_eval(step + 1)

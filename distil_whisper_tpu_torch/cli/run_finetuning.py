@@ -9,8 +9,9 @@ the int8 serving numerics (QAT, ``ops/qat.py``).  ``--distributed`` (under
 ``torchrun``) runs data parallel as ``run_distillation`` does: each rank
 prepares its contiguous shard and feeds ``--per_device_train_batch_size``
 rows a step, rank 0 writes, and the run ends with its last checkpoint for
-``convert_checkpoint_to_hf``.  ``--model_parallel`` > 1 and
-``--param_sharding 2d`` raise, naming their ROADMAP.md item.
+``convert_checkpoint_to_hf``.  ``--model_parallel N`` shards the state over
+a ``(world / N, N)`` mesh's model axis, as in ``run_distillation``.
+``--param_sharding 2d`` raises, naming its ROADMAP.md item.
 
     python -m distil_whisper_tpu_torch.cli.run_finetuning \\
         --model_checkpoint /ckpts/whisper-small \\
@@ -31,7 +32,8 @@ from ..models import load_params, save_pretrained
 from ..models.params import to_fp32
 from ..tokenizer import (BasicTextNormalizer, EnglishTextNormalizer,
                          WhisperTokenizer)
-from ..parallel.multihost import rank, world_size
+from ..parallel.mesh import coordinates
+from ..parallel.multihost import world_size
 from ..training import (Collator, CheckpointManager, OptimizerConfig,
                         TrainState, build_finetune_step, place_state)
 from ..utils.profiling import MetricsLogger, StepTimer
@@ -88,16 +90,19 @@ def main(argv=None):
                         "torchrun; fails fast unless the job has several "
                         "ranks")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor parallelism, as run_distillation's")
     p.add_argument("--param_sharding", default="1d", choices=["1d", "2d"])
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda or cpu)")
     args = p.parse_args(argv)
     refuse_unported(args)
     setup_logging()
-    mesh = setup_data_parallel(args.distributed, args.device)
+    mesh = setup_data_parallel(args.distributed, args.device,
+                               args.model_parallel)
     device = resolve_device(args.device)
-    n_proc, rank_ = world_size(), rank()
+    n_proc = world_size()
+    d_idx, n_data, _, _ = coordinates(mesh)
     rng = np.random.default_rng(args.seed)
 
     params, cfg = load_params(args.model_checkpoint, device=device)
@@ -123,10 +128,10 @@ def main(argv=None):
                                     "timestamp_probability": 0.0,
                                     "condition_on_prev_probability": 0.0})
     train_ds = load_dataset_any(args.train_dataset_path, "train")
-    if n_proc > 1:
+    if n_data > 1:
         # shard BEFORE preparation: each rank pays the mel and filter cost
         # of its own rows only (the loop cycles: unequal counts are fine)
-        train_ds = shard_rows(train_ds, n_proc, rank_)
+        train_ds = shard_rows(train_ds, n_data, d_idx)
     samples = _prepare_samples(train_ds, tok, cfg, ft_args, normalizer, rng,
                                device)
     # mask prompts with the tokenizer's SOT (see run_distillation)
@@ -175,7 +180,7 @@ def main(argv=None):
                 "train/loss": loss,
                 "train/steps_per_second": sps,
                 **step_times(timer, train_step,
-                             int((raw["labels"] != -100).sum())),
+                             int((raw["labels"] != -100).sum()), mesh),
                 **peak_memory(device)})
         if (step + 1) % args.save_steps == 0:
             mgr.save(step + 1, state)

@@ -17,7 +17,7 @@ import torch
 
 from ..config import WhisperConfig
 from ..device import resolve_device
-from ..models.whisper import cross_kv, decode, encode, init_cache
+from ..models.whisper import cross_kv, decode, encode, init_cache, kv_width
 from . import logits as L
 from .generate import GenerationOptions, _process_scores, check_params_device
 
@@ -79,7 +79,8 @@ def beam_search(dec_params: Dict[str, Any], cfg: WhisperConfig,
     pad_bk = (pad_len.long().repeat_interleave(k, dim=0)
               if pad_len is not None else None)
 
-    cache = init_cache(cfg, b * k, dtype=dtype, max_len=total, device=device)
+    cache = init_cache(cfg, b * k, dtype=dtype, max_len=total, device=device,
+                       width=kv_width(dec_params))
     prefill_logits, cache = decode(dec_params, cfg, prompts_bk,
                                    cross=cross_bk, cache=cache, pos_offset=0,
                                    pad_len=pad_bk, dtype=dtype)

@@ -21,7 +21,7 @@ import torch
 
 from ..config import WhisperConfig
 from ..device import resolve_device
-from ..models.whisper import decode, init_cache, cross_kv, encode
+from ..models.whisper import cross_kv, decode, encode, init_cache, kv_width
 from . import logits as L
 
 
@@ -115,7 +115,8 @@ def generate(dec_params: Dict[str, Any], cfg: WhisperConfig,
     if opts.do_sample and generator is None:
         # never the global RNG; the JAX package's default key is PRNGKey(0)
         generator = torch.Generator(device=device).manual_seed(0)
-    cache = init_cache(cfg, b, dtype=dtype, max_len=total, device=device)
+    cache = init_cache(cfg, b, dtype=dtype, max_len=total, device=device,
+                       width=kv_width(dec_params))
     prefill_logits, cache = decode(dec_params, cfg, prompt_ids, cross=cross,
                                    cache=cache, pos_offset=0, pad_len=pad_len,
                                    dtype=dtype)

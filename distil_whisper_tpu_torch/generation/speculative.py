@@ -47,7 +47,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..config import WhisperConfig
-from ..models.whisper import cross_kv, decode, encode, init_cache
+from ..models.whisper import cross_kv, decode, encode, init_cache, kv_width
 from ..ops.quant import maybe_quantize_encoder
 from . import logits as L
 from .generate import GenerationOptions, check_params_device
@@ -280,7 +280,7 @@ def _speculate(teacher_dec: Dict[str, Any], teacher_cfg: WhisperConfig,
     # near the end; the overhang is junk and sliced off below
     slack = gamma + 1
     t_cache = init_cache(teacher_cfg, b, dtype=dtype, max_len=total + slack,
-                         device=dev)
+                         device=dev, width=kv_width(teacher_dec))
     t_logits, _ = decode(teacher_dec, teacher_cfg, prompt_ids,
                          cross=teacher_cross, cache=t_cache, pos_offset=0,
                          pad_len=pad_len, dtype=dtype)
@@ -406,7 +406,8 @@ def speculative_generate_batched(
 
     def prefill(prompt, max_len):
         state["cache"] = init_cache(draft_cfg, b, dtype=dtype,
-                                    max_len=max_len, device=dev)
+                                    max_len=max_len, device=dev,
+                                    width=kv_width(draft_dec))
         if p > 1:
             decode(draft_dec, draft_cfg, prompt[:, :-1], cross=draft_cross,
                    cache=state["cache"], pos_offset=0, pad_len=pad_len,
@@ -505,16 +506,21 @@ def check_method(method: Optional[str], assistant) -> None:
                          "ngram lookup")
 
 
-def prepare_assistant(assistant, dtype: torch.dtype, device):
+def prepare_assistant(assistant, dtype: torch.dtype, device, mesh=None):
     """The draft ``(params, cfg)`` under the teacher's policy: on the
-    entry point's device, quantized by its own ``cfg.quantize_*`` flags, and
-    in bf16 with the fast attention and the encoder kernel, as the entry
-    points set them for the teacher.  Idempotent; None stays None."""
+    entry point's device, quantized by its own ``cfg.quantize_*`` flags,
+    sharded over the teacher's ``mesh`` (the model axis must divide the
+    draft's heads too), and in bf16 with the fast attention and the encoder
+    kernel, as the entry points set them for the teacher.  Call it once on
+    an unsharded draft; None stays None."""
     if assistant is None:
         return None
     d_params, d_cfg = assistant
     check_params_device(d_params, device)
     d_params = maybe_quantize_encoder(d_params, d_cfg)
+    if mesh is not None:
+        from ..parallel.mesh import shard_params
+        d_params = shard_params(d_params, mesh, cfg=d_cfg)
     if dtype == torch.bfloat16:
         d_cfg = d_cfg.replace(fast_bf16_attention=True, use_flash_encoder=True)
     return d_params, d_cfg

@@ -234,7 +234,14 @@ def save_pretrained(params: Params, cfg: WhisperConfig, path: str,
     """Export to an HF-compatible checkpoint dir: ``config.json`` and
     ``model.safetensors`` (tensors in ``dtype``, fp32 by default as the JAX
     package writes; metadata ``{"format": "pt"}``, which transformers asks
-    for; the tied head written as its own copy)."""
+    for; the tied head written as its own copy).  A tree sharded over a
+    mesh's model axis raises: gather it first
+    (``parallel.gather_params``, on every rank), then write from one."""
+    from ..parallel.tensor_parallel import degree
+    tp = degree(params["decoder"]["layers"]["self_attn"]["q"])
+    if tp > 1:
+        raise ValueError(f"save_pretrained got a tree sharded {tp} ways; "
+                         "gather it with parallel.gather_params first")
     p = Path(path)
     p.mkdir(parents=True, exist_ok=True)
     cfg.save_pretrained(path)

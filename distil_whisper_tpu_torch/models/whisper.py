@@ -16,6 +16,17 @@ W8A8 product (``ops/quant.py``), the encoder MLP takes the fused int8 kernel
 fp32 scales beside them and are dequantized per layer to the working dtype,
 and ``tok_emb_q`` gives int8 logits at batch >= 8.
 
+Tensor parallelism over the mesh's 'model' axis (JAX: GSPMD over the same
+tree): on a tree sharded by ``parallel.shard_params`` each rank holds
+``heads / tp`` heads and ``ffn / tp`` MLP columns.  Head counts and cache
+widths come from the local shapes; the q/k/v and fc1 products are
+column-parallel, the out-projections and fc2 row-parallel, their partials
+summed over the model group in fp32 before the cast and the bias
+(``parallel/tensor_parallel.py``).  The int8 scales whose reduction axis
+is sharded (a row-parallel input's row absmax, the self-KV cache's token
+absmax) take the group's max, so a sharded run computes the unsharded
+function; dropout draws the unsharded masks and keeps the rank's columns.
+
 :func:`cross_attention_probs` yields the fp32 cross-attention
 probabilities of a teacher-forced pass layer by layer (DTW word timestamps).
 
@@ -50,6 +61,7 @@ from ..ops.encoder_attention import fused_self_attention
 from ..ops.int8_mlp import fused_int8_mlp, mlp_supported
 from ..ops.qat import ACT_FQ_KEY, fake_quant_acts
 from ..ops.quant import dense_int8, int_mm, quantize_acts, symmetric_int8
+from ..parallel import tensor_parallel as tp
 from .params import layer_slice
 
 Params = Dict[str, Any]
@@ -77,12 +89,15 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5,
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], group=None) -> torch.Tensor:
     """Inverted dropout; the identity when ``rate`` is 0 or there is no
-    generator (inference)."""
+    generator (inference).  ``group``: ``x`` holds this rank's columns of
+    a column-parallel activation, masked as its slice of the unsharded
+    draw."""
     if rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    u = tp.rand_shard(x.shape, x.dim() - 1, group, generator, x.device)
+    keep = u < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -109,18 +124,19 @@ def _run_layer(fn, remat: bool, *args):
     return fn(*args)
 
 
-def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+def dense(p: Params, x: torch.Tensor, group=None) -> torch.Tensor:
     """x @ kernel with fp32 accumulation, cast to x.dtype, then the bias added
-    in x.dtype."""
+    in x.dtype.  ``group``: a row-parallel product over the model group
+    (``x`` is this rank's slice of the contraction)."""
     if "kernel_q" in p:
         # int8 weights (ops/quant.py): W8A8 product, fp32 rescale epilogue
-        return dense_int8(p, x)
+        return dense_int8(p, x, group=group)
     if ACT_FQ_KEY in p:
         # QAT w8a8 (ops/qat.py): the kernel is fake-quantized by the tree
         # transform; the input is fake-quantized here, so the training
         # forward runs the int8 serving numerics
-        x = fake_quant_acts(x)
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
+        x = fake_quant_acts(x, group)
+    y = tp.matmul(x, p["kernel"], group)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
@@ -139,28 +155,42 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 def attention_block(p: Params, x_q: torch.Tensor, x_kv: torch.Tensor,
                     n_heads: int, mask=None, f32_attn: bool = True,
                     attn_dropout: float = 0.0,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
-    """Full (uncached) MHA: project, attend, output-project."""
+                    generator: Optional[torch.Generator] = None,
+                    group=None) -> torch.Tensor:
+    """Full (uncached) MHA: project, attend, output-project.  ``n_heads``
+    are this rank's under tensor parallelism over ``group``."""
+    same = x_kv is x_q
+    x_q = tp.copy_to(x_q, group)
+    x_kv = x_q if same else tp.copy_to(x_kv, group)
     q = _split_heads(dense(p["q"], x_q), n_heads)
     k = _split_heads(dense(p["k"], x_kv), n_heads)
     v = _split_heads(dense(p["v"], x_kv), n_heads)
     return dense(p["out"], _merge_heads(
         mha(q, k, v, mask, float32_logits=f32_attn,
-            dropout_rate=attn_dropout, generator=generator)))
+            dropout_rate=attn_dropout, generator=generator,
+            dropout_group=group)), group)
 
 
 def mlp_block(fc1: Params, fc2: Params, x: torch.Tensor,
               exact_gelu: bool = True, act_dropout: float = 0.0,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              group=None) -> torch.Tensor:
     if ("kernel_q" in fc1 and exact_gelu and act_dropout == 0.0 and x.is_cuda
             and x.dtype == torch.bfloat16 and mlp_supported(fc1, x)):
         # the fused int8 MLP kernel (ops/int8_mlp.py), JAX's choice on the
         # TPU; elsewhere (CPU, fp32, decode-sized row counts) the unfused
         # dense_int8 -> gelu -> dense_int8, JAX's choice off the TPU
-        return fused_int8_mlp(fc1, fc2, x)
+        if group is None:
+            return fused_int8_mlp(fc1, fc2, x)
+        # row-parallel fc2: the kernel's fp32 partials, summed, then the
+        # bias once, as the kernel's own epilogue adds it
+        y = tp.reduce_sum(fused_int8_mlp(fc1, fc2, x, partial=True), group)
+        if "bias" in fc2:
+            y = y + fc2["bias"].float()
+        return y.to(x.dtype)
+    x = tp.copy_to(x, group)
     h = F.gelu(dense(fc1, x), approximate="none" if exact_gelu else "tanh")
-    return dense(fc2, dropout(h, act_dropout, generator))
+    return dense(fc2, dropout(h, act_dropout, generator, group), group)
 
 
 # ----------------------------------------------------------------------
@@ -185,8 +215,8 @@ def _conv1d(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
 def _encoder_layer(lp: Params, x: torch.Tensor, n_heads: int,
                    policy=(True, False, False),
                    t_real: Optional[int] = None,
-                   rates=(0.0, 0.0, 0.0), seed: Optional[int] = None
-                   ) -> torch.Tensor:
+                   rates=(0.0, 0.0, 0.0), seed: Optional[int] = None,
+                   group=None) -> torch.Tensor:
     f32_attn, fast_act, use_fused = policy
     drop, attn_drop, act_drop = rates
     gen = _generator(seed, x.device)
@@ -196,15 +226,16 @@ def _encoder_layer(lp: Params, x: torch.Tensor, n_heads: int,
         # Hand-written kernel (ops/encoder_attention.py): never writes the
         # [B,H,T,T] logits; q/k/v are [B,H,T,D] views of the projections.
         x = fused_self_attention(lp["self_attn"], x, n_heads,
-                                 t_real or x.shape[1])
+                                 t_real or x.shape[1], group)
     else:
         x = attention_block(lp["self_attn"], x, x, n_heads, f32_attn=f32_attn,
-                            attn_dropout=attn_drop, generator=gen)
+                            attn_dropout=attn_drop, generator=gen,
+                            group=group)
     x = r + dropout(x, drop, gen)
     r = x
     x = layer_norm(lp["final_ln"], x, fp32=not fast_act)
     x = mlp_block(lp["fc1"], lp["fc2"], x, exact_gelu=not fast_act,
-                  act_dropout=act_drop, generator=gen)
+                  act_dropout=act_drop, generator=gen, group=group)
     return r + dropout(x, drop, gen)
 
 
@@ -240,6 +271,8 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
         x = dropout(x, cfg.dropout, _generator(seeds.pop(), x.device))
     else:
         rates, seeds = (0.0, 0.0, 0.0), [None] * cfg.encoder_layers
+    group = tp.group_of(params["layers"]["self_attn"]["q"])
+    n_heads = cfg.encoder_attention_heads // tp.size(group)
     hs = []
     for i in range(cfg.encoder_layers):
         if output_hidden_states:
@@ -247,8 +280,8 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
         lp = layer_slice(params["layers"], i)
         x = _run_layer(
             lambda h, lp=lp, seed=seeds[i]: _encoder_layer(
-                lp, h, cfg.encoder_attention_heads, policy, h.shape[1],
-                rates, seed), remat, x)
+                lp, h, n_heads, policy, h.shape[1], rates, seed, group),
+            remat, x)
     y = layer_norm(params["ln_post"], x)
     if freeze:
         y = y.detach()
@@ -262,17 +295,27 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
 # ----------------------------------------------------------------------
 
 
+def kv_width(dec: Params) -> int:
+    """The width of a decoder's self-attention K/V on this rank: d_model,
+    or d_model / tp on a tree sharded over the model axis."""
+    k = dec["layers"]["self_attn"]["k"]
+    return (k["kernel"] if "kernel" in k else k["kernel_q"]).shape[-1]
+
+
 def init_cache(cfg: WhisperConfig, batch: int,
                dtype: torch.dtype = torch.float32,
-               max_len: Optional[int] = None, device="cpu") -> Params:
+               max_len: Optional[int] = None, device="cpu",
+               width: Optional[int] = None) -> Params:
     """Static-shape self-attention KV cache: [L, B, max_len, H*hd], heads
-    merged (a [.., T, H, hd] view of it is free).
+    merged (a [.., T, H, hd] view of it is free).  ``width``: this rank's
+    H*hd under tensor parallelism (:func:`kv_width` of the decoder),
+    d_model by default.
 
     With ``cfg.quantize_self_kv`` K/V are stored int8 (``k_q``, ``v_q``)
     with an fp32 absmax scale per (layer, batch, token) (``k_scale``,
     ``v_scale`` [L, B, max_len])."""
     max_len = max_len or cfg.max_target_positions
-    shape = (cfg.decoder_layers, batch, max_len, cfg.d_model)
+    shape = (cfg.decoder_layers, batch, max_len, width or cfg.d_model)
     if cfg.quantize_self_kv:
         return {"k_q": torch.zeros(shape, dtype=torch.int8, device=device),
                 "k_scale": torch.zeros(shape[:-1], device=device),
@@ -282,16 +325,18 @@ def init_cache(cfg: WhisperConfig, batch: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _self_kv_quantize(x: torch.Tensor):
+def _self_kv_quantize(x: torch.Tensor, group=None):
     """[B, S, d] -> (int8 [B, S, d], fp32 scale [B, S]), per-token absmax
-    with the scale floor 1e-8."""
+    (over every head: the model group's max of the ranks' heads) with the
+    scale floor 1e-8."""
     x32 = x.float()
-    q, scale = symmetric_int8(x32, x32.abs().amax(dim=-1, keepdim=True), 1e-8)
+    amax = tp.max_over(x32.abs().amax(dim=-1, keepdim=True), group)
+    q, scale = symmetric_int8(x32, amax, 1e-8)
     return q, scale[..., 0]
 
 
 def _cache_write(cache: Params, name: str, i: int, pos,
-                 kv: torch.Tensor) -> None:
+                 kv: torch.Tensor, group=None) -> None:
     """Write new K or V [B, S, d] of layer ``i`` at ``pos``, in place.
 
     ``pos`` is an int (every row at slots ``pos .. pos+S-1``) or a [B]
@@ -309,7 +354,7 @@ def _cache_write(cache: Params, name: str, i: int, pos,
     if name in cache:
         cache[name][i][rows, slots] = kv.to(cache[name].dtype)
         return
-    q, scale = _self_kv_quantize(kv)
+    q, scale = _self_kv_quantize(kv, group)
     cache[f"{name}_q"][i][rows, slots] = q
     cache[f"{name}_scale"][i][rows, slots] = scale
 
@@ -331,9 +376,11 @@ def cross_kv(params: Params, cfg: WhisperConfig,
     With ``cfg.quantize_cross_kv`` K/V are stored int8 with an fp32 absmax
     scale per (layer, batch, head), kept as a [B, 1, d] vector so that the
     dequant is one elementwise multiply; each layer is quantized as it is
-    projected."""
-    h = cfg.decoder_attention_heads
+    projected.  On a sharded tree: this rank's heads, [L, B, 1500, d/tp]."""
+    group = tp.group_of(params["layers"]["cross_attn"]["k"])
+    h = cfg.decoder_attention_heads // tp.size(group)
     quantize = cfg.quantize_cross_kv
+    enc = tp.copy_to(enc, group)
 
     def q8(x):
         b, t, d = x.shape
@@ -382,42 +429,44 @@ def _decoder_layer(lp: Params, x: torch.Tensor, self_k, self_v, ck, cv,
                    n_heads: int, self_mask, policy=(True, False),
                    output_cross_probs: bool = False,
                    rates=(0.0, 0.0, 0.0),
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, group=None):
     """One decoder layer given head-split K/V for both attentions; with
     ``output_cross_probs`` returns ``(y, fp32 cross-attention probs
-    [B, H, S, Tk])``."""
+    [B, H, S, Tk])`` (this rank's heads under tensor parallelism)."""
     f32_attn, fast_act = policy
     drop, attn_drop, act_drop = rates
     r = x
-    h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
+    h = tp.copy_to(layer_norm(lp["self_attn_ln"], x, fp32=not fast_act),
+                   group)
     q = _split_heads(dense(lp["self_attn"]["q"], h), n_heads)
     a = mha(q, self_k, self_v, self_mask, float32_logits=f32_attn,
-            dropout_rate=attn_drop, generator=generator)
-    x = r + dropout(dense(lp["self_attn"]["out"], _merge_heads(a)), drop,
-                    generator)
+            dropout_rate=attn_drop, generator=generator, dropout_group=group)
+    x = r + dropout(dense(lp["self_attn"]["out"], _merge_heads(a), group),
+                    drop, generator)
 
     r = x
-    h = layer_norm(lp["cross_attn_ln"], x, fp32=not fast_act)
+    h = tp.copy_to(layer_norm(lp["cross_attn_ln"], x, fp32=not fast_act),
+                   group)
     q = _split_heads(dense(lp["cross_attn"]["q"], h), n_heads)
     a = mha(q, ck, cv, float32_logits=f32_attn,
             return_probs=output_cross_probs, dropout_rate=attn_drop,
-            generator=generator)
+            generator=generator, dropout_group=group)
     if output_cross_probs:
         a, cross_probs = a
-    x = r + dropout(dense(lp["cross_attn"]["out"], _merge_heads(a)), drop,
-                    generator)
+    x = r + dropout(dense(lp["cross_attn"]["out"], _merge_heads(a), group),
+                    drop, generator)
 
     r = x
     h = layer_norm(lp["final_ln"], x, fp32=not fast_act)
     h = mlp_block(lp["fc1"], lp["fc2"], h, exact_gelu=not fast_act,
-                  act_dropout=act_drop, generator=generator)
+                  act_dropout=act_drop, generator=generator, group=group)
     y = r + dropout(h, drop, generator)
     return (y, cross_probs) if output_cross_probs else y
 
 
 def _cached_layer(lp: Params, x: torch.Tensor, h: torch.Tensor, k_all, v_all,
                   ck, cv, n_heads: int, self_mask, mask2, merged_fast: bool,
-                  policy):
+                  policy, group=None):
     """One decoder layer against merged-layout K/V [B, T, d]; ``h`` is the
     self-attention LayerNorm of ``x`` (already computed for the new K/V)."""
     f32_attn, fast_act = policy
@@ -430,7 +479,7 @@ def _cached_layer(lp: Params, x: torch.Tensor, h: torch.Tensor, k_all, v_all,
                              _split_heads(k_all, n_heads),
                              _split_heads(v_all, n_heads),
                              self_mask, float32_logits=f32_attn))
-    x = r + dense(lp["self_attn"]["out"], a)
+    x = r + dense(lp["self_attn"]["out"], a, group)
 
     r = x
     h = layer_norm(lp["cross_attn_ln"], x, fp32=not fast_act)
@@ -441,11 +490,12 @@ def _cached_layer(lp: Params, x: torch.Tensor, h: torch.Tensor, k_all, v_all,
         a = _merge_heads(mha(_split_heads(q, n_heads), _split_heads(ck, n_heads),
                              _split_heads(cv, n_heads),
                              float32_logits=f32_attn))
-    x = r + dense(lp["cross_attn"]["out"], a)
+    x = r + dense(lp["cross_attn"]["out"], a, group)
 
     r = x
     h = layer_norm(lp["final_ln"], x, fp32=not fast_act)
-    return r + mlp_block(lp["fc1"], lp["fc2"], h, exact_gelu=not fast_act)
+    return r + mlp_block(lp["fc1"], lp["fc2"], h, exact_gelu=not fast_act,
+                         group=group)
 
 
 def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
@@ -496,7 +546,8 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     output and every layer's output, the last after the final LayerNorm.
     """
     b, s = tokens.shape
-    n_heads = cfg.decoder_attention_heads
+    group = tp.group_of(params["layers"]["self_attn"]["q"])
+    n_heads = cfg.decoder_attention_heads // tp.size(group)
     device = tokens.device
     pos_table = params["pos_emb"].to(dtype)
     x = params["tok_emb"].to(dtype)[tokens]
@@ -546,13 +597,14 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
         rates, seeds = (0.0, 0.0, 0.0), [None] * cfg.decoder_layers
 
     def uncached_layer(x, lp, ck, cv, seed):
-        h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
+        h = tp.copy_to(layer_norm(lp["self_attn_ln"], x, fp32=not fast_act),
+                       group)
         k = _split_heads(dense(lp["self_attn"]["k"], h), n_heads)
         v = _split_heads(dense(lp["self_attn"]["v"], h), n_heads)
         return _decoder_layer(lp, x, k, v, _split_heads(ck, n_heads),
                               _split_heads(cv, n_heads), n_heads, self_mask,
                               policy, rates=rates,
-                              generator=_generator(seed, device))
+                              generator=_generator(seed, device), group=group)
 
     hs = []
     for i in range(cfg.decoder_layers):
@@ -564,11 +616,14 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
             x = _run_layer(uncached_layer, remat, x, lp, ck, cv, seeds[i])
             continue
         h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
-        _cache_write(cache, "k", i, pos_offset, dense(lp["self_attn"]["k"], h))
-        _cache_write(cache, "v", i, pos_offset, dense(lp["self_attn"]["v"], h))
+        _cache_write(cache, "k", i, pos_offset, dense(lp["self_attn"]["k"], h),
+                     group)
+        _cache_write(cache, "v", i, pos_offset, dense(lp["self_attn"]["v"], h),
+                     group)
         x = _cached_layer(lp, x, h, _cache_read(cache, "k", i, dtype),
                           _cache_read(cache, "v", i, dtype), ck, cv,
-                          n_heads, self_mask, mask2, merged_fast, policy)
+                          n_heads, self_mask, mask2, merged_fast, policy,
+                          group)
 
     y = layer_norm(params["ln"], x)
     if skip_logits:
@@ -601,9 +656,11 @@ def cross_attention_probs(params: Params, cfg: WhisperConfig,
     Cross-attention rows depend only on the decoder state at their own
     position, so this one pass gives the per-step cross-attentions that
     cached generation sees (the input of the DTW word-timestamp alignment).
+    Under tensor parallelism every head's, gathered over the model group.
     """
     b, s = tokens.shape
-    n_heads = cfg.decoder_attention_heads
+    group = tp.group_of(params["layers"]["self_attn"]["q"])
+    n_heads = cfg.decoder_attention_heads // tp.size(group)
     x = params["tok_emb"].to(dtype)[tokens.long()]
     x = x + params["pos_emb"].to(dtype)[:s]
     if cross is None:
@@ -620,8 +677,9 @@ def cross_attention_probs(params: Params, cfg: WhisperConfig,
         v = _split_heads(dense(lp["self_attn"]["v"], h), n_heads)
         x, probs = _decoder_layer(lp, x, k, v, _split_heads(ck, n_heads),
                                   _split_heads(cv, n_heads), n_heads, mask,
-                                  policy, output_cross_probs=True)
-        yield i, probs
+                                  policy, output_cross_probs=True,
+                                  group=group)
+        yield i, tp.all_gather(probs, 1, group)
 
 
 def cross_attention_weights(params: Params, cfg: WhisperConfig,

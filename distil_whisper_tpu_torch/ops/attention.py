@@ -20,7 +20,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         float32_logits: bool = True, return_probs: bool = False,
         dropout_rate: float = 0.0,
-        generator: Optional[torch.Generator] = None):
+        generator: Optional[torch.Generator] = None, dropout_group=None):
     """Scaled dot-product attention (einsum formulation).
 
     q: [B, Tq, H, D]   k, v: [B, Tk, H, D]   mask: broadcastable to [B, H, Tq, Tk]
@@ -35,7 +35,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cross-attention DTW alignment.
 
     ``dropout_rate`` with a ``generator``: inverted dropout on the
-    probabilities (training), as JAX's ``dropout_rng``.
+    probabilities (training), as JAX's ``dropout_rng``; with a model
+    ``dropout_group`` the heads are this rank's, masked as their slice of
+    the unsharded draw.
     """
     dtype = q.dtype
     scale = q.shape[-1] ** -0.5
@@ -48,8 +50,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(dtype)
     if dropout_rate > 0.0 and generator is not None:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_rate
+        from ..parallel.tensor_parallel import rand_shard
+        keep = rand_shard(probs.shape, 1, dropout_group, generator,
+                          probs.device) < 1.0 - dropout_rate
         probs = torch.where(keep, probs / (1.0 - dropout_rate),
                             torch.zeros_like(probs))
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dtype)

@@ -26,7 +26,11 @@ plain version directly.
 
 ``fused_self_attention`` also takes a QAT w8a8 tree (``ops/qat.py``): it
 fake-quantizes the q/k/v input and the out-projection's input, with the
-kernel and its recompute backward in between.
+kernel and its recompute backward in between.  Under tensor parallelism it
+runs the kernel on this rank's heads ([B, H/tp, T, 64] views of the
+[B, T, d/tp] projections) and its out-projection is row-parallel: partials
+summed over the model group, an int8 or fake-quant row scale its max
+(``parallel/tensor_parallel.py``).
 
 Not ported: the TPU-only ``exp_impl`` and ``fused_qkv`` knobs (measured dead
 on the TPU).
@@ -41,6 +45,7 @@ import math
 import torch
 
 from . import _build
+from ..parallel import tensor_parallel as tp
 from .qat import ACT_FQ_KEY, fake_quant_acts
 from .quant import dense_int8, quantize_acts
 
@@ -186,17 +191,19 @@ encoder_attention.launches = 0
 
 
 def fused_self_attention(p_attn, x_ln: torch.Tensor, n_heads: int,
-                         t_real: int) -> torch.Tensor:
+                         t_real: int, group=None) -> torch.Tensor:
     """Post-LN hidden states [B, T, d_model] -> self-attention block output
     [B, T, d_model] through :func:`encoder_attention`.
 
-    q/k/v are projected as [B, T, d_model] (fp32 accumulation, cast, then the
+    q/k/v are projected as [B, T, H*D] (fp32 accumulation, cast, then the
     bias added in the working dtype, as ``dense``) and handed to the kernel
     as [B, H, T, D] views; the kernel writes its output in the same layout, so
-    the out-projection reads [B, T, d_model] with no copy."""
-    b, t, dm = x_ln.shape
-    d = dm // n_heads
+    the out-projection reads [B, T, H*D] with no copy.  ``n_heads`` are this
+    rank's under tensor parallelism over ``group``, and D comes from the
+    projections' width."""
+    b, t, _ = x_ln.shape
     quantized = "kernel_q" in p_attn["q"]
+    x_ln = tp.copy_to(x_ln, group)
     act_fq = ACT_FQ_KEY in p_attn["q"]
     if act_fq:
         # QAT w8a8 tree (ops/qat.py): fake-quant the shared q/k/v input as
@@ -213,18 +220,20 @@ def fused_self_attention(p_attn, x_ln: torch.Tensor, n_heads: int,
             y = torch.matmul(x_ln, p["kernel"].to(x_ln.dtype))
             if "bias" in p:
                 y = y + p["bias"].to(y.dtype)
-        return y.view(b, t, n_heads, d).transpose(1, 2)          # [B, H, T, D]
+        w = y.shape[-1]
+        return y.view(b, t, n_heads, w // n_heads).transpose(1, 2)  # [B,H,T,D]
 
     a = encoder_attention(proj(p_attn["q"]), proj(p_attn["k"]),
                           proj(p_attn["v"]), t_real)
-    a = a.transpose(1, 2).reshape(b, t, dm)
+    a = a.transpose(1, 2).reshape(b, t, -1)
     if quantized:
         # JAX scales the out-projection's input per (b, t) over (h, k): the
-        # same elements as a per-row scale of the merged [B, T, d] row
-        return dense_int8(p_attn["out"], a)
+        # same elements as a per-row scale of the merged [B, T, d] row (over
+        # the model group's heads under tensor parallelism)
+        return dense_int8(p_attn["out"], a, group=group)
     if act_fq:
         # JAX fake-quants the out-projection's input per (b, t) over (h, k):
         # a per-row fake-quant of the merged [B, T, d] row, as above
-        a = fake_quant_acts(a)
-    y = torch.matmul(a, p_attn["out"]["kernel"].to(a.dtype))
+        a = fake_quant_acts(a, group)
+    y = tp.matmul(a, p_attn["out"]["kernel"], group)
     return y + p_attn["out"]["bias"].to(y.dtype)

@@ -31,6 +31,14 @@ from the host is computed here: the tensor maps' geometry
 CUDA tensors (bf16 only) and runs :func:`fused_int8_mlp_plain` for CPU
 tensors; anything else raises.  ``fused_int8_mlp.launches`` counts launches
 of the chain.
+
+Tensor parallelism: on a model-axis shard (fc1 column-parallel, fc2
+row-parallel, ``ffn / tp`` columns a rank) the chain runs on the local
+ffn, and ``partial=True`` makes fc2 write its fp32 partial ``acc * w2s``
+with no bias (a template flag on the kernel's epilogue); the caller sums
+the partials over the model group and adds the bias once.  The
+per-(row, chunk) requantization stays the unsharded function only while a
+shard holds whole chunks (:func:`check_whole_chunks`).
 """
 
 from __future__ import annotations
@@ -64,6 +72,18 @@ def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + _erf(x * 0.7071067811865476))
 
 
+def check_whole_chunks(f: int, tp: int) -> None:
+    """Raise ``ValueError`` where a model axis of ``tp`` splits the
+    requantization chunks of an ffn of ``f`` columns that the kernel would
+    run whole: the shard's own chunks would then be other rows of scales
+    (or the unfused per-row path would run), not the unsharded function."""
+    if f % CHUNK_F == 0 and (f // tp) % CHUNK_F:
+        raise ValueError(
+            f"a model axis of {tp} splits the int8 MLP kernel's {CHUNK_F}-"
+            f"column requantization chunks of an ffn of {f} (shards of "
+            f"{f // tp}); the degree must leave whole chunks")
+
+
 def mlp_supported(fc1, x: torch.Tensor) -> bool:
     """The JAX shape gate of the fused path: int8 weights, d % 128 == 0,
     ffn % 512 == 0 and at least 256 rows (below that the work is weight-read
@@ -87,9 +107,11 @@ def _operands(fc1, fc2):
     return fc1["kernel_q"], w1s, b1, fc2["kernel_q"], w2s, b2
 
 
-def fused_int8_mlp_plain(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
+def fused_int8_mlp_plain(fc1, fc2, x: torch.Tensor,
+                         partial: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch: x [..., D] -> [..., D] in
-    x.dtype (int8 products exact, fp32 epilogues in the kernel's order)."""
+    x.dtype (int8 products exact, fp32 epilogues in the kernel's order).
+    ``partial``: the fp32 ``acc * w2s`` of a row-parallel fc2, no bias."""
     w1q, w1s, b1, w2q, w2s, b2 = _operands(fc1, fc2)
     d, f = w1q.shape
     xm = x.reshape(-1, d)
@@ -102,6 +124,8 @@ def fused_int8_mlp_plain(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
         y = int_mm(hq[:, c], w2q[c * CHUNK_F:(c + 1) * CHUNK_F]).float()
         y = y * hs[:, c]
         acc = y if acc is None else acc + y
+    if partial:
+        return (acc * w2s).view(x.shape)
     return (acc * w2s + b2).to(x.dtype).view(x.shape)
 
 
@@ -110,7 +134,7 @@ def _lib():
     lib = _build.load("int8_mlp")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dw_int8_mlp.argtypes = ([p] * 7 + [p] * 4 + [p, i, i, i] + [ll] * 5
-                                + [i, i, p])
+                                + [i, i, i, p])
     lib.dw_int8_mlp.restype = ctypes.c_int
     return lib
 
@@ -161,11 +185,13 @@ def tile_schedule(m: int, n: int, product: str, n_sm: int):
             for c in range(n_clusters)]
 
 
-def fused_int8_mlp(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
+def fused_int8_mlp(fc1, fc2, x: torch.Tensor,
+                   partial: bool = False) -> torch.Tensor:
     """W8A8 MLP of x [..., D] against int8 dense params ``fc1`` [D, F] and
-    ``fc2`` [F, D] -> [..., D] in x.dtype."""
+    ``fc2`` [F, D] -> [..., D] in x.dtype; with ``partial`` the fp32
+    partial of a row-parallel fc2 (no bias)."""
     if x.device.type == "cpu":
-        return fused_int8_mlp_plain(fc1, fc2, x)
+        return fused_int8_mlp_plain(fc1, fc2, x, partial)
     if x.device.type != "cuda":
         raise ValueError(f"fused_int8_mlp: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
@@ -183,7 +209,7 @@ def fused_int8_mlp(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
         if t.device != x.device:
             raise ValueError(f"fused_int8_mlp: {name} on {t.device}")
     w1s, b1, w2s, b2 = (t.contiguous() for t in (w1s, b1, w2s, b2))
-    out = torch.empty_like(xm)
+    out = torch.empty_like(xm, dtype=torch.float32 if partial else None)
     # scratch of the kernel chain: int8 x and its row scales, int8 gelu
     # output and its per-(row, chunk) scales
     xq = torch.empty((m, d), dtype=torch.int8, device=x.device)
@@ -205,7 +231,7 @@ def fused_int8_mlp(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
             xq.data_ptr(), xs.data_ptr(), hq.data_ptr(), hs.data_ptr(),
             out.data_ptr(), m, d, f,
             *(geo[k][1] for k in ("x", "w1q", "w2q", "xq", "hq")), *clusters,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            int(partial), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 MLP kernel launch failed (cudaError {err})")
     _build.count_launch(fused_int8_mlp)

@@ -21,6 +21,11 @@ are the ones the int8 path serves:
   ``cfg.quantize_decoder`` serves; the encoder's too when it is unfrozen.
   The tied embedding stays exact.
 
+Under tensor parallelism a row-parallel kernel (out, fc2) takes the model
+group's max of its per-output-channel absmax, every step (the weights
+move), and a row-parallel input the group's max of its row absmax, so the
+fake-quant values are the unsharded tree's.
+
 The straight-through sum is written as JAX writes it, ``x + (dq -
 x).detach()`` in fp32 and then cast: returning ``dq`` itself would differ
 from JAX's ``x + stop_gradient(q - x)`` in the last fp32 bit.  The
@@ -35,8 +40,8 @@ from typing import Any, Dict, Sequence
 
 import torch
 
-from .quant import (map_decoder_dense, map_encoder_dense, over_127,
-                    quantize_acts, quantize_weight)
+from .quant import (layers_group, map_decoder_dense, map_encoder_dense,
+                    over_127, quantize_acts, quantize_weight)
 
 Params = Dict[str, Any]
 
@@ -49,17 +54,19 @@ def _ste(x32: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
     return x32 + (dq - x32).detach()
 
 
-def fake_quant_weight(kernel: torch.Tensor, contract_axis: int = -2
-                      ) -> torch.Tensor:
+def fake_quant_weight(kernel: torch.Tensor, contract_axis: int = -2,
+                      group=None) -> torch.Tensor:
     """Per-output-channel int8 fake-quant with identity gradient: the value
-    of ``q * scale`` of :func:`..ops.quant.quantize_weight`."""
-    q, scale = quantize_weight(kernel.detach(), contract_axis)
+    of ``q * scale`` of :func:`..ops.quant.quantize_weight` (``group``: a
+    row-parallel shard)."""
+    q, scale = quantize_weight(kernel.detach(), contract_axis, group)
     return _ste(kernel.float(), q.float() * scale).to(kernel.dtype)
 
 
-def fake_quant_acts(x: torch.Tensor) -> torch.Tensor:
-    """Dynamic per-row (last-dim) int8 fake-quant, identity gradient."""
-    q, scale = quantize_acts(x.detach())
+def fake_quant_acts(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Dynamic per-row (last-dim) int8 fake-quant, identity gradient
+    (``group``: a row-parallel input)."""
+    q, scale = quantize_acts(x.detach(), group)
     return _ste(x.float(), q.float() * scale).to(x.dtype)
 
 
@@ -74,10 +81,11 @@ def fake_quant_acts_axes(x: torch.Tensor, axes: Sequence[int]
     return _ste(x32, dq).to(x.dtype)
 
 
-def fake_quant_dense(p: Params, acts: bool) -> Params:
+def fake_quant_dense(p: Params, acts: bool, group=None) -> Params:
     """{kernel, bias?} -> the same tree with fake-quant kernel values (and
-    the ``act_fq`` marker in w8a8 mode)."""
-    out = {"kernel": fake_quant_weight(p["kernel"])}
+    the ``act_fq`` marker in w8a8 mode); ``group`` for a row-parallel
+    shard."""
+    out = {"kernel": fake_quant_weight(p["kernel"], group=group)}
     if "bias" in p:
         out["bias"] = p["bias"]
     if acts:
@@ -98,8 +106,9 @@ def fake_quant_decoder_params(dec: Params, acts: bool = True) -> Params:
     int8 MLP kernel, which requantizes the gelu output per (row, 512-chunk),
     finer than QAT's per-row fake-quant of the fc2 input."""
     out = dict(dec)
-    out["layers"] = map_decoder_dense(dec["layers"],
-                                      lambda p: fake_quant_dense(p, acts))
+    out["layers"] = map_decoder_dense(
+        dec["layers"], lambda p, g: fake_quant_dense(p, acts, g),
+        layers_group(dec["layers"]))
     return out
 
 
@@ -109,8 +118,9 @@ def fake_quant_encoder_params(enc: Params, acts: bool = True) -> Params:
     unfrozen; the fused int8 MLP kernel that serves it requantizes per
     (row, 512-chunk), as noted for the decoder."""
     out = dict(enc)
-    out["layers"] = map_encoder_dense(enc["layers"],
-                                      lambda p: fake_quant_dense(p, acts))
+    out["layers"] = map_encoder_dense(
+        enc["layers"], lambda p, g: fake_quant_dense(p, acts, g),
+        layers_group(enc["layers"]))
     return out
 
 

@@ -25,6 +25,15 @@ multiple of 8.  :func:`int_mm` pads the rows (zero rows, sliced off after)
 and checks the widths; Whisper's widths (64..5120) are multiples of 8.  The
 int8 lm head puts the 51866-row vocabulary on the row side so that it needs
 no pad (``models/whisper.py``).
+
+Tensor parallelism (``parallel/tensor_parallel.py``): a row-parallel
+product (``group`` given: the input is this rank's slice of the
+contraction) takes the model group's max of the per-row activation absmax,
+so that every rank quantizes its slice as the unsharded row, and sums the
+int32 products over the group (exactly) before the rescale and the bias.
+Weight scales are per output channel over the whole contraction: quantize
+the unsharded tree and then shard it, or quantize a sharded tree, whose
+row-parallel kernels then take the group's max of their channel absmax.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+
+from ..parallel import tensor_parallel as tp
 
 Params = Dict[str, Any]
 
@@ -63,21 +74,25 @@ def symmetric_int8(x32: torch.Tensor, amax: torch.Tensor,
     return q, scale
 
 
-def quantize_weight(kernel: torch.Tensor,
-                    contract_axis: int = -2) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
+def quantize_weight(kernel: torch.Tensor, contract_axis: int = -2,
+                    group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel absmax int8: ``kernel [..., i, o]``
     (contraction on ``contract_axis``) -> (int8, fp32 scale with the
-    contraction axis kept as 1)."""
+    contraction axis kept as 1).  ``group``: the contraction is sharded
+    over the model group (a row-parallel kernel)."""
     k32 = kernel.float()
-    return symmetric_int8(k32, k32.abs().amax(dim=contract_axis, keepdim=True))
+    amax = tp.max_over(k32.abs().amax(dim=contract_axis, keepdim=True), group)
+    return symmetric_int8(k32, amax)
 
 
-def quantize_acts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_acts(x: torch.Tensor, group=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-row (last-dim) absmax int8: ``[..., K]`` ->
-    (int8 ``[..., K]``, fp32 scale ``[..., 1]``)."""
+    (int8 ``[..., K]``, fp32 scale ``[..., 1]``).  ``group``: the rows are
+    sharded over the model group (a row-parallel input)."""
     x32 = x.float()
-    return symmetric_int8(x32, x32.abs().amax(dim=-1, keepdim=True))
+    amax = tp.max_over(x32.abs().amax(dim=-1, keepdim=True), group)
+    return symmetric_int8(x32, amax)
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -96,52 +111,75 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def dense_int8(p: Params, x: torch.Tensor, xq: torch.Tensor = None,
-               xs: torch.Tensor = None) -> torch.Tensor:
+               xs: torch.Tensor = None, group=None) -> torch.Tensor:
     """``dense()`` against int8 weights ``{kernel_q [i, o], kernel_scale
     [1, o], bias?}``.  Pass a pre-quantized ``(xq, xs)`` to share one
-    activation quantization across several projections."""
+    activation quantization across several projections.  ``group``: a
+    row-parallel product over the model group."""
     if xq is None:
-        xq, xs = quantize_acts(x)
+        xq, xs = quantize_acts(x, group)
     lead = xq.shape[:-1]
-    y = int_mm(xq.reshape(-1, xq.shape[-1]), p["kernel_q"])
+    y = tp.reduce_int(int_mm(xq.reshape(-1, xq.shape[-1]), p["kernel_q"]),
+                      group)
     y = y.reshape(*lead, -1).float() * xs * p["kernel_scale"]
     if "bias" in p:
         y = y + p["bias"].float()
     return y.to(x.dtype)
 
 
-def quantize_dense(p: Params) -> Params:
+def quantize_dense(p: Params, group=None) -> Params:
     """{kernel, bias?} -> {kernel_q, kernel_scale, bias?} (stacked [L, i, o]
-    kernels quantize per (layer, output channel))."""
-    q, s = quantize_weight(p["kernel"])
+    kernels quantize per (layer, output channel)); ``group`` for a
+    row-parallel shard."""
+    q, s = quantize_weight(p["kernel"], group=group)
     out = {"kernel_q": output_major(q), "kernel_scale": s}
     if "bias" in p:
         out["bias"] = p["bias"]
     return out
 
 
-def map_encoder_dense(layers: Params, fn) -> Params:
-    """Apply ``fn`` to every quantizable dense subtree of an encoder layer
-    stack (self-attention q/k/v/out, fc1/fc2): the encoder's quantization
-    scope."""
+# the dense subtrees whose contraction is sharded under tensor parallelism
+ROW_PARALLEL = ("out", "fc2")
+
+
+def map_encoder_dense(layers: Params, fn, group=None) -> Params:
+    """Apply ``fn(p, group)`` to every quantizable dense subtree of an
+    encoder layer stack (self-attention q/k/v/out, fc1/fc2): the encoder's
+    quantization scope.  ``group`` (the model group of a sharded tree)
+    reaches the row-parallel ones only."""
     out = dict(layers)
-    out["self_attn"] = {name: fn(layers["self_attn"][name])
+    out["self_attn"] = {name: fn(layers["self_attn"][name],
+                                 group if name in ROW_PARALLEL else None)
                         for name in ("q", "k", "v", "out")}
     for name in ("fc1", "fc2"):
-        out[name] = fn(layers[name])
+        out[name] = fn(layers[name], group if name in ROW_PARALLEL else None)
     return out
 
 
-def map_decoder_dense(layers: Params, fn) -> Params:
-    """Apply ``fn`` to every quantizable dense subtree of a decoder layer
-    stack (self/cross-attention q/k/v/out, fc1/fc2)."""
+def map_decoder_dense(layers: Params, fn, group=None) -> Params:
+    """Apply ``fn(p, group)`` to every quantizable dense subtree of a
+    decoder layer stack (self/cross-attention q/k/v/out, fc1/fc2), as
+    :func:`map_encoder_dense`."""
     out = dict(layers)
     for attn in ("self_attn", "cross_attn"):
-        out[attn] = {name: fn(layers[attn][name])
+        out[attn] = {name: fn(layers[attn][name],
+                              group if name in ROW_PARALLEL else None)
                      for name in ("q", "k", "v", "out")}
     for name in ("fc1", "fc2"):
-        out[name] = fn(layers[name])
+        out[name] = fn(layers[name], group if name in ROW_PARALLEL else None)
     return out
+
+
+def layers_group(layers: Params):
+    """The model group a layer stack is sharded over (None: unsharded);
+    raises where its int8 MLP would split a requantization chunk."""
+    group = tp.group_of(layers["self_attn"]["q"])
+    if group is not None:
+        from .int8_mlp import check_whole_chunks
+        fc1 = layers["fc1"]
+        f = (fc1["kernel"] if "kernel" in fc1 else fc1["kernel_q"]).shape[-1]
+        check_whole_chunks(f * tp.size(group), tp.size(group))
+    return group
 
 
 def quantize_encoder_params(enc: Params) -> Params:
@@ -150,7 +188,8 @@ def quantize_encoder_params(enc: Params) -> Params:
     if "kernel_q" in enc["layers"]["fc1"]:
         return enc
     out = dict(enc)
-    out["layers"] = map_encoder_dense(enc["layers"], quantize_dense)
+    out["layers"] = map_encoder_dense(enc["layers"], quantize_dense,
+                                      layers_group(enc["layers"]))
     return out
 
 
@@ -160,7 +199,8 @@ def quantize_decoder_params(dec: Params) -> Params:
     if "kernel_q" in dec["layers"]["fc1"]:
         return dec
     out = dict(dec)
-    out["layers"] = map_decoder_dense(dec["layers"], quantize_dense)
+    out["layers"] = map_decoder_dense(dec["layers"], quantize_dense,
+                                      layers_group(dec["layers"]))
     return out
 
 

@@ -1,9 +1,11 @@
-"""Data-parallel multi-GPU: process groups, the device mesh and its rules,
+"""Multi-GPU: process groups, the ``(data, model)`` device mesh and its
+rules, tensor parallelism over the model axis (``tensor_parallel``),
 host-side collectives, and a multi-process dry run (``parallel.dryrun``)."""
 
 from .mesh import (  # noqa: F401
     DEFAULT_RULES, RULES_2D, make_mesh, spec_for_axes, shardings_for_tree,
-    shard_params, shard_batch, data_sharding, replicated,
+    shard_params, gather_params, shard_batch, data_sharding, replicated,
+    data_group, model_group, coordinates,
 )
 from .multihost import (  # noqa: F401
     maybe_initialize_distributed, host_local_batch_to_global,

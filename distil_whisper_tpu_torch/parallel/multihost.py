@@ -109,11 +109,15 @@ def barrier() -> None:
         dist.barrier(group=host_group())
 
 
-def process_local_slice(n_items: int) -> slice:
+def process_local_slice(n_items: int, index: int = None,
+                        count: int = None) -> slice:
     """Which slice of a globally ordered dataset this rank feeds: equal
-    slices of ``n_items // world`` rows, the tail dropped."""
-    per = n_items // max(world_size(), 1)
-    i = rank()
+    slices of ``n_items // world`` rows, the tail dropped.  ``index`` and
+    ``count``: the rank's data coordinate and the data axis's size, in
+    place of the rank and the world (tensor parallelism)."""
+    count = world_size() if count is None else count
+    i = rank() if index is None else index
+    per = n_items // max(count, 1)
     return slice(i * per, (i + 1) * per)
 
 
@@ -213,10 +217,16 @@ def broadcast_(tensors: List[torch.Tensor], src: int = 0,
             t.copy_(f.view(t.shape))
 
 
-def rank_generator(seed: int, device="cpu") -> torch.Generator:
-    """A generator seeded with (seed, rank): each rank's own dropout draws
-    (ranks drawing the same masks would train correlated replicas)."""
+def rank_generator(seed: int, device="cpu", mesh=None) -> torch.Generator:
+    """A generator seeded with (seed, this rank's data coordinate on
+    ``mesh``; its rank without one): each data rank's own dropout draws
+    (data ranks drawing the same masks would train correlated replicas),
+    and one draw for the ranks of a model group, whose replicated
+    activations must agree and whose sliced masks must add up to the
+    unsharded mask (``tensor_parallel.rand_shard``)."""
+    from .mesh import coordinates
+    index = rank() if mesh is None else coordinates(mesh)[0]
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) * 1_000_003 + rank())
+    gen.manual_seed(int(seed) * 1_000_003 + index)
     return gen
 

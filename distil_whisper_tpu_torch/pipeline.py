@@ -22,7 +22,15 @@ greedy output (segment timestamps included), so the chunk merge is
 unchanged.  Beam search, word timestamps and sampled requests take their
 plain paths.
 
-Not in this slice: the device mesh.
+``mesh`` (``parallel.make_mesh((dp, tp))``, JAX's ``mesh=``): every rank of
+the job builds the pipeline and calls it with the same audio (SPMD).  The
+parameters (and a draft's) are sharded over the 'model' axis, so that each
+model group runs one tensor-parallel copy; each batch of windows is padded
+to a multiple of the data axis (the last window repeated), each data rank
+decodes its slice, and the tokens are gathered over the ranks, so every
+rank returns the whole result.  Speculation counters are the rank's own.
+The serving schedulers do not take a meshed pipeline yet (ROADMAP.md queue
+1, item 2).
 """
 
 from __future__ import annotations
@@ -45,8 +53,9 @@ from .generation.word_timestamps import (default_alignment_heads,
                                          token_timestamps_from_weights,
                                          words_from_tokens)
 from .models import load_params
-from .models.whisper import cross_kv, decode, encode, init_cache
+from .models.whisper import cross_kv, decode, encode, init_cache, kv_width
 from .ops.quant import maybe_quantize_encoder
+from .parallel.mesh import coordinates, shard_params
 from .tokenizer import WhisperTokenizer
 
 
@@ -58,7 +67,8 @@ class WhisperPipeline:
                  params=None, cfg: Optional[WhisperConfig] = None,
                  tokenizer: Optional[WhisperTokenizer] = None,
                  speculative_method: Optional[str] = None, assistant=None,
-                 gamma: int = 5, max_ngram: int = 3, device="cuda"):
+                 gamma: int = 5, max_ngram: int = 3, device="cuda",
+                 mesh=None):
         check_method(speculative_method, assistant)
         self.device = resolve_device(device)
         if params is None or cfg is None:
@@ -68,9 +78,12 @@ class WhisperPipeline:
         # the cache and cross-K/V flags reach init_cache and cross_kv
         # through cfg
         params = maybe_quantize_encoder(params, cfg)
+        if mesh is not None:
+            params = shard_params(params, mesh, cfg=cfg)
         if dtype == torch.bfloat16:
             cfg = cfg.replace(fast_bf16_attention=True, use_flash_encoder=True)
-        assistant = prepare_assistant(assistant, dtype, self.device)
+        assistant = prepare_assistant(assistant, dtype, self.device, mesh)
+        self.mesh = mesh
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer or WhisperTokenizer.from_pretrained(checkpoint)
@@ -94,7 +107,8 @@ class WhisperPipeline:
         enc = encode(self.params["encoder"], cfg, mel, dtype=self.dtype)
         cross = cross_kv(self.params["decoder"], cfg, enc)
         cache = init_cache(cfg, mel.shape[0], dtype=self.dtype,
-                           device=mel.device)
+                           device=mel.device,
+                           width=kv_width(self.params["decoder"]))
         prompt = torch.full((mel.shape[0], 1), cfg.decoder_start_token_id,
                             dtype=torch.long, device=mel.device)
         logits, _ = decode(self.params["decoder"], cfg, prompt, cross=cross,
@@ -147,11 +161,38 @@ class WhisperPipeline:
                 self._align_heads = default_alignment_heads(self.cfg)
         return self._align_heads
 
-    @torch.no_grad()
     def _decode_batch(self, mels: torch.Tensor, prompts: List[List[int]],
                       opts: GenerationOptions, num_beams: int,
                       length_penalty: float,
                       num_frames: Optional[List[int]] = None):
+        """:meth:`_decode_rows` of a batch of windows; under a mesh with a
+        data axis, of this data rank's slice of it (padded to a multiple
+        of the axis with the last window), gathered from every rank."""
+        d, n_data, _, tp = coordinates(self.mesh)
+        if n_data == 1:
+            return self._decode_rows(mels, prompts, opts, num_beams,
+                                     length_penalty, num_frames)
+        from .parallel.multihost import gather_rows
+        b = mels.shape[0]
+        per = -(-b // n_data)
+        pad = [b - 1] * (per * n_data - b)
+        rows = (list(range(b)) + pad)[d * per:(d + 1) * per]
+        parts = self._decode_rows(
+            mels[rows], [prompts[r] for r in rows], opts, num_beams,
+            length_penalty, None if num_frames is None
+            else [num_frames[r] for r in rows])
+        # every rank's rows in rank order; a data rank's come from the
+        # first rank of its model group (the model axis is the inner one)
+        out = [None if p is None else
+               gather_rows(p).reshape(n_data, tp, *p.shape)[:, 0]
+               .reshape(-1, *p.shape[1:])[:b] for p in parts]
+        return tuple(out)
+
+    @torch.no_grad()
+    def _decode_rows(self, mels: torch.Tensor, prompts: List[List[int]],
+                     opts: GenerationOptions, num_beams: int,
+                     length_penalty: float,
+                     num_frames: Optional[List[int]] = None):
         """One batch of windows: encode, cross K/V, generate or beam search,
         and with ``num_frames`` (word timestamps) the alignment pass over the
         chosen tokens, sharing the cross K/V.  Returns host arrays

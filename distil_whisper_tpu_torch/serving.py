@@ -48,6 +48,7 @@ from .generation.speculative import (ngram_speculative_generate_batched,
                                      prepare_assistant,
                                      speculative_generate_batched)
 from .models.whisper import cross_kv, encode
+from .parallel.mesh import NEXT_SLICE
 
 logger = logging.getLogger("distil_whisper_tpu_torch")
 
@@ -335,6 +336,14 @@ class _Request:
     cancelled: bool = False
 
 
+def refuse_mesh(pipe) -> None:
+    """The schedulers serve a single-process pipeline: a pipeline with a
+    mesh raises, naming the ROADMAP.md item that brings it."""
+    if getattr(pipe, "mesh", None) is not None:
+        raise NotImplementedError(f"serving a pipeline with a mesh "
+                                  f"{NEXT_SLICE}")
+
+
 class BatchingTranscriber(_StatsMixin):
     """Micro-batching front-end over a :class:`.pipeline.WhisperPipeline`.
 
@@ -352,6 +361,7 @@ class BatchingTranscriber(_StatsMixin):
                  adaptive_gamma: bool = False,
                  draft_cost: Optional[float] = None):
         resolve_device(pipe.device)     # a missing card fails here
+        refuse_mesh(pipe)
         self.pipe = pipe
         self.batch_size = batch_size or pipe.batch_size
         self.max_wait_s = max_wait_ms / 1e3

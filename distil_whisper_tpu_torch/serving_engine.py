@@ -69,7 +69,8 @@ from .models.whisper import cross_kv, decode, encode, init_cache
 from .serving import (ServerOverloadedError, _budget, _coerce_beams,
                       _coerce_mode, _coerce_sampling, _coerce_timestamps,
                       _gamma_step, _SeedCounter, _SequentialRunner,
-                      _short_result, _StatsMixin, estimate_accept)
+                      _short_result, _StatsMixin, estimate_accept,
+                      refuse_mesh)
 
 logger = logging.getLogger("distil_whisper_tpu_torch")
 
@@ -185,6 +186,7 @@ class ContinuousBatchingEngine:
                  synthetic_acceptance: Optional[float] = None,
                  ngram_speculative: bool = False, max_ngram: int = 3,
                  synthetic_period: Optional[int] = None):
+        refuse_mesh(pipe)
         self.pipe = pipe
         self.cfg = pipe.cfg
         self.tok = pipe.tokenizer

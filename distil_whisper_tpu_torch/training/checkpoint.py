@@ -14,7 +14,11 @@ continues bit for bit.
 Data parallel: the replicas are bit-identical, so rank 0 alone writes,
 clears and rotates, and every rank waits at a barrier until the checkpoint
 is complete (a shared filesystem sees one writer); every rank restores the
-same file.
+same file.  Tensor parallel: every rank gathers the state's shards first
+(a collective), so the file holds the unsharded state, as an Orbax
+checkpoint is topology-free; ``restore`` slices it onto whatever mesh the
+template state was placed on (a run saved at tp 2 resumes at tp 1 or at
+dp 2).
 """
 
 from __future__ import annotations
@@ -44,19 +48,20 @@ class CheckpointManager:
         self.best_total_limit = best_total_limit
 
     @staticmethod
-    def _write(path: Path, state: TrainState) -> None:
+    def _write(path: Path, sd: dict) -> None:
         if path.exists():
             shutil.rmtree(path)
         path.mkdir(parents=True)
         tmp = path / (STATE_FILE + ".tmp")
-        torch.save(state.state_dict(), tmp)
+        torch.save(sd, tmp)
         tmp.rename(path / STATE_FILE)
 
     def save(self, step: int, state: TrainState,
              metadata: Optional[dict] = None) -> str:
         path = self.dir / f"checkpoint-{step}"
+        sd = state.state_dict()           # every rank: gathers the shards
         if rank() == 0:
-            self._write(path, state)
+            self._write(path, sd)
             if metadata is not None:
                 with open(path / "meta.json", "w") as f:
                     json.dump({"step": step, **metadata}, f)
@@ -66,8 +71,9 @@ class CheckpointManager:
 
     def save_best(self, step: int, state: TrainState, val_wer: float) -> str:
         path = self.dir / f"checkpoint-{step}-val-wer-{val_wer:.3f}"
+        sd = state.state_dict()
         if rank() == 0:
-            self._write(path, state)
+            self._write(path, sd)
             self._rotate_best()
         barrier()
         return str(path)

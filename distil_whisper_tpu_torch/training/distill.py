@@ -22,6 +22,13 @@ leaves the loss reaches does not depend on the data), the global norm is
 taken after the sum, and the loss metrics are summed for logging, so every
 rank holds the same state and the same metrics.  Ranks holding different
 token counts are why the per-rank means are not simply averaged.
+
+Tensor parallel (a mesh with a 'model' axis, the state placed by
+``place_state``): the model ranks of a data group feed the same rows and
+compute the same loss on their shards (``models/whisper.py``); the token
+counts, metrics and gradients are still summed over 'data' only, and the
+global norm takes the sharded leaves over the model group
+(``state.global_norm``).
 """
 
 from __future__ import annotations
@@ -115,7 +122,7 @@ def _step(state: TrainState, loss: torch.Tensor, metrics: Dict,
     grads = dp.gradients(gradients(loss, state))
     metrics = dp.metrics(metrics)
     if grad_norm:
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = global_norm(grads, state.model_group)
     state.apply_gradients(grads)
     return state, metrics
 
@@ -131,8 +138,8 @@ def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
     [B, S] (-100 on prompt/pad), decoder_attention_mask [B, S] optional, all
     tensors on the device; under data parallelism, this rank's rows (every
     rank calls each step, and each eval step, alike).  ``generator`` turns
-    on the student's dropout (one seeded with (seed, rank) under data
-    parallelism: ``parallel.multihost.rank_generator``)."""
+    on the student's dropout (under a mesh, one seeded with (seed, data
+    coordinate): ``parallel.multihost.rank_generator(seed, mesh=mesh)``)."""
     dtype = opt_cfg.compute_dtype
     dp = DataParallel(mesh)
     share = dcfg.share_encoder and dcfg.freeze_encoder and (

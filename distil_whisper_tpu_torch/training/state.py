@@ -27,6 +27,14 @@ cast back.  The update runs leaf by leaf in place, under ``no_grad``.
 A gradient of ``None`` (a leaf the loss does not reach, such as the
 detached encoder positions or a frozen encoder) counts as zeros, as JAX's
 zero gradient: weight decay still moves such a leaf when it is trainable.
+
+Tensor parallelism (a mesh with a 'model' axis, :func:`place_state`): the
+parameters, moments and accumulated gradient hold this rank's shards
+(``parallel.mesh.shard_params``); the global norm sums the sharded leaves'
+squares over the model group and counts the replicated ones once, so that
+clipping is the unsharded step's; :meth:`TrainState.state_dict` gathers
+the shards (a collective) and :meth:`TrainState.load_state_dict` slices an
+unsharded state onto this rank, so checkpoints are topology-free.
 """
 
 from __future__ import annotations
@@ -36,8 +44,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..models.params import tree_paths, unflatten_paths
-from ..parallel.mesh import shard_params
+from ..models.params import map_with_path, tree_paths, unflatten_paths
+from ..parallel import tensor_parallel as tp
+from ..parallel.mesh import (gather_leaf, model_dim, model_group,
+                             replicate_over_data, shard_leaf)
 
 Params = Any
 
@@ -102,12 +112,22 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
                           else rest(count - cfg.warmup_steps))
 
 
-def global_norm(grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
-    """fp32 sqrt of the sum of squares of every gradient (None = zeros)."""
-    sq = [g.float().square().sum() for g in grads.values() if g is not None]
-    if not sq:
-        return torch.zeros(())
-    return torch.stack(sq).sum().sqrt()
+def global_norm(grads: Dict[str, Optional[torch.Tensor]],
+                group=None) -> torch.Tensor:
+    """fp32 sqrt of the sum of squares of every gradient (None = zeros),
+    the gradients keyed by parameter path.  ``group``: the model group of
+    a tensor-parallel state, over which the sharded leaves' squares are
+    summed (every rank holds the replicated leaves whole)."""
+    device = next((g.device for g in grads.values() if g is not None), "cpu")
+
+    def total(keep):
+        sq = [g.float().square().sum() for p, g in grads.items()
+              if g is not None and keep(p)]
+        return torch.stack(sq).sum() if sq else torch.zeros((), device=device)
+    if group is None:
+        return total(lambda p: True).sqrt()
+    sharded = tp.reduce_sum(total(lambda p: model_dim(p) is not None), group)
+    return (total(lambda p: model_dim(p) is None) + sharded).sqrt()
 
 
 @dataclasses.dataclass
@@ -125,6 +145,12 @@ class TrainState:
     count: int = 0
     acc: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     mini_step: int = 0
+    # the mesh whose 'model' axis the tensors are sharded over (place_state)
+    mesh: Any = None
+
+    @property
+    def model_group(self):
+        return model_group(self.mesh)
 
     @classmethod
     def create(cls, params: Params, cfg: OptimizerConfig) -> "TrainState":
@@ -180,7 +206,7 @@ class TrainState:
     def _update(self, g32: Dict[str, Optional[torch.Tensor]]) -> None:
         cfg = self.cfg
         if cfg.max_grad_norm is not None:
-            norm = global_norm(g32)
+            norm = global_norm(g32, self.model_group)
             keep = norm < cfg.max_grad_norm
             g32 = {p: (torch.where(keep, g, g / norm * cfg.max_grad_norm)
                        if g is not None else None) for p, g in g32.items()}
@@ -207,11 +233,16 @@ class TrainState:
 
     # -- checkpoint contents -------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
+        """The unsharded state: under tensor parallelism every rank of a
+        model group must call it (the shards are gathered)."""
+        def full(d):
+            return {p: gather_leaf(p, x.detach(), self.mesh)
+                    for p, x in d.items()}
         return {"step": self.step, "count": self.count,
                 "mini_step": self.mini_step,
-                "params": {p: x.detach() for p, x in
-                           tree_paths(self.params).items()},
-                "mu": self.mu, "nu": self.nu, "acc": self.acc}
+                "params": full(tree_paths(self.params)),
+                "mu": full(self.mu), "nu": full(self.nu),
+                "acc": full(self.acc)}
 
     @torch.no_grad()
     def load_state_dict(self, sd: Dict[str, Any]) -> "TrainState":
@@ -220,25 +251,34 @@ class TrainState:
         self.step, self.count = int(sd["step"]), int(sd["count"])
         self.mini_step = int(sd["mini_step"])
         for path, x in tree_paths(self.params).items():
-            x.copy_(sd["params"][path])
+            x.copy_(shard_leaf(path, sd["params"][path], self.mesh))
         for name in ("mu", "nu"):
             mine = getattr(self, name)
             if sorted(mine) != sorted(sd[name]):
                 raise ValueError(f"checkpoint {name} covers other leaves "
                                  "(another frozen set?)")
             for p, m in mine.items():
-                m.copy_(sd[name][p])
+                m.copy_(shard_leaf(p, sd[name][p], self.mesh))
         device = next(iter(self.leaves().values())).device
-        self.acc = {p: a.to(device) for p, a in sd["acc"].items()}
+        self.acc = {p: shard_leaf(p, a, self.mesh).to(device)
+                    for p, a in sd["acc"].items()}
         return self
 
 
 def place_state(state: TrainState, mesh=None) -> TrainState:
-    """JAX ``place_state``'s counterpart under data parallelism: params,
-    AdamW moments and the accumulated gradient replicated, overwritten in
-    place with the first data rank's values (after a resume too, so every
-    replica continues from bit-identical state).  No-op without data
-    parallelism."""
-    shard_params({"params": state.params, "mu": state.mu, "nu": state.nu,
-                  "acc": state.acc}, mesh)
+    """JAX ``place_state``'s counterpart: on a mesh with a 'model' axis the
+    params, AdamW moments and accumulated gradient of an unsharded state
+    are sliced to this rank's shards (once: the state keeps its mesh), and
+    under data parallelism all of them are overwritten in place with the
+    first data rank's values (after a resume too, so every replica
+    continues from bit-identical state).  No-op in a single process."""
+    if model_group(mesh) is not None and state.mesh is None:
+        state.params = map_with_path(
+            lambda p, x: shard_leaf(p, x, mesh), state.params)
+        for name in ("mu", "nu", "acc"):
+            setattr(state, name, {p: shard_leaf(p, x, mesh)
+                                  for p, x in getattr(state, name).items()})
+        state.mesh = mesh
+    replicate_over_data({"params": state.params, "mu": state.mu,
+                         "nu": state.nu, "acc": state.acc}, mesh)
     return state

@@ -148,14 +148,45 @@ def test_single_process_helpers_are_identities():
     assert torch.equal(a, b)
 
 
+class _FakeMesh:
+    """Rank (0, 1) of a (1, 2) mesh, for the placements that need no
+    collective (the model axis's slicing)."""
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return (1, 2)[dim]
+
+    def get_coordinate(self):
+        return [0, 1]
+
+    def get_group(self, name):
+        return object()
+
+
 def test_next_slice_placements_raise():
-    """Parameters sharded over 'data' (RULES_2D) or a 'model' axis raise,
-    naming the ROADMAP.md item of the next slice."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    """Parameters sharded over 'data' (RULES_2D) still raise, naming the
+    ROADMAP.md item of the next slice; a 'model' axis now shards the tree:
+    the second model rank holds the second half of the column-parallel
+    q kernel and bias and of the row-parallel out kernel's rows, and the
+    out bias and the layer norms whole."""
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         t_mesh.shard_params({"a": torch.ones(2)}, None,
                             t_mesh.RULES_2D)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        t_mesh.make_mesh((1, 2))
+    from distil_whisper_tpu_torch.models import init_params
+    cfg = PRESETS["test-tiny"]
+    full = init_params(cfg, seed=0, device="cpu")
+    ours = tree_paths(t_mesh.shard_params(full, _FakeMesh(), cfg=cfg))
+    full = tree_paths(full)
+    d = cfg.d_model
+    attn = "decoder.layers.self_attn"
+    assert torch.equal(ours[f"{attn}.q.kernel"],
+                       full[f"{attn}.q.kernel"][..., d // 2:])
+    assert torch.equal(ours[f"{attn}.q.bias"], full[f"{attn}.q.bias"][:, d // 2:])
+    assert torch.equal(ours[f"{attn}.out.kernel"],
+                       full[f"{attn}.out.kernel"][:, d // 2:])
+    for p in (f"{attn}.out.bias", "decoder.layers.final_ln.scale",
+              "decoder.tok_emb", "encoder.conv1.kernel"):
+        assert ours[p] is full[p], p
 
 
 def test_all_reduce_buckets_split_by_size(monkeypatch):
