@@ -58,7 +58,7 @@
    draft (rounds, acceptance, the share of tokens equal to greedy's in
    bf16, the near-tie report of the rows that part), ``synthetic_acceptance`` 0.8 against the prefix law and n-gram
    lookup with ``synthetic_period`` 16 (both synthetic tokens), and the
-   sequential t = 0 rung with the draft on 4 long files against the plain
+   sequential t = 0 rung with the draft on 2 long files against the plain
    rung; then the continuous engine serving large-v3 (16 requests, 64-token
    budgets, 16 lanes): plain, the draft under ``synthetic_acceptance`` 0.8
    and n-gram lookup with ``synthetic_period`` 16.
@@ -1710,7 +1710,7 @@ def phase_speculative_path(tok, bf16):
     call), then the decode loops on the same encoder states: draft,
     ``synthetic_acceptance`` 0.8 and n-gram lookup with
     ``synthetic_period`` 16 (both synthetic: their tokens are the oracle's,
-    not the model's); last the sequential t = 0 rung with the draft on 4
+    not the model's); last the sequential t = 0 rung with the draft on 2
     long files, against the plain t = 0 rung."""
     import numpy as np
     import torch
@@ -1838,9 +1838,10 @@ def phase_speculative_path(tok, bf16):
     loop_report("ngram_synthetic_period_16", out, sec, True)
     del t_cross, d_cross, enc
 
-    # -- 3. the sequential t = 0 rung with the draft, 4 long files ---------
+    # -- 3. the sequential t = 0 rung with the draft, 2 long files ---------
+    # (4 files of 40-75 s before, cut to keep the smoke in its time)
     files = [a[:int(sec * 16000)] for a, sec in
-             zip(synthetic_audio(4, 75.0, seed=7), (40.0, 52.0, 63.0, 75.0))]
+             zip(synthetic_audio(2, 75.0, seed=7), (40.0, 63.0))]
     reset_counts()
     feats = [compute_mel(a, pcfg, pad_to_chunk=False, device="cuda")[0]
              for a in files]
@@ -3328,7 +3329,7 @@ def tp_rank(rank: int, world: int, port: int, spec: dict) -> None:
                                                        fused_int8_mlp_plain)
     from distil_whisper_tpu_torch.ops.quant import maybe_quantize_encoder
     from distil_whisper_tpu_torch.parallel import (
-        make_mesh, maybe_initialize_distributed, tensor_parallel as TP)
+        groups, make_mesh, maybe_initialize_distributed, tensor_parallel as TP)
     from distil_whisper_tpu_torch.parallel.mesh import (coordinates,
                                                         model_group,
                                                         shard_params)
@@ -3368,11 +3369,11 @@ def tp_rank(rank: int, world: int, port: int, spec: dict) -> None:
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        with TP.timed() as rec:
+        with groups.timed() as rec:
             texts = [r["text"] for r in pipe(clips, language="en")]
         torch.cuda.synchronize()
         row = {"s": time.perf_counter() - t0, "launches": read_counts(),
-               "all_reduce_count": rec.count,
+               "all_reduce_count": rec.counts["all_reduce"],
                "all_reduce_ms": rec.ms(), "all_reduce_host_ms": rec.host_ms}
         ref = [r["text"] for r in one(clips, language="en")]
         row["text_equal_to_one_rank"] = sum(
@@ -3442,11 +3443,11 @@ def tp_rank(rank: int, world: int, port: int, spec: dict) -> None:
             (alt - b).norm() / b.norm())
         encodes[name] = b.float()
         del a, b, alt
-        with TP.timed() as enc_rec:
+        with groups.timed() as enc_rec:
             row["encode_ms"] = _events_ms(lambda: W.encode(
                 pipe.params["encoder"], pipe.cfg, mine, dtype=dtype))
         calls = 4     # _events_ms: a warm-up and three timed
-        row["encode_all_reduces"] = enc_rec.count // calls
+        row["encode_all_reduces"] = enc_rec.counts["all_reduce"] // calls
         row["all_reduce_ms_per_layer"] = enc_rec.ms() / calls / \
             pipe.cfg.encoder_layers
         row["all_reduce_host_ms_per_layer"] = enc_rec.host_ms / calls / \
@@ -3700,6 +3701,443 @@ def phase_tensor_parallel_path(teacher_cfg, root):
             for key in ("bf16", "int8") for r in range(world)} | {
         f"tp_distill_rank{r}": report["distill"]["launches"][r]
         for r in range(world)}
+
+PS_STEPS = 2          # 2-D distillation steps of param_sharding_path
+PS_BATCH = 4          # its rows a data rank a step
+PS_LANES = 8          # engine lanes / micro-batch rows of its meshed serving
+PS_NEW_TOKENS = 64    # their budget (8 requests a scheduler)
+# the int8 teacher's step-1 KL term on a model axis, vs one process: its
+# fused MLP's partial mode is another rounding of the unsharded kernel, and
+# moves the small KL term by 1.24e-4 of itself on four H100s; the bf16
+# teacher in its place moves it by 1.34e-3 (PERF.md section 6); the limit
+# sits between the two
+PS_INT8_KL_TOL = 4e-4
+# the meshed schedulers' texts equal to one rank's, at least: one parting
+# at a near-tie in 8 rows was seen on one and on four cards
+PS_EQUAL_FLOOR = 0.75
+
+
+def step1_references(teacher_dir: Path, student_dir: Path, runs):
+    """One process's step-1 losses for ``runs`` ``{name: (teacher
+    precision "inference" | "int8", the data ranks' first batches)}``, as
+    ``run_distillation --precision half_mixed`` builds its step, the
+    teacher and student loaded once: each rank's batch evaluated alone
+    and the terms combined by label tokens, as the ranks sum them (the
+    int8 lm head's gate, batch >= 8, sees a rank's rows)."""
+    import torch
+    from distil_whisper_tpu_torch.cli.run_distillation import to_compute_dtype
+    from distil_whisper_tpu_torch.models import load_params
+    from distil_whisper_tpu_torch.ops.quant import quantize_teacher_params
+    from distil_whisper_tpu_torch.training import (
+        DistillConfig, OptimizerConfig, TrainState, build_train_step)
+    full, tcfg = load_params(str(teacher_dir), device="cuda")
+    tcfg = tcfg.replace(fast_bf16_attention=True, use_flash_encoder=True)
+    student, scfg = load_params(str(student_dir), device="cuda")
+    opt = OptimizerConfig(learning_rate=1e-4, warmup_steps=2,
+                          total_steps=PS_STEPS,
+                          schedule="constant_with_warmup",
+                          precision="half_mixed", frozen_prefixes=("encoder",))
+    state = TrainState.create(student, opt)
+    del student
+    _, eval_step = build_train_step(scfg, tcfg, DistillConfig(), opt)
+    out = {}
+    for name, (precision, batches) in runs.items():
+        teacher = to_compute_dtype(quantize_teacher_params(full)
+                                   if precision == "int8" else full,
+                                   torch.bfloat16)
+        with torch.no_grad():
+            parts = [(int((b["labels"] != -100).sum()),
+                      eval_step(state.params, teacher,
+                                {k: v.cuda() for k, v in b.items()}))
+                     for b in batches]
+        n = sum(c for c, _ in parts)
+        out[name] = {k: sum(c * float(m[k]) for c, m in parts) / n
+                     for k in parts[0][1]}
+        del teacher
+    del full, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _state_bytes(state):
+    """Persistent bytes a rank of a placed TrainState (parameters, AdamW
+    moments, accumulated gradient), and what the same state holds with
+    no leaf sliced over 'data' (the 1-D placement on the same mesh)."""
+    from distil_whisper_tpu_torch.models.params import tree_paths
+    from distil_whisper_tpu_torch.parallel.mesh import coordinates
+    from distil_whisper_tpu_torch.training.state import sharded_axes
+    dp = coordinates(state.mesh)[1]
+    out = {}
+    for name, tree in (("params", tree_paths(state.params)),
+                       ("mu", state.mu), ("nu", state.nu)):
+        mine = sum(x.numel() * x.element_size() for x in tree.values())
+        whole = sum(x.numel() * x.element_size()
+                    * (dp if sharded_axes(p, state.mesh, state.rules)[1]
+                       else 1) for p, x in tree.items())
+        out[name] = {"bytes": mine, "bytes_1d": whole}
+    return out
+
+
+def ps_rank(rank: int, world: int, port: int, spec: dict) -> None:
+    """One rank of ``param_sharding_path``: ``run_distillation
+    --distributed --param_sharding 2d`` with the bf16 and the int8 teacher
+    (the placed state's bytes, the all-gathers and reduce-scatters, the
+    peak memory, the first batch recorded), then distil-large-v3 in bf16
+    served from a mesh by the continuous engine and the micro-batch
+    scheduler (rank 0 leading, the others following), the engine's texts
+    against one rank's, and one POST through ``run_server
+    --distributed``; writes ``rank{rank}.json``."""
+    import logging
+    import os
+    import urllib.request
+    import threading
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.basicConfig(level=logging.WARNING)
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.audio.io import write_wav
+    from distil_whisper_tpu_torch.cli import run_distillation, run_server
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import GenerationOptions
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.parallel import (
+        groups, make_mesh, maybe_initialize_distributed)
+    from distil_whisper_tpu_torch.parallel.mesh import coordinates
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+    from distil_whisper_tpu_torch.serving import BatchingTranscriber
+    from distil_whisper_tpu_torch.serving_engine import ContinuousTranscriber
+    from distil_whisper_tpu_torch.tokenizer import WhisperTokenizer
+    maybe_initialize_distributed(force=True)
+    out = Path(spec["out"])
+    mp = 1 if world == 2 else 2
+    report = {"rank": rank, "world": world, "backend": dist.get_backend()}
+
+    build, place = run_distillation.build_train_step, \
+        run_distillation.place_state
+    placed = []
+
+    def placing(*args, **kwargs):
+        state = place(*args, **kwargs)
+        placed.append(_state_bytes(state))
+        return state
+
+    def distill(name, precision):
+        def recording_build(*args, **kwargs):
+            train_step, eval_step = build(*args, **kwargs)
+
+            def recorded(state, teacher, batch, generator=None):
+                path = out / f"ps-{name}-batch-rank{rank}.pt"
+                if not path.exists():
+                    torch.save({k: v.cpu() for k, v in batch.items()}, path)
+                return train_step(state, teacher, batch, generator)
+
+            recorded.data_parallel = train_step.data_parallel
+            return recorded, eval_step
+
+        run_distillation.build_train_step = recording_build
+        run_distillation.place_state = placing
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with groups.timed() as rec:
+            run_distillation.main([
+                "--teacher_checkpoint", spec["teacher"],
+                "--student_checkpoint", spec["student"],
+                "--train_dataset_path", spec["train"],
+                "--output_dir", str(out / name),
+                "--teacher_precision", precision, "--precision", "half_mixed",
+                "--per_device_train_batch_size", str(PS_BATCH),
+                "--max_label_length", "128", "--max_steps", str(PS_STEPS),
+                "--warmup_steps", "2", "--learning_rate", "1e-4",
+                "--save_steps", str(PS_STEPS), "--eval_steps", "1000",
+                "--logging_steps", "1", "--language", "en", "--seed", "42",
+                "--wer_threshold", "10", "--distributed",
+                "--model_parallel", str(mp), "--param_sharding", "2d"])
+        torch.cuda.synchronize()
+        run_distillation.build_train_step = build
+        run_distillation.place_state = place
+        report[name] = {
+            "s": time.perf_counter() - t0, "launches": read_counts(),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "state": placed[-1], "all_gathers": rec.counts["all_gather"],
+            "reduce_scatters": rec.counts["reduce_scatter"],
+            "all_reduces": rec.counts["all_reduce"],
+            "collective_ms": rec.ms(), "collective_host_ms": rec.host_ms,
+            "received_bytes": rec.bytes["all_gather"]
+            + rec.bytes["reduce_scatter"]}
+        torch.cuda.empty_cache()
+
+    distill("distill", "inference")
+    distill("distill_int8", "int8")
+
+    # serving from the mesh: distil-large-v3, random bf16 weights
+    mesh = make_mesh((1, world) if world == 2 else (2, 2))
+    report["serving_mesh"] = list(coordinates(mesh)[1::2])
+    tok = WhisperTokenizer.from_pretrained(spec["tok"])
+    cfg = PRESETS["distil-large-v3"]
+    full = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    clips = synthetic_audio(PS_LANES, 20.0, seed=11)
+    requests = [(c, {"language": "en"}) for c in clips]
+
+    def pipeline(mesh_):
+        return WhisperPipeline(None, dtype=torch.bfloat16,
+                               batch_size=PS_LANES,
+                               max_new_tokens=PS_NEW_TOKENS, params=full,
+                               cfg=cfg, tokenizer=tok, device="cuda",
+                               mesh=mesh_)
+
+    def serve(name, tr):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with groups.timed() as rec:
+            if tr.leader:
+                tr.start()
+                try:
+                    results, latency, wall = serve_all(tr, requests,
+                                                       timeout=300)
+                finally:
+                    tr.stop()
+            else:
+                tr.follow()
+        torch.cuda.synchronize()
+        row = {"s": time.perf_counter() - t0, "launches": read_counts(),
+               "all_reduces": rec.counts["all_reduce"],
+               "all_reduce_ms": rec.ms()}
+        if tr.leader:
+            row.update(texts=[r["text"] for r in results],
+                       p50_ms=_percentile(latency, 50) * 1e3,
+                       wall_s=wall, stats=dict(tr.stats))
+        report[name] = row
+
+    pipe = pipeline(mesh)
+    serve("engine", ContinuousTranscriber(
+        pipe, batch_size=PS_LANES, max_new_tokens=PS_NEW_TOKENS,
+        block_steps=16))
+    serve("microbatch", BatchingTranscriber(
+        pipe, batch_size=PS_LANES, max_new_tokens=PS_NEW_TOKENS,
+        max_wait_ms=200))
+    del pipe
+    if rank == 0:
+        # one rank's engine on the same weights, and the near-tie report of
+        # any request whose text parts from it
+        one = pipeline(None)
+        tr = ContinuousTranscriber(one, batch_size=PS_LANES,
+                                   max_new_tokens=PS_NEW_TOKENS,
+                                   block_steps=16).start()
+        try:
+            ref = [r["text"] for r in serve_all(tr, requests)[0]]
+        finally:
+            tr.stop()
+        report["engine_one_rank_texts"] = ref
+        for name in ("engine", "microbatch"):
+            texts = report[name]["texts"]
+            report[name]["equal_to_one_rank"] = sum(
+                a == b for a, b in zip(texts, ref)) / len(ref)
+            if texts != ref:
+                prompt = tok.prompt_ids(language="en")
+                mels = compute_mel(np.stack(clips), cfg,
+                                   device="cuda").to(torch.bfloat16)
+                opts = GenerationOptions.from_config(
+                    one.cfg, max_new_tokens=PS_NEW_TOKENS,
+                    no_speech_token_id=tok.no_speech)
+                seqs, lens, _ = one._decode_batch(
+                    mels, [prompt] * len(clips), opts, 1, 1.0)
+                report[name]["near_ties"] = text_near_ties(
+                    one, mels, seqs, lens, texts, ref, prompt,
+                    [PS_NEW_TOKENS] * len(clips))
+        del one
+    del full
+    torch.cuda.empty_cache()
+
+    # one POST through run_server --distributed
+    reset_counts()
+    httpd, tr = run_server.build_server([
+        "--model_checkpoint", spec["student"], "--device", "cuda",
+        "--dtype", "bfloat16", "--host", "127.0.0.1", "--port", "0",
+        "--distributed", "--model_parallel", "2",
+        "--scheduler", "continuous", "--batch_size", "4",
+        "--max_new_tokens", "32"])
+    if httpd is None:
+        tr.follow()
+    else:
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            wav = out / "post.wav"
+            write_wav(str(wav), clips[0], 16000, float32=True)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/v1/transcribe"
+                "?language=en", data=wav.read_bytes(), method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                post = json.loads(r.read())
+            report["http"] = {"status": r.status, "text": post["text"],
+                              "latency_s": time.perf_counter() - t0}
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            tr.stop()
+    report["http_launches"] = read_counts()
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_param_sharding_path(teacher_cfg, root):
+    """2-D (FSDP-style) parameter sharding and serving under a mesh across
+    ``max(2, cards)`` spawned ranks (one card: two ranks over gloo; four
+    cards: one a card over NCCL).  Each rank (``ps_rank``):
+    ``run_distillation --distributed --param_sharding 2d`` with the
+    large-v3 teacher, bf16 and int8, ``PS_STEPS`` steps of ``PS_BATCH``
+    rows a data rank, on a (2, 1) mesh (one card) or (2, 2) (four); the
+    continuous engine and the micro-batch scheduler serving distil-large-v3
+    in bf16 from a (1, 2) mesh (one card) or (2, 2) (four), ``PS_LANES``
+    lanes, 8 requests, ``PS_NEW_TOKENS`` tokens; one POST through
+    ``run_server --distributed``.  Here: the step-1 loss terms against
+    one process on the data ranks' first batches (``MG_LOSS_TOL``; the
+    int8 teacher's KL term on a model axis ``PS_INT8_KL_TOL``), the
+    placed state's bytes a rank against the 1-D placement, the meshed
+    schedulers' texts against one rank's (``PS_EQUAL_FLOOR``, and every
+    parting a near-tie), and
+    ``dryrun_multigpu(4, model_parallel=2, param_sharding="2d")`` (the
+    small fp32 model's 2-D step and engine against one process; four
+    ranks sharing one card over gloo, or one a card)."""
+    import logging
+    import shutil
+    import torch
+    from distil_whisper_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    logging.basicConfig(level=logging.WARNING)
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    world = max(2, cards)
+    mp = 1 if world == 2 else 2
+    report = {"world": world, "cards": cards,
+              "distill_mesh": [world // mp, mp],
+              "backend": "nccl" if cards >= world else "gloo"}
+    ps_dir = root / "param_sharding"
+    try:
+        ps_dir.mkdir()
+        synthetic_tokenizer(ps_dir)
+        spec = {"teacher": str(root / "teacher"),
+                "student": str(root / "student"),
+                "train": str(root / "train.jsonl"), "tok": str(ps_dir),
+                "out": str(ps_dir / "out")}
+        Path(spec["out"]).mkdir()
+        t0 = time.perf_counter()
+        ranks = run_ranks(world, spec, ps_rank)
+        report["ranks_s"] = time.perf_counter() - t0
+        out = Path(spec["out"])
+        refs = step1_references(root / "teacher", root / "student", {
+            name: (precision, [torch.load(
+                out / f"ps-{name}-batch-rank{r}.pt", weights_only=True)
+                for r in range(0, world, mp)])
+            for name, precision in (("distill", "inference"),
+                                    ("distill_int8", "int8"))})
+        for name in ("distill", "distill_int8"):
+            metrics = _train_rows(_metrics(out / name))
+            ref = refs[name]
+            row = {k: [r[name][k] for r in ranks] for k in (
+                "s", "launches", "peak_bytes", "state", "all_gathers",
+                "reduce_scatters", "all_reduces", "collective_ms",
+                "collective_host_ms", "received_bytes")}
+            row.update(
+                loss=[m["train/loss"] for m in metrics],
+                step_ms_ranks=[[t * 1e3 for t in m["train/step_time_s_ranks"]]
+                               for m in metrics],
+                step1_vs_one_process={k: [metrics[0][f"train/{k}"], ref[k]]
+                                      for k in ("loss", "ce_loss",
+                                                "kl_loss")})
+            # every term at MG_LOSS_TOL, but the int8 teacher's KL term on a
+            # model axis at PS_INT8_KL_TOL
+            row["limits"] = {k: MG_LOSS_TOL for k in
+                             row["step1_vs_one_process"]}
+            if name == "distill_int8" and mp > 1:
+                row["limits"]["kl_loss"] = PS_INT8_KL_TOL
+            row["step1_rel_diff"] = {
+                k: abs(a - b) / abs(b)
+                for k, (a, b) in row["step1_vs_one_process"].items()}
+            report[name] = row
+        for name in ("engine", "microbatch"):
+            report[name] = [r[name] for r in ranks]
+        report["serving_mesh"] = ranks[0]["serving_mesh"]
+        report["engine_one_rank_texts"] = ranks[0]["engine_one_rank_texts"]
+        report["http"] = ranks[0]["http"]
+        report["http_launches"] = [r["http_launches"] for r in ranks]
+        t0 = time.perf_counter()
+        dry = dryrun_multigpu(4, model_parallel=2, param_sharding="2d")
+        report["dryrun"] = {k: dry[k] for k in (
+            "backend", "param_sharding", "grad_err", "param_err",
+            "loss_rel_err", "int8_teacher_err", "qat_err",
+            "generate_tokens_equal", "engine_texts_equal",
+            "engine_ts_fallback", "engine_drafted")}
+        report["dryrun"]["s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ps_dir, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "param_sharding_path", **report})
+
+    bad = []
+    layers = teacher_cfg.encoder_layers
+    for name in ("distill", "distill_int8"):
+        row = report[name]
+        if len(row["loss"]) != PS_STEPS or not all(
+                map(math.isfinite, row["loss"])):
+            bad.append(f"{name}: losses {row['loss']}")
+        for k, d in row["step1_rel_diff"].items():
+            if not d <= row["limits"][k]:
+                bad.append(f"{name} step-1 {k} {d} off one process's, over "
+                           f"{row['limits'][k]}: "
+                           f"{row['step1_vs_one_process'][k]}")
+        for r in range(world):
+            got = row["launches"][r]
+            if got["encoder_attention"] != layers * PS_STEPS:
+                bad.append(f"rank {r} {name} launches {got}")
+            if name == "distill_int8" and not got["int8_mlp"]:
+                bad.append(f"rank {r} {name}: no int8 MLP launch {got}")
+            state = row["state"][r]
+            if not state["params"]["bytes"] < state["params"]["bytes_1d"]:
+                bad.append(f"rank {r} {name}: 2-D holds {state}")
+    lead = {name: report[name][0] for name in ("engine", "microbatch")}
+    for name, row in lead.items():
+        if len(row["texts"]) != PS_LANES or not all(row["texts"]):
+            bad.append(f"{name} texts {row['texts']}")
+        if not row["equal_to_one_rank"] >= PS_EQUAL_FLOOR:
+            bad.append(f"{name}: {row['equal_to_one_rank']} of its texts "
+                       f"equal one rank's, under {PS_EQUAL_FLOOR}")
+        if row["texts"] != report["engine_one_rank_texts"] and \
+                not row["near_ties"]["all_near_ties"]:
+            bad.append(f"{name} texts part from one rank's beyond a "
+                       f"near-tie: {row['near_ties']}")
+        for r in range(world):
+            # the leader featurizes; every rank encodes its lanes' rows
+            got = report[name][r]["launches"]
+            if (r == 0 and not got["log_mel"]) or \
+                    not got["encoder_attention"]:
+                bad.append(f"rank {r} {name} launches {got}")
+    if report["http"]["status"] != 200 or not report["http"]["text"]:
+        bad.append(f"http {report['http']}")
+    if bad:
+        raise AssertionError("param sharding path: " + "; ".join(bad))
+    counts = {}
+    for r in range(world):
+        counts[f"ps_distill_rank{r}"] = report["distill"]["launches"][r]
+        counts[f"ps_distill_int8_rank{r}"] = \
+            report["distill_int8"]["launches"][r]
+        counts[f"ps_engine_rank{r}"] = report["engine"][r]["launches"]
+        counts[f"ps_microbatch_rank{r}"] = report["microbatch"][r]["launches"]
+        counts[f"ps_http_rank{r}"] = report["http_launches"][r]
+    return counts
+
 
 def phase_small_reference(tok):
     """A small model on the card against the CPU: fp32 greedy tokens
@@ -4030,6 +4468,8 @@ def main() -> int:
         multigpu = phase_multigpu_path(PRESETS["large-v3"], shared)
         multigpu.update(phase_tensor_parallel_path(PRESETS["large-v3"],
                                                    shared))
+        multigpu.update(phase_param_sharding_path(PRESETS["large-v3"],
+                                                  shared))
         recipe = phase_recipe_path(PRESETS["large-v3"], shared)
     finally:
         import shutil

@@ -20,30 +20,26 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 
-from ..parallel.mesh import NEXT_SLICE
-
 logger = logging.getLogger("distil_whisper_tpu_torch")
-
-# what the flags of the next multi-GPU slice (2-D parameter sharding, the
-# serving schedulers under a mesh) raise with
-MULTI_GPU = NEXT_SLICE
 
 
 def setup_data_parallel(distributed: bool, device: str = "cuda",
-                        model_parallel: int = 1):
+                        model_parallel: int = 1, param_sharding: str = "1d"):
     """Join the job's process group (``--distributed`` forces it and raises
     without one; a ``torchrun`` environment joins it anyway) and return the
     ``(world / model_parallel, model_parallel)`` device mesh, or None in a
     single process.  A ``model_parallel`` > 1 raises ``ValueError`` unless
-    it divides the world size of a multi-process job.  Imported lazily:
-    featurizer workers import this module."""
+    it divides the world size of a multi-process job; so does
+    ``param_sharding`` "2d" (parameters sliced over the data axis) without
+    one.  Imported lazily: featurizer workers import this module."""
     from ..parallel import make_mesh, maybe_initialize_distributed
     from ..parallel.multihost import world_size
+    alone = ("needs a multi-process job (--distributed under torchrun); "
+             "this process runs alone, at world size 1")
     if model_parallel > 1 and not distributed:
-        raise ValueError(
-            f"--model_parallel {model_parallel} needs a multi-process job "
-            "whose world size it divides (--distributed under torchrun); "
-            "this process runs alone, at world size 1")
+        raise ValueError(f"--model_parallel {model_parallel} {alone}")
+    if param_sharding == "2d" and not distributed:
+        raise ValueError(f"--param_sharding 2d {alone}")
     if not maybe_initialize_distributed(force=distributed, device=device):
         return None
     n = world_size()

@@ -28,8 +28,12 @@ eval and save boundaries; the run ends with its last checkpoint, which
 student's state are sharded over the model axis (tensor parallelism,
 ``parallel/tensor_parallel.py``), the rows are sharded by the data
 coordinate, the global batch is the per-device batch times the data axis,
-and checkpoints hold the gathered state.  Not ported yet (it raises,
-naming its ROADMAP.md item): ``--param_sharding 2d``.
+and checkpoints hold the gathered state.  ``--param_sharding 2d`` (with
+``--distributed``) slices the teacher and the student's parameters,
+moments and accumulated gradient over the data axis too (FSDP-style,
+``RULES_2D``): the model gathers each layer where it takes it and
+reduce-scatters its gradient (``parallel/fsdp.py``); the step's numbers
+are the 1-D step's.
 
     python -m distil_whisper_tpu_torch.cli.run_distillation \\
         --teacher_checkpoint /ckpts/whisper-large-v3 \\
@@ -60,7 +64,8 @@ from ..models import load_params, save_pretrained
 from ..models.convert import FP32_LEAVES
 from ..models.params import map_with_path, to_fp32
 from ..ops.quant import quantize_teacher_params
-from ..parallel import process_local_slice, shard_params
+from ..parallel import DEFAULT_RULES, RULES_2D, process_local_slice, \
+    shard_params
 from ..parallel.mesh import coordinates
 from ..parallel.multihost import (any_over_ranks, gather_rows,
                                   is_distributed, rank, sum_over_ranks,
@@ -72,7 +77,7 @@ from ..training import (Collator, CheckpointManager, DistillConfig,
                         is_wer_in_range, place_state, prepare_labels)
 from ..training.data_stream import streaming_batches
 from ..utils.profiling import MetricsLogger, StepTimer, device_time_ms
-from .common import (MULTI_GPU, copy_tokenizer_files, load_dataset_any,
+from .common import (copy_tokenizer_files, load_dataset_any,
                      load_multiple_datasets, logger, setup_data_parallel,
                      setup_logging, shard_rows, summed_word_errors)
 
@@ -132,8 +137,9 @@ def parse_args(argv=None):
                    help="directory for the prepared-sample cache (written by "
                         "--preprocessing_only, reused on the training run)")
     p.add_argument("--param_sharding", default="1d", choices=["1d", "2d"],
-                   help="2d (FSDP-style) comes with the tensor-parallel "
-                        "slice; raises")
+                   help="2d: parameters, moments and accumulated gradient "
+                        "sliced over the data axis too (FSDP-style; with "
+                        "--distributed)")
     p.add_argument("--ce_weight", type=float, default=0.8)
     p.add_argument("--kl_weight", type=float, default=1.0)
     p.add_argument("--mse_weight", type=float, default=0.0)
@@ -201,10 +207,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """The flags of later slices raise, naming their ROADMAP.md item."""
-    if getattr(args, "param_sharding", "1d") == "2d":
-        raise NotImplementedError(f"--param_sharding 2d {MULTI_GPU}")
+def param_rules(args):
+    """The rule table of ``--param_sharding``."""
+    return RULES_2D if args.param_sharding == "2d" else DEFAULT_RULES
 
 
 def to_compute_dtype(params, dtype: torch.dtype):
@@ -326,14 +331,14 @@ class Profiler:
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
     if args.streaming and args.preprocessing_only:
         raise ValueError("--preprocessing_only is incompatible with "
                          "--streaming: preparation happens on the fly "
                          "(reference run_distillation.py:1308-1313)")
     setup_logging()
     mesh = setup_data_parallel(args.distributed, args.device,
-                               args.model_parallel)
+                               args.model_parallel, args.param_sharding)
+    rules = param_rules(args)
     device = resolve_device(args.device)
     n_proc, rank_ = world_size(), rank()
     # which rows this rank feeds: its data coordinate among the data ranks
@@ -374,10 +379,10 @@ def main(argv=None):
             use_flash_encoder=(args.precision != "full"))
         if args.teacher_precision == "int8":
             teacher = quantize_teacher_params(teacher)
-    teacher = shard_params(to_compute_dtype(teacher, dtype), mesh,
+    teacher = shard_params(to_compute_dtype(teacher, dtype), mesh, rules,
                            cfg=teacher_cfg)
     student, student_cfg = load_params(args.student_checkpoint, device=device)
-    state = place_state(TrainState.create(student, opt_cfg), mesh)
+    state = place_state(TrainState.create(student, opt_cfg), mesh, rules)
     del student
     tok = WhisperTokenizer.from_pretrained(args.teacher_checkpoint)
     normalizer = (EnglishTextNormalizer(tok.spelling_mapping)

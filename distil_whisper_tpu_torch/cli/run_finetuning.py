@@ -10,8 +10,8 @@ the int8 serving numerics (QAT, ``ops/qat.py``).  ``--distributed`` (under
 prepares its contiguous shard and feeds ``--per_device_train_batch_size``
 rows a step, rank 0 writes, and the run ends with its last checkpoint for
 ``convert_checkpoint_to_hf``.  ``--model_parallel N`` shards the state over
-a ``(world / N, N)`` mesh's model axis, as in ``run_distillation``.
-``--param_sharding 2d`` raises, naming its ROADMAP.md item.
+a ``(world / N, N)`` mesh's model axis, and ``--param_sharding 2d`` over
+its data axis too, as in ``run_distillation``.
 
     python -m distil_whisper_tpu_torch.cli.run_finetuning \\
         --model_checkpoint /ckpts/whisper-small \\
@@ -39,8 +39,8 @@ from ..training import (Collator, CheckpointManager, OptimizerConfig,
 from ..utils.profiling import MetricsLogger, StepTimer
 from .common import (copy_tokenizer_files, load_dataset_any, logger,
                      setup_data_parallel, setup_logging, shard_rows)
-from .run_distillation import (Profiler, _prepare_samples, peak_memory,
-                               refuse_unported, step_times, to_device)
+from .run_distillation import (Profiler, _prepare_samples, param_rules,
+                               peak_memory, step_times, to_device)
 
 
 def main(argv=None):
@@ -92,14 +92,14 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--model_parallel", type=int, default=1,
                    help="tensor parallelism, as run_distillation's")
-    p.add_argument("--param_sharding", default="1d", choices=["1d", "2d"])
+    p.add_argument("--param_sharding", default="1d", choices=["1d", "2d"],
+                   help="2d: FSDP-style, as run_distillation's")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda or cpu)")
     args = p.parse_args(argv)
-    refuse_unported(args)
     setup_logging()
     mesh = setup_data_parallel(args.distributed, args.device,
-                               args.model_parallel)
+                               args.model_parallel, args.param_sharding)
     device = resolve_device(args.device)
     n_proc = world_size()
     d_idx, n_data, _, _ = coordinates(mesh)
@@ -116,7 +116,8 @@ def main(argv=None):
         b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon,
         precision=args.precision,
         frozen_prefixes=("encoder",) if args.freeze_encoder else ())
-    state = place_state(TrainState.create(params, opt_cfg), mesh)
+    state = place_state(TrainState.create(params, opt_cfg), mesh,
+                        param_rules(args))
     del params
     train_step, _ = build_finetune_step(
         cfg, opt_cfg, label_smoothing=args.label_smoothing,

@@ -25,9 +25,16 @@ greedy ones on the continuous scheduler.
     curl -s -X POST --data-binary @audio.wav \\
         'localhost:8000/v1/transcribe?language=en&timestamps=1&max_tokens=64'
 
-There is no device mesh: one GPU serves (the pipeline's mesh, which
-shards the model over several GPUs, comes with the tensor-parallel slice,
-ROADMAP.md queue 1 item 5).
+Several GPUs (``--distributed`` under ``torchrun``, one process a GPU):
+the job's ranks form a ``(world / N, N)`` mesh for ``--model_parallel N``,
+the model (and an ``--assistant_checkpoint`` draft) is sharded over its
+model axis, and the scheduler's lanes or micro-batch rows are split over
+its data axis.  Rank 0 binds the port and leads; the other ranks replay
+its device calls (``parallel/lockstep.py``) until it stops.
+
+    torchrun --nproc_per_node 4 -m distil_whisper_tpu_torch.cli.run_server \
+        --model_checkpoint ./distil-large-v3 --scheduler continuous \
+        --distributed --model_parallel 2
 """
 
 from __future__ import annotations
@@ -41,14 +48,17 @@ from ..models import load_params
 from ..pipeline import WhisperPipeline
 from ..serving import BatchingTranscriber, make_http_server
 from ..serving_engine import ContinuousTranscriber
-from .common import setup_logging
+from .common import setup_data_parallel, setup_logging
 
 logger = logging.getLogger("distil_whisper_tpu_torch")
 
 
 def build_server(argv=None):
     """Parse args, build (http_server, transcriber) — separated from main()
-    so tests can bind port 0 and drive the server in-process."""
+    so tests can bind port 0 and drive the server in-process.  Under
+    ``--distributed`` only the leader (rank 0) gets a server and a started
+    transcriber; the other ranks get ``(None, transcriber)`` to
+    ``follow()``."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model_checkpoint", required=True)
     p.add_argument("--host", default="0.0.0.0")
@@ -108,6 +118,15 @@ def build_server(argv=None):
     p.add_argument("--quantize_lm_head", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda or cpu)")
+    p.add_argument("--distributed", action="store_true",
+                   help="serve from a multi-GPU job under torchrun (one "
+                        "process a GPU): rank 0 binds the port, the others "
+                        "follow; fails fast unless the job has several "
+                        "ranks")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor parallelism: ranks a model group (the "
+                        "mesh's model axis); the rest of the world size is "
+                        "the data axis, over which the lanes are split")
     args = p.parse_args(argv)
     if args.ngram_speculative and args.assistant_checkpoint:
         p.error("--ngram_speculative and --assistant_checkpoint are "
@@ -117,6 +136,8 @@ def build_server(argv=None):
         p.error("--adaptive_gamma requires a speculation method "
                 "(--assistant_checkpoint or --ngram_speculative)")
     setup_logging()
+    mesh = setup_data_parallel(args.distributed, args.device,
+                               args.model_parallel)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     params, cfg = load_params(args.model_checkpoint, dtype=dtype,
@@ -130,7 +151,8 @@ def build_server(argv=None):
     pipe = WhisperPipeline(args.model_checkpoint, dtype=dtype,
                            batch_size=args.batch_size,
                            max_new_tokens=args.max_new_tokens,
-                           params=params, cfg=cfg, device=args.device)
+                           params=params, cfg=cfg, device=args.device,
+                           mesh=mesh)
     # the raw (params, cfg) pair: the transcribers prepare the draft
     # (speculative.prepare_assistant), as the pipeline does
     assistant = (load_params(args.assistant_checkpoint, dtype=dtype,
@@ -146,10 +168,13 @@ def build_server(argv=None):
                   max_ngram=args.max_ngram, draft_cost=args.draft_cost)
     if args.scheduler == "continuous":
         transcriber = ContinuousTranscriber(
-            pipe, block_steps=args.block_steps, **common).start()
+            pipe, block_steps=args.block_steps, **common)
     else:
         transcriber = BatchingTranscriber(
-            pipe, max_wait_ms=args.max_wait_ms, **common).start()
+            pipe, max_wait_ms=args.max_wait_ms, **common)
+    if not transcriber.leader:
+        return None, transcriber
+    transcriber.start()
     httpd = make_http_server(transcriber, args.host, args.port,
                              max_body_mb=args.max_body_mb)
     return httpd, transcriber
@@ -157,6 +182,9 @@ def build_server(argv=None):
 
 def main(argv=None) -> None:
     httpd, transcriber = build_server(argv)
+    if httpd is None:
+        transcriber.follow()        # a follower rank, until the leader stops
+        return
     host, port = httpd.server_address[:2]
     logger.info("serving on http://%s:%d (POST /v1/transcribe, "
                 "GET /healthz, GET /v1/stats); scheduler=%s batch_size=%d "

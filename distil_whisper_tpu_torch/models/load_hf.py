@@ -235,13 +235,16 @@ def save_pretrained(params: Params, cfg: WhisperConfig, path: str,
     ``model.safetensors`` (tensors in ``dtype``, fp32 by default as the JAX
     package writes; metadata ``{"format": "pt"}``, which transformers asks
     for; the tied head written as its own copy).  A tree sharded over a
-    mesh's model axis raises: gather it first
+    mesh's model or data axis raises: gather it first
     (``parallel.gather_params``, on every rank), then write from one."""
+    from ..parallel import fsdp
     from ..parallel.tensor_parallel import degree
-    tp = degree(params["decoder"]["layers"]["self_attn"]["q"])
-    if tp > 1:
-        raise ValueError(f"save_pretrained got a tree sharded {tp} ways; "
-                         "gather it with parallel.gather_params first")
+    q = params["decoder"]["layers"]["self_attn"]["q"]
+    tp = degree(q, cfg.d_model)
+    if tp > 1 or fsdp.is_sharded(q, cfg.d_model):
+        raise ValueError(f"save_pretrained got a sharded tree (model axis "
+                         f"{tp}); gather it with parallel.gather_params "
+                         "first")
     p = Path(path)
     p.mkdir(parents=True, exist_ok=True)
     cfg.save_pretrained(path)

@@ -27,6 +27,14 @@ is sharded (a row-parallel input's row absmax, the self-KV cache's token
 absmax) take the group's max, so a sharded run computes the unsharded
 function; dropout draws the unsharded masks and keeps the rank's columns.
 
+2-D (FSDP-style) sharding over the mesh's 'data' axis (``RULES_2D``): a
+leaf's 'embed' dimension holds ``d_model / dp`` columns, and each layer's
+leaves are all-gathered where the layer is taken (inside the remat
+boundary, so the recompute gathers again), the other leaves where they are
+read (``parallel/fsdp.py``); the products then see the 1-D shards.  The
+tensor-parallel degree is read from the q kernel's output width against
+``cfg.d_model``, which 'data' never splits.
+
 :func:`cross_attention_probs` yields the fp32 cross-attention
 probabilities of a teacher-forced pass layer by layer (DTW word timestamps).
 
@@ -61,6 +69,7 @@ from ..ops.encoder_attention import fused_self_attention
 from ..ops.int8_mlp import fused_int8_mlp, mlp_supported
 from ..ops.qat import ACT_FQ_KEY, fake_quant_acts
 from ..ops.quant import dense_int8, int_mm, quantize_acts, symmetric_int8
+from ..parallel import fsdp
 from ..parallel import tensor_parallel as tp
 from .params import layer_slice
 
@@ -113,6 +122,31 @@ def _generator(seed: Optional[int], device) -> Optional[torch.Generator]:
     if seed is None:
         return None
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def _layer(params: Params, i: int, root: str, d_model: int,
+           gathered: bool) -> Params:
+    """Layer ``i`` of ``params["layers"]`` (views); ``gathered``: the tree
+    is sliced over 'data', and the layer's leaves are all-gathered (a
+    decoder layer's but for its cross-attention K/V projections, which
+    :func:`cross_kv` applies once an utterance)."""
+    lp = layer_slice(params["layers"], i)
+    if gathered:
+        if "cross_attn" in lp:
+            lp = {**lp, "cross_attn": {k: v for k, v in
+                                       lp["cross_attn"].items()
+                                       if k not in ("k", "v")}}
+        lp = fsdp.gather_tree(lp, f"{root}.layers", d_model, sliced=True)
+    return lp
+
+
+def _leaf(params: Params, name: str, root: str, d_model: int) -> Any:
+    """``params[name]`` (a leaf or a {kernel, bias} / LayerNorm subtree of
+    a top-level module), gathered over 'data' where it is sliced."""
+    x = params[name]
+    if isinstance(x, dict):
+        return fsdp.gather_tree(x, f"{root}.{name}", d_model)
+    return fsdp.gather_leaf(x, f"{root}.{name}", d_model)
 
 
 def _run_layer(fn, remat: bool, *args):
@@ -257,11 +291,13 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
     backward."""
     rates = (cfg.dropout, cfg.attention_dropout, cfg.activation_dropout)
     use_dropout = generator is not None and any(r > 0 for r in rates)
+    d = cfg.d_model
     x = mel.to(dtype).transpose(1, 2)                        # [B, 3000, n_mels]
-    x = F.gelu(_conv1d(params["conv1"], x, 1))
-    x = F.gelu(_conv1d(params["conv2"], x, 2))               # [B, 1500, d]
+    x = F.gelu(_conv1d(_leaf(params, "conv1", "encoder", d), x, 1))
+    x = F.gelu(_conv1d(_leaf(params, "conv2", "encoder", d), x, 2))
     # sinusoidal positions are constants, never trained
-    x = x + params["pos_emb"].detach().to(dtype)
+    x = x + fsdp.gather_leaf(params["pos_emb"].detach(), "encoder.pos_emb",
+                             d).to(dtype)
     use_fused = cfg.use_flash_encoder and not (
         use_dropout and cfg.attention_dropout > 0)
     policy = (not cfg.fast_bf16_attention, cfg.fast_approx_activations,
@@ -271,18 +307,20 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor,
         x = dropout(x, cfg.dropout, _generator(seeds.pop(), x.device))
     else:
         rates, seeds = (0.0, 0.0, 0.0), [None] * cfg.encoder_layers
-    group = tp.group_of(params["layers"]["self_attn"]["q"])
+    q = params["layers"]["self_attn"]["q"]
+    group = tp.group_of(q, d)
+    gathered = fsdp.is_sharded(q, d)
     n_heads = cfg.encoder_attention_heads // tp.size(group)
     hs = []
     for i in range(cfg.encoder_layers):
         if output_hidden_states:
             hs.append(x)
-        lp = layer_slice(params["layers"], i)
         x = _run_layer(
-            lambda h, lp=lp, seed=seeds[i]: _encoder_layer(
-                lp, h, n_heads, policy, h.shape[1], rates, seed, group),
+            lambda h, i=i, seed=seeds[i]: _encoder_layer(
+                _layer(params, i, "encoder", d, gathered), h, n_heads,
+                policy, h.shape[1], rates, seed, group),
             remat, x)
-    y = layer_norm(params["ln_post"], x)
+    y = layer_norm(_leaf(params, "ln_post", "encoder", d), x)
     if freeze:
         y = y.detach()
     if output_hidden_states:
@@ -377,7 +415,9 @@ def cross_kv(params: Params, cfg: WhisperConfig,
     scale per (layer, batch, head), kept as a [B, 1, d] vector so that the
     dequant is one elementwise multiply; each layer is quantized as it is
     projected.  On a sharded tree: this rank's heads, [L, B, 1500, d/tp]."""
-    group = tp.group_of(params["layers"]["cross_attn"]["k"])
+    k = params["layers"]["cross_attn"]["k"]
+    group = tp.group_of(k, cfg.d_model)
+    gathered = fsdp.is_sharded(k, cfg.d_model)
     h = cfg.decoder_attention_heads // tp.size(group)
     quantize = cfg.quantize_cross_kv
     enc = tp.copy_to(enc, group)
@@ -392,6 +432,10 @@ def cross_kv(params: Params, cfg: WhisperConfig,
     parts = []
     for i in range(cfg.decoder_layers):
         lp = layer_slice(params["layers"], i)["cross_attn"]
+        if gathered:    # the K/V projections only
+            lp = fsdp.gather_tree({n: lp[n] for n in ("k", "v")},
+                                  "decoder.layers.cross_attn", cfg.d_model,
+                                  sliced=True)
         k, v = dense(lp["k"], enc), dense(lp["v"], enc)
         parts.append((*q8(k), *q8(v)) if quantize else (k, v))
     names = ("k_q", "k_scale", "v_q", "v_scale") if quantize else ("k", "v")
@@ -546,11 +590,15 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     output and every layer's output, the last after the final LayerNorm.
     """
     b, s = tokens.shape
-    group = tp.group_of(params["layers"]["self_attn"]["q"])
+    d = cfg.d_model
+    q = params["layers"]["self_attn"]["q"]
+    group = tp.group_of(q, d)
+    gathered = fsdp.is_sharded(q, d)
     n_heads = cfg.decoder_attention_heads // tp.size(group)
     device = tokens.device
-    pos_table = params["pos_emb"].to(dtype)
-    x = params["tok_emb"].to(dtype)[tokens]
+    pos_table = _leaf(params, "pos_emb", "decoder", d).to(dtype)
+    tok_emb = _leaf(params, "tok_emb", "decoder", d)
+    x = tok_emb.to(dtype)[tokens]
     per_lane = isinstance(pos_offset, torch.Tensor)
     if pad_len is None and not per_lane:
         start = min(max(pos_offset, 0), pos_table.shape[0] - s)
@@ -596,7 +644,8 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     else:
         rates, seeds = (0.0, 0.0, 0.0), [None] * cfg.decoder_layers
 
-    def uncached_layer(x, lp, ck, cv, seed):
+    def uncached_layer(x, i, ck, cv, seed):
+        lp = _layer(params, i, "decoder", d, gathered)
         h = tp.copy_to(layer_norm(lp["self_attn_ln"], x, fp32=not fast_act),
                        group)
         k = _split_heads(dense(lp["self_attn"]["k"], h), n_heads)
@@ -610,11 +659,11 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     for i in range(cfg.decoder_layers):
         if output_hidden_states:
             hs.append(x)
-        lp = layer_slice(params["layers"], i)
         ck, cv = _cross_read(cross, i, dtype)
         if cache is None:
-            x = _run_layer(uncached_layer, remat, x, lp, ck, cv, seeds[i])
+            x = _run_layer(uncached_layer, remat, x, i, ck, cv, seeds[i])
             continue
+        lp = _layer(params, i, "decoder", d, gathered)
         h = layer_norm(lp["self_attn_ln"], x, fp32=not fast_act)
         _cache_write(cache, "k", i, pos_offset, dense(lp["self_attn"]["k"], h),
                      group)
@@ -625,7 +674,7 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
                           n_heads, self_mask, mask2, merged_fast, policy,
                           group)
 
-    y = layer_norm(params["ln"], x)
+    y = layer_norm(_leaf(params, "ln", "decoder", d), x)
     if skip_logits:
         logits = y
     elif "tok_emb_q" in params and b >= 8:
@@ -635,8 +684,7 @@ def decode(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     else:
         # fp32 logits (the tied embedding in the working dtype, fp32
         # accumulation) as in JAX
-        logits = torch.matmul(y.float(),
-                              params["tok_emb"].to(dtype).float().T)
+        logits = torch.matmul(y.float(), tok_emb.to(dtype).float().T)
     if output_hidden_states:
         return logits, cache, torch.stack(hs + [y])
     return logits, cache
@@ -659,10 +707,13 @@ def cross_attention_probs(params: Params, cfg: WhisperConfig,
     Under tensor parallelism every head's, gathered over the model group.
     """
     b, s = tokens.shape
-    group = tp.group_of(params["layers"]["self_attn"]["q"])
+    d = cfg.d_model
+    q = params["layers"]["self_attn"]["q"]
+    group = tp.group_of(q, d)
+    gathered = fsdp.is_sharded(q, d)
     n_heads = cfg.decoder_attention_heads // tp.size(group)
-    x = params["tok_emb"].to(dtype)[tokens.long()]
-    x = x + params["pos_emb"].to(dtype)[:s]
+    x = _leaf(params, "tok_emb", "decoder", d).to(dtype)[tokens.long()]
+    x = x + _leaf(params, "pos_emb", "decoder", d).to(dtype)[:s]
     if cross is None:
         if enc is None:
             raise ValueError("cross_attention_probs() needs enc or cross")
@@ -670,7 +721,7 @@ def cross_attention_probs(params: Params, cfg: WhisperConfig,
     mask = causal_mask(s, s, 0, device=tokens.device)
     policy = (not cfg.fast_bf16_attention, cfg.fast_approx_activations)
     for i in range(cfg.decoder_layers):
-        lp = layer_slice(params["layers"], i)
+        lp = _layer(params, i, "decoder", d, gathered)
         ck, cv = _cross_read(cross, i, dtype)
         h = layer_norm(lp["self_attn_ln"], x)
         k = _split_heads(dense(lp["self_attn"]["k"], h), n_heads)

@@ -24,7 +24,11 @@ are the ones the int8 path serves:
 Under tensor parallelism a row-parallel kernel (out, fc2) takes the model
 group's max of its per-output-channel absmax, every step (the weights
 move), and a row-parallel input the group's max of its row absmax, so the
-fake-quant values are the unsharded tree's.
+fake-quant values are the unsharded tree's.  Under 2-D sharding
+(``RULES_2D``) the other kernels' contraction ('embed') is sliced over
+'data', and their absmax takes the data group's max: each shard's
+fake-quant values are the slice of the gathered kernel's, which the model
+then gathers at use.
 
 The straight-through sum is written as JAX writes it, ``x + (dq -
 x).detach()`` in fp32 and then cast: returning ``dq`` itself would differ
@@ -36,7 +40,7 @@ sees it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -95,7 +99,20 @@ def fake_quant_dense(p: Params, acts: bool, group=None) -> Params:
     return out
 
 
-def fake_quant_decoder_params(dec: Params, acts: bool = True) -> Params:
+def _groups(layers: Params, d_model: Optional[int]):
+    """(model group, data group) of a layer stack: the groups over which
+    the row-parallel and the other kernels' contractions are sharded."""
+    from ..parallel import fsdp, groups
+    group = layers_group(layers, d_model)
+    q = layers["self_attn"]["q"]
+    if d_model is None:
+        return group, None
+    dp = fsdp.degree(q["kernel"] if "kernel" in q else q["kernel_q"], d_model)
+    return group, groups.group_for("data", dp)
+
+
+def fake_quant_decoder_params(dec: Params, acts: bool = True,
+                              d_model: Optional[int] = None) -> Params:
     """Decoder subtree -> fake-quant self/cross q/k/v/out and fc1/fc2, by
     the traversal of ``quantize_decoder_params`` (``map_decoder_dense``), so
     the QAT scope is the serving scope.
@@ -104,15 +121,17 @@ def fake_quant_decoder_params(dec: Params, acts: bool = True) -> Params:
     MLP pass of 256 rows or more in bf16 on the card (teacher-forced
     scoring, a large prefill; never a single-token step) takes the fused
     int8 MLP kernel, which requantizes the gelu output per (row, 512-chunk),
-    finer than QAT's per-row fake-quant of the fc2 input."""
+    finer than QAT's per-row fake-quant of the fc2 input.  ``d_model``
+    (the config's) is needed for a tree sliced over 'data'."""
     out = dict(dec)
     out["layers"] = map_decoder_dense(
         dec["layers"], lambda p, g: fake_quant_dense(p, acts, g),
-        layers_group(dec["layers"]))
+        *_groups(dec["layers"], d_model))
     return out
 
 
-def fake_quant_encoder_params(enc: Params, acts: bool = True) -> Params:
+def fake_quant_encoder_params(enc: Params, acts: bool = True,
+                              d_model: Optional[int] = None) -> Params:
     """Encoder subtree -> fake-quant self q/k/v/out and fc1/fc2 (the
     ``quantize_encoder_params`` scope).  Only useful when the encoder is
     unfrozen; the fused int8 MLP kernel that serves it requantizes per
@@ -120,22 +139,27 @@ def fake_quant_encoder_params(enc: Params, acts: bool = True) -> Params:
     out = dict(enc)
     out["layers"] = map_encoder_dense(
         enc["layers"], lambda p, g: fake_quant_dense(p, acts, g),
-        layers_group(enc["layers"]))
+        *_groups(enc["layers"], d_model))
     return out
 
 
 def fake_quant_student_params(params: Params, mode: str,
-                              encoder_too: bool = False) -> Params:
+                              encoder_too: bool = False,
+                              d_model: Optional[int] = None) -> Params:
     """Full student tree -> the QAT forward tree.
 
     ``mode``: ``"w8a8"`` (weights and dynamic activation fake-quant: the
-    serving numerics) or ``"weights"`` (weights only, an ablation)."""
+    serving numerics) or ``"weights"`` (weights only, an ablation).
+    ``d_model`` (the student config's) is needed for a tree sliced over
+    'data' (``RULES_2D``)."""
     if mode not in ("weights", "w8a8"):
         raise ValueError(f"quantize_student mode {mode!r} not in "
                          "('weights', 'w8a8')")
     acts = mode == "w8a8"
     out = dict(params)
-    out["decoder"] = fake_quant_decoder_params(params["decoder"], acts)
+    out["decoder"] = fake_quant_decoder_params(params["decoder"], acts,
+                                               d_model)
     if encoder_too:
-        out["encoder"] = fake_quant_encoder_params(params["encoder"], acts)
+        out["encoder"] = fake_quant_encoder_params(params["encoder"], acts,
+                                                   d_model)
     return out

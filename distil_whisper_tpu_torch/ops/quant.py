@@ -38,7 +38,7 @@ row-parallel kernels then take the group's max of their channel absmax.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -142,38 +142,46 @@ def quantize_dense(p: Params, group=None) -> Params:
 ROW_PARALLEL = ("out", "fc2")
 
 
-def map_encoder_dense(layers: Params, fn, group=None) -> Params:
+def map_encoder_dense(layers: Params, fn, group=None,
+                      data_group=None) -> Params:
     """Apply ``fn(p, group)`` to every quantizable dense subtree of an
     encoder layer stack (self-attention q/k/v/out, fc1/fc2): the encoder's
-    quantization scope.  ``group`` (the model group of a sharded tree)
-    reaches the row-parallel ones only."""
+    quantization scope.  ``fn`` gets the group over which the subtree's
+    contraction is sharded: ``group`` (the model group of a sharded tree)
+    for the row-parallel ones, ``data_group`` (a tree sliced over 'data',
+    ``RULES_2D``) for the others."""
+    def contraction(name):
+        return group if name in ROW_PARALLEL else data_group
     out = dict(layers)
-    out["self_attn"] = {name: fn(layers["self_attn"][name],
-                                 group if name in ROW_PARALLEL else None)
+    out["self_attn"] = {name: fn(layers["self_attn"][name], contraction(name))
                         for name in ("q", "k", "v", "out")}
     for name in ("fc1", "fc2"):
-        out[name] = fn(layers[name], group if name in ROW_PARALLEL else None)
+        out[name] = fn(layers[name], contraction(name))
     return out
 
 
-def map_decoder_dense(layers: Params, fn, group=None) -> Params:
+def map_decoder_dense(layers: Params, fn, group=None,
+                      data_group=None) -> Params:
     """Apply ``fn(p, group)`` to every quantizable dense subtree of a
     decoder layer stack (self/cross-attention q/k/v/out, fc1/fc2), as
     :func:`map_encoder_dense`."""
-    out = dict(layers)
-    for attn in ("self_attn", "cross_attn"):
-        out[attn] = {name: fn(layers[attn][name],
-                              group if name in ROW_PARALLEL else None)
-                     for name in ("q", "k", "v", "out")}
-    for name in ("fc1", "fc2"):
-        out[name] = fn(layers[name], group if name in ROW_PARALLEL else None)
+    out = map_encoder_dense(layers, fn, group, data_group)
+    out["cross_attn"] = {name: fn(layers["cross_attn"][name],
+                                  group if name in ROW_PARALLEL
+                                  else data_group)
+                         for name in ("q", "k", "v", "out")}
     return out
 
 
-def layers_group(layers: Params):
-    """The model group a layer stack is sharded over (None: unsharded);
-    raises where its int8 MLP would split a requantization chunk."""
-    group = tp.group_of(layers["self_attn"]["q"])
+def layers_group(layers: Params, d_model: Optional[int] = None):
+    """The model group a layer stack of a ``d_model``-wide model is
+    sharded over (None: unsharded); raises where its int8 MLP would split
+    a requantization chunk.  Without ``d_model`` the stack must not be
+    sliced over 'data' (quantize before 2-D sharding)."""
+    q = layers["self_attn"]["q"]
+    if d_model is None:
+        d_model = (q["kernel"] if "kernel" in q else q["kernel_q"]).shape[-2]
+    group = tp.group_of(q, d_model)
     if group is not None:
         from .int8_mlp import check_whole_chunks
         fc1 = layers["fc1"]

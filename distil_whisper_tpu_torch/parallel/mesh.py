@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from . import tensor_parallel
+from . import groups, tensor_parallel
 from .multihost import broadcast_, world_size
 
 # Logical axis -> mesh axis (the JAX package's table): batch -> data; the
@@ -50,8 +50,10 @@ RULES_2D: Dict[str, Optional[str]] = {
     "embed": "data",
 }
 
-NEXT_SLICE = ("comes with the 2-D sharding and serving-under-a-mesh slice: "
-              "ROADMAP.md queue 1, item 2")
+
+def shards_data(rules: Dict[str, Optional[str]]) -> bool:
+    """True for rules that shard parameters over 'data' (``RULES_2D``)."""
+    return any(v == "data" for k, v in rules.items() if k != "batch")
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,
@@ -61,8 +63,9 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     by default.  Needs the process group (``maybe_initialize_distributed``);
     ``device_type`` defaults to cuda under NCCL, else cpu (a gloo group,
     whose collectives also take CUDA tensors).  A model axis larger than 1
-    registers this rank's model group for its degree
-    (``tensor_parallel.group_for``)."""
+    registers this rank's model group for its degree, a data axis larger
+    than 1 its data group (for trees sharded under ``RULES_2D``):
+    ``groups.group_for``."""
     from torch.distributed.device_mesh import init_device_mesh
     n = world_size()
     if shape is None:
@@ -76,7 +79,9 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     mesh = init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axis_names))
     if shape[1] > 1:
-        tensor_parallel.register(shape[1], mesh.get_group("model"))
+        groups.register("model", shape[1], mesh.get_group("model"))
+    if shape[0] > 1:
+        groups.register("data", shape[0], mesh.get_group("data"))
     return mesh
 
 
@@ -165,35 +170,64 @@ def leaf_axes(path: str) -> Optional[Tuple[Optional[str], ...]]:
     return axes
 
 
+def mesh_dim(path: str, axis: str,
+             rules: Dict[str, Optional[str]] = DEFAULT_RULES
+             ) -> Optional[int]:
+    """The dimension of the leaf at ``path`` that ``rules`` shard over the
+    mesh axis ``axis`` ('model' or 'data'), or None."""
+    axes = leaf_axes(path)
+    if axes is None:
+        return None
+    dims = [i for i, m in enumerate(spec_for_axes(axes, rules)) if m == axis]
+    return dims[0] if dims else None
+
+
 def model_dim(path: str, rules: Dict[str, Optional[str]] = DEFAULT_RULES
               ) -> Optional[int]:
     """The dimension of the leaf at ``path`` that is sharded over
     'model', or None for a replicated leaf."""
-    axes = leaf_axes(path)
-    if axes is None:
-        return None
-    dims = [i for i, m in enumerate(spec_for_axes(axes, rules))
-            if m == "model"]
-    return dims[0] if dims else None
+    return mesh_dim(path, "model", rules)
+
+
+def data_dim(path: str, rules: Dict[str, Optional[str]] = DEFAULT_RULES
+             ) -> Optional[int]:
+    """The dimension of the leaf at ``path`` that is sharded over 'data'
+    (``RULES_2D``: the 'embed' dimension), or None."""
+    return mesh_dim(path, "data", rules)
+
+
+def _slices(path: str, mesh, rules, axes: Sequence[str]):
+    """``(dim, index, count)`` of each mesh axis in ``axes`` that slices
+    the leaf at ``path`` on this rank."""
+    d, dp, m, tp = coordinates(mesh)
+    out = []
+    for axis, i, n in (("model", m, tp), ("data", d, dp)):
+        dim = mesh_dim(path, axis, rules) if axis in axes and n > 1 else None
+        if dim is not None:
+            out.append((dim, i, n, axis))
+    return out
 
 
 def shard_leaf(path: str, x: torch.Tensor, mesh=None,
-               rules: Dict[str, Optional[str]] = DEFAULT_RULES
-               ) -> torch.Tensor:
+               rules: Dict[str, Optional[str]] = DEFAULT_RULES,
+               axes: Sequence[str] = ("model", "data")) -> torch.Tensor:
     """This rank's shard of the unsharded leaf ``x`` at ``path`` (``x``
-    itself when the leaf is replicated or there is no model axis)."""
-    _, _, i, tp = coordinates(mesh)
-    dim = model_dim(path, rules)
-    if tp == 1 or dim is None:
+    itself when the leaf is replicated or the mesh axes in ``axes`` that
+    ``rules`` shard it over have one rank)."""
+    parts = _slices(path, mesh, rules, axes)
+    if not parts:
         return x
-    n = x.shape[dim]
-    if n % tp:
-        raise ValueError(f"{path}: dimension {dim} of shape {tuple(x.shape)} "
-                         f"does not divide by a model axis of {tp}")
-    if path.endswith("fc1.kernel_q"):
-        from ..ops.int8_mlp import check_whole_chunks
-        check_whole_chunks(n, tp)
-    part = x.detach().narrow(dim, i * (n // tp), n // tp)
+    part = x.detach()
+    for dim, i, n, axis in parts:
+        size = part.shape[dim]
+        if size % n:
+            raise ValueError(f"{path}: dimension {dim} of shape "
+                             f"{tuple(part.shape)} does not divide by a "
+                             f"{axis} axis of {n}")
+        if axis == "model" and path.endswith("fc1.kernel_q"):
+            from ..ops.int8_mlp import check_whole_chunks
+            check_whole_chunks(size, n)
+        part = part.narrow(dim, i * (size // n), size // n)
     if path.endswith("kernel_q"):
         # each shard output-major again (ops/quant.py::output_major)
         from ..ops.quant import output_major
@@ -203,15 +237,20 @@ def shard_leaf(path: str, x: torch.Tensor, mesh=None,
     return out.requires_grad_(x.requires_grad)
 
 
-def replicate_over_data(tree: Any, mesh=None) -> Any:
+def replicate_over_data(tree: Any, mesh=None,
+                        rules: Dict[str, Optional[str]] = DEFAULT_RULES
+                        ) -> Any:
     """Overwrite every tensor leaf of ``tree`` in place with the values of
     the first rank of this rank's data group (no-op without data
-    parallelism)."""
+    parallelism).  Leaves that ``rules`` shard over 'data' are each data
+    rank's own and are left alone (pass ``DEFAULT_RULES`` for a tree that
+    is not sliced over 'data' yet)."""
     group = data_group(mesh)
     if group is not None:
         from ..models.params import tree_paths
-        leaves = [x for x in tree_paths(tree).values()
-                  if isinstance(x, torch.Tensor)]
+        leaves = [x for p, x in tree_paths(tree).items()
+                  if isinstance(x, torch.Tensor)
+                  and data_dim(p, rules) is None]
         with torch.no_grad():
             broadcast_(leaves,
                        src=torch.distributed.get_global_rank(group, 0),
@@ -224,33 +263,40 @@ def shard_params(params: Any, mesh=None,
                  cfg=None) -> Any:
     """Place an unsharded param tree on the mesh: each leaf whose logical
     axes map to 'model' sliced to this rank's shard (a new tree), then
-    every leaf broadcast over the data axis.  Float and int8 trees alike
-    (quantize the unsharded tree, then shard: a row-parallel shard keeps
-    its whole ``kernel_scale``).  ``cfg`` adds the check that the degree
-    divides the heads.  Raises ``ValueError`` on a degree that divides no
-    shard evenly or splits an int8 MLP chunk.  Returns ``params`` itself
-    without a mesh; rules that shard parameters over 'data'
-    (``RULES_2D``) raise."""
-    if any(v == "data" for k, v in rules.items() if k != "batch"):
-        raise NotImplementedError(
-            f"parameters sharded over 'data' (RULES_2D, --param_sharding "
-            f"2d) {NEXT_SLICE}")
+    every leaf broadcast over the data axis, then under ``RULES_2D`` each
+    leaf's 'embed' dimension sliced to this data rank's part.  Float and
+    int8 trees alike (quantize the unsharded tree, then shard: a
+    row-parallel shard keeps its whole ``kernel_scale``).  ``cfg`` adds
+    the check that the degrees divide the heads and d_model.  Raises
+    ``ValueError`` on a degree that divides no shard evenly or splits an
+    int8 MLP chunk.  Returns ``params`` itself without a mesh."""
+    from ..models.params import map_with_path
     if model_group(mesh) is not None:
         if cfg is not None:
             check_degree(cfg, coordinates(mesh)[3])
-        from ..models.params import map_with_path
         params = map_with_path(
-            lambda path, x: shard_leaf(path, x, mesh, rules), params)
-    return replicate_over_data(params, mesh)
+            lambda path, x: shard_leaf(path, x, mesh, rules, ("model",)),
+            params)
+    params = replicate_over_data(params, mesh)
+    if shards_data(rules) and data_group(mesh) is not None:
+        dp = coordinates(mesh)[1]
+        if cfg is not None and cfg.d_model % dp:
+            raise ValueError(f"a data axis of {dp} does not divide "
+                             f"d_model = {cfg.d_model}")
+        params = map_with_path(
+            lambda path, x: shard_leaf(path, x, mesh, rules, ("data",)),
+            params)
+    return params
 
 
 def gather_params(params: Any, mesh=None,
                   rules: Dict[str, Optional[str]] = DEFAULT_RULES) -> Any:
-    """The unsharded tree of a sharded one (every rank of a model group
-    must call it): each sharded leaf gathered over the model group, int8
-    kernels output-major again.  Returns ``params`` itself without tensor
-    parallelism."""
-    if model_group(mesh) is None:
+    """The unsharded tree of a sharded one (every rank of the mesh's groups
+    must call it): each sharded leaf gathered over the model group and,
+    under ``RULES_2D``, the data group; int8 kernels output-major again.
+    Returns ``params`` itself when nothing is sharded."""
+    if model_group(mesh) is None and not (
+            shards_data(rules) and data_group(mesh) is not None):
         return params
     from ..models.params import map_with_path
     return map_with_path(
@@ -261,12 +307,15 @@ def gather_leaf(path: str, x: torch.Tensor, mesh=None,
                 rules: Dict[str, Optional[str]] = DEFAULT_RULES
                 ) -> torch.Tensor:
     """The unsharded leaf of this rank's shard ``x`` at ``path``: gathered
-    over the model group (a collective), int8 kernels output-major."""
-    group = model_group(mesh)
-    dim = model_dim(path, rules)
-    if group is None or dim is None:
+    over the model group and the data group that slice it (collectives),
+    int8 kernels output-major."""
+    parts = _slices(path, mesh, rules, ("model", "data"))
+    if not parts:
         return x
-    full = tensor_parallel.all_gather(x.detach(), dim, group)
+    full = x.detach()
+    for dim, _, _, axis in parts:
+        group = model_group(mesh) if axis == "model" else data_group(mesh)
+        full = tensor_parallel.all_gather(full, dim, group)
     if path.endswith("kernel_q"):
         from ..ops.quant import output_major
         full = output_major(full)

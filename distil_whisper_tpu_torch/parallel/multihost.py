@@ -16,9 +16,10 @@ too.
 
 from __future__ import annotations
 
+import datetime
 import logging
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -59,7 +60,8 @@ def default_backend(local_world: int, device: str = "cuda") -> str:
 
 
 def maybe_initialize_distributed(force: bool = False,
-                                 device: str = "cuda") -> bool:
+                                 device: str = "cuda",
+                                 timeout: Optional[float] = None) -> bool:
     """Join the ``torch.distributed`` job described by the environment
     (idempotent); True when this process runs as one of several ranks.
 
@@ -69,7 +71,9 @@ def maybe_initialize_distributed(force: bool = False,
     ``--distributed``): then it RAISES, so a misconfigured launch fails
     fast instead of silently training on one GPU.  On a CUDA run each rank
     makes ``cuda:LOCAL_RANK`` its current device (modulo the host's cards,
-    so that ranks may share one card over gloo)."""
+    so that ranks may share one card over gloo).  ``timeout`` (seconds):
+    how long a collective waits for the other ranks before it raises
+    (PyTorch's default otherwise)."""
     if dist.is_initialized():
         return is_distributed()
     missing = [k for k in CLUSTER_ENV if not os.environ.get(k)]
@@ -89,10 +93,12 @@ def maybe_initialize_distributed(force: bool = False,
     backend = default_backend(local_world, device)
     if torch.device(device).type == "cuda" and torch.cuda.is_available():
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
+    kw = ({} if timeout is None
+          else {"timeout": datetime.timedelta(seconds=timeout)})
     dist.init_process_group(backend, init_method="env://", rank=rank_,
-                            world_size=world)
+                            world_size=world, **kw)
     _HOST_GROUP["group"] = (None if backend == "gloo"
-                            else dist.new_group(backend="gloo"))
+                            else dist.new_group(backend="gloo", **kw))
     log.info("torch.distributed initialised: rank %d/%d (local %d), "
              "backend %s", rank_, world, local_rank, backend)
     return True

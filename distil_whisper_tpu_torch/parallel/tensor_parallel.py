@@ -12,57 +12,42 @@ cast and the bias (the closest match to one unsharded product, on gloo and
 NCCL alike).  Backward, :func:`copy_to` sums the gradient of a replicated
 input over the group (Megatron's f and g).
 
-The model finds the degree from a layer's shapes (a q kernel is ``[..,
-d_model, d_model / tp]``, :func:`group_of`) and the group from the mesh
-that ``make_mesh`` registered for that degree: the world size fixes the
-data axis, so a job has at most one mesh a degree.  With no mesh, or at
+The model finds the degree from a q kernel's output width against the
+config's ``d_model`` (``[.., d_model, d_model / tp]``, :func:`group_of`;
+the output is the dimension that 'data' never splits, so a 2-D-sharded
+``[.., d_model / dp, d_model / tp]`` kernel reads the same degree) and
+the group from the mesh that ``make_mesh`` registered for that degree:
+the world size fixes the data axis, so a job has at most one mesh a
+degree.  With no mesh, or at
 tp 1, every function here is the identity and issues no collective.
 
-:func:`timed` counts the all-reduces of the model group and, on the card,
-times them with CUDA events.
+``parallel.groups.timed`` counts the model group's all-reduces and, on
+the card, times them with CUDA events.
 """
 
 from __future__ import annotations
 
-import contextlib
-import time
-from typing import Any, Dict, List
+from typing import Any, Dict
 
 import torch
 import torch.distributed as dist
 
-# model-axis size -> this rank's model group, one per mesh made
-_GROUPS: Dict[int, Any] = {}
-# the open timed() record, if any
-_RECORD: List["Record"] = []
+from .groups import group_for, recorded
 
-
-def register(tp: int, group) -> None:
-    """Make ``group`` the model group of degree ``tp`` (``make_mesh``)."""
-    _GROUPS[tp] = group
-
-
-def group_for(tp: int):
-    """This rank's model group of degree ``tp`` (None at tp 1)."""
-    if tp == 1:
-        return None
-    if tp not in _GROUPS:
-        raise ValueError(f"parameters sharded {tp} ways, but no mesh with a "
-                         f"'model' axis of {tp} was made in this process "
-                         "(parallel.make_mesh)")
-    return _GROUPS[tp]
-
-
-def degree(p: Dict[str, Any]) -> int:
+def degree(p: Dict[str, Any], d_model: int) -> int:
     """The model-axis size a q (or k/v) projection ``{kernel | kernel_q}
-    [.., d_model, d_model / tp]`` was sharded over."""
+    [.., d_model (/ dp), d_model / tp]`` of a ``d_model``-wide model was
+    sharded over."""
     w = p["kernel"] if "kernel" in p else p["kernel_q"]
-    return w.shape[-2] // w.shape[-1]
+    if d_model % w.shape[-1]:
+        raise ValueError(f"a q/k/v projection {w.shape[-1]} wide does not "
+                         f"divide d_model = {d_model}")
+    return d_model // w.shape[-1]
 
 
-def group_of(p: Dict[str, Any]):
+def group_of(p: Dict[str, Any], d_model: int):
     """The model group of a column-parallel projection (None: unsharded)."""
-    return group_for(degree(p))
+    return group_for("model", degree(p, d_model))
 
 
 def size(group) -> int:
@@ -74,50 +59,12 @@ def index(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
-class Record:
-    """All-reduces of the model group while a :func:`timed` block is open:
-    their count, the host's time inside the calls (all of a gloo
-    all-reduce, which returns when it is done; an NCCL call only enqueues)
-    and, on the card, their device time between CUDA events."""
-
-    def __init__(self):
-        self.count = 0
-        self.host_ms = 0.0
-        self.events: List[Any] = []
-
-    def ms(self) -> float:
-        if not self.events:
-            return 0.0
-        self.events[-1][1].synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.events)
-
-
-@contextlib.contextmanager
-def timed():
-    """``with timed() as rec:`` counts (and on the card times) the model
-    group's all-reduces of the block: ``rec.count``, ``rec.ms()``."""
-    rec = Record()
-    _RECORD.append(rec)
-    try:
-        yield rec
-    finally:
-        _RECORD.remove(rec)
-
-
 def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In-place all-reduce of ``t`` over ``group``, recorded."""
-    rec = _RECORD[-1] if _RECORD else None
-    if rec is not None and t.is_cuda:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-    t0 = time.perf_counter()
-    dist.all_reduce(t, op=op, group=group)
-    if rec is not None:
-        rec.host_ms += (time.perf_counter() - t0) * 1e3
-        rec.count += 1
-        if t.is_cuda:
-            end.record()
-            rec.events.append((start, end))
+    n = dist.get_world_size(group)
+    with recorded(t, "all_reduce",
+                  2 * (n - 1) * t.numel() * t.element_size() // n):
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 

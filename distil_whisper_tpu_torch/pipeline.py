@@ -28,9 +28,9 @@ parameters (and a draft's) are sharded over the 'model' axis, so that each
 model group runs one tensor-parallel copy; each batch of windows is padded
 to a multiple of the data axis (the last window repeated), each data rank
 decodes its slice, and the tokens are gathered over the ranks, so every
-rank returns the whole result.  Speculation counters are the rank's own.
-The serving schedulers do not take a meshed pipeline yet (ROADMAP.md queue
-1, item 2).
+rank returns the whole result (:func:`decode_over_data`).  Speculation
+counters are the rank's own.  The serving schedulers drive a meshed
+pipeline from one leader rank (``parallel/lockstep.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +57,25 @@ from .models.whisper import cross_kv, decode, encode, init_cache, kv_width
 from .ops.quant import maybe_quantize_encoder
 from .parallel.mesh import coordinates, shard_params
 from .tokenizer import WhisperTokenizer
+
+
+def decode_over_data(mesh, b: int, fn):
+    """``fn(rows)`` (a tuple of host arrays with one row per index of
+    ``rows``, or Nones) over ``range(b)``, the rows split over the mesh's
+    data axis: padded to a multiple of it with the last row, each data
+    rank running its slice, and the results gathered from every rank (a
+    data rank's from the first rank of its model group, the model axis
+    being the inner one) in row order.  Every rank calls it alike."""
+    d, n_data, _, tp = coordinates(mesh)
+    if n_data == 1:
+        return fn(list(range(b)))
+    from .parallel.multihost import gather_rows
+    per = -(-b // n_data)
+    pad = [b - 1] * (per * n_data - b)
+    parts = fn((list(range(b)) + pad)[d * per:(d + 1) * per])
+    return tuple(None if p is None else
+                 gather_rows(p).reshape(n_data, tp, *p.shape)[:, 0]
+                 .reshape(-1, *p.shape[1:])[:b] for p in parts)
 
 
 class WhisperPipeline:
@@ -168,25 +187,11 @@ class WhisperPipeline:
         """:meth:`_decode_rows` of a batch of windows; under a mesh with a
         data axis, of this data rank's slice of it (padded to a multiple
         of the axis with the last window), gathered from every rank."""
-        d, n_data, _, tp = coordinates(self.mesh)
-        if n_data == 1:
-            return self._decode_rows(mels, prompts, opts, num_beams,
-                                     length_penalty, num_frames)
-        from .parallel.multihost import gather_rows
-        b = mels.shape[0]
-        per = -(-b // n_data)
-        pad = [b - 1] * (per * n_data - b)
-        rows = (list(range(b)) + pad)[d * per:(d + 1) * per]
-        parts = self._decode_rows(
-            mels[rows], [prompts[r] for r in rows], opts, num_beams,
-            length_penalty, None if num_frames is None
-            else [num_frames[r] for r in rows])
-        # every rank's rows in rank order; a data rank's come from the
-        # first rank of its model group (the model axis is the inner one)
-        out = [None if p is None else
-               gather_rows(p).reshape(n_data, tp, *p.shape)[:, 0]
-               .reshape(-1, *p.shape[1:])[:b] for p in parts]
-        return tuple(out)
+        return decode_over_data(self.mesh, mels.shape[0], lambda rows: (
+            self._decode_rows(
+                mels[rows], [prompts[r] for r in rows], opts, num_beams,
+                length_penalty, None if num_frames is None
+                else [num_frames[r] for r in rows])))
 
     @torch.no_grad()
     def _decode_rows(self, mels: torch.Tensor, prompts: List[List[int]],

@@ -21,6 +21,16 @@ A transcriber built on a CUDA pipeline runs every device call on the card,
 on the default stream: a tensor crosses threads only after the call that
 produced it has returned, so stream order is issue order.
 
+Over a meshed pipeline (``WhisperPipeline(mesh=)``) every rank constructs
+the transcriber; global rank 0 leads (``leader``: it starts the worker and
+serves) and the others :meth:`BatchingTranscriber.follow`.  Each
+micro-batch's requests (audio and options) are published on the command
+stream (``parallel/lockstep.py``) and every rank dispatches the same
+groups: a group's rows are split over the data axis and its tokens
+gathered (``pipeline.decode_over_data``), the other paths are the meshed
+pipeline's.  A failed group ends the worker there, and later submissions
+are refused.
+
 JAX compiles one program per group shape and pads a ragged group to the
 data-parallel width; the port runs the rows that exist.  The helpers
 (validation, the gamma controller's model) are copies of the JAX module's,
@@ -48,7 +58,8 @@ from .generation.speculative import (ngram_speculative_generate_batched,
                                      prepare_assistant,
                                      speculative_generate_batched)
 from .models.whisper import cross_kv, encode
-from .parallel.mesh import NEXT_SLICE
+from .parallel.lockstep import REQUEST_ERRORS, Lockstep
+from .pipeline import decode_over_data
 
 logger = logging.getLogger("distil_whisper_tpu_torch")
 
@@ -202,6 +213,14 @@ def _coerce_mode(mode, return_timestamps) -> str:
     return mode
 
 
+def check_prompt(tok, language: Optional[str], task: str) -> None:
+    """Raise ValueError at submission for a prompt the tokenizer cannot
+    build (an unknown language), before any device call takes the
+    request."""
+    if tok is not None and language is not None:
+        tok.prompt_ids(language=language, task=task)
+
+
 def _budget(requested: Optional[int], server_max: int) -> int:
     """A request's token budget, clamped to [1, the server's]."""
     if requested is None:
@@ -336,19 +355,17 @@ class _Request:
     cancelled: bool = False
 
 
-def refuse_mesh(pipe) -> None:
-    """The schedulers serve a single-process pipeline: a pipeline with a
-    mesh raises, naming the ROADMAP.md item that brings it."""
-    if getattr(pipe, "mesh", None) is not None:
-        raise NotImplementedError(f"serving a pipeline with a mesh "
-                                  f"{NEXT_SLICE}")
+# the fields of a request that a micro-batch publishes to the followers
+_FIELDS = ("audio", "language", "task", "return_timestamps", "max_new_tokens",
+           "mode", "num_beams", "temperature", "top_k", "seed")
 
 
 class BatchingTranscriber(_StatsMixin):
     """Micro-batching front-end over a :class:`.pipeline.WhisperPipeline`.
 
     ``submit()`` blocks the calling (HTTP) thread until its request's batch
-    has run; the single worker thread owns all device calls.
+    has run; the single worker thread owns all device calls.  Over a
+    meshed pipeline the leader serves and the other ranks :meth:`follow`.
     """
 
     def __init__(self, pipe, batch_size: Optional[int] = None,
@@ -361,7 +378,6 @@ class BatchingTranscriber(_StatsMixin):
                  adaptive_gamma: bool = False,
                  draft_cost: Optional[float] = None):
         resolve_device(pipe.device)     # a missing card fails here
-        refuse_mesh(pipe)
         self.pipe = pipe
         self.batch_size = batch_size or pipe.batch_size
         self.max_wait_s = max_wait_ms / 1e3
@@ -374,7 +390,8 @@ class BatchingTranscriber(_StatsMixin):
         if self.ngram and assistant is not None:
             raise ValueError(
                 "pick ONE speculation method: assistant draft or ngram lookup")
-        self.assistant = prepare_assistant(assistant, pipe.dtype, pipe.device)
+        self.assistant = prepare_assistant(assistant, pipe.dtype, pipe.device,
+                                           getattr(pipe, "mesh", None))
         self.max_ngram = int(max_ngram)
         self.gamma = int(gamma)
         # benchmark only: pin the per-draft accept rate with a
@@ -419,8 +436,24 @@ class BatchingTranscriber(_StatsMixin):
                                     / max(pipe.cfg.decoder_layers, 1))
             self.stats.update({"gamma_current": g0, "gamma_raises": 0,
                                "gamma_drops": 0})
+        self._crashed: Optional[str] = None
+        self._stream = Lockstep(
+            {"dispatch": lambda fields: self._dispatch(
+                [_Request(**f) for f in fields])},
+            device=resolve_device(pipe.device),
+            mesh=getattr(pipe, "mesh", None))
 
     # ------------------------------------------------------------- lifecycle
+    @property
+    def leader(self) -> bool:
+        """True on the rank that serves (every rank without a mesh)."""
+        return self._stream.leader or not self._stream.distributed
+
+    def follow(self) -> None:
+        """A follower's part: dispatch the leader's micro-batches until it
+        stops (raises if one fails here)."""
+        self._stream.follow()
+
     def start(self) -> "BatchingTranscriber":
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="batching-transcriber")
@@ -432,6 +465,7 @@ class BatchingTranscriber(_StatsMixin):
             self._q.put(None)
             self._worker.join(timeout=30)
             self._worker = None
+        self._stream.stop()
 
     # --------------------------------------------------------------- client
     def submit(self, audio, language: Optional[str] = None,
@@ -457,7 +491,9 @@ class BatchingTranscriber(_StatsMixin):
             raise ValueError("sampling (temperature > 0) applies to single-"
                              "window (<=30 s) requests; long-form decoding "
                              "is greedy/beam per the reference protocol")
-        req = _Request(wav, language or self.default_language, task,
+        language = language or self.default_language
+        check_prompt(self.pipe.tokenizer, language, task)
+        req = _Request(wav, language, task,
                        ts, max_new_tokens, mode=md, num_beams=beams,
                        temperature=temp, top_k=k,
                        seed=None if seed is None else int(seed))
@@ -471,6 +507,8 @@ class BatchingTranscriber(_StatsMixin):
         return req.result
 
     def _enqueue(self, req: _Request) -> None:
+        if self._crashed is not None:
+            raise RuntimeError(self._crashed)
         # qsize is approximate under concurrency — fine for load shedding
         if self._q.qsize() >= self.max_queue:
             self._bump("rejected")
@@ -540,6 +578,21 @@ class BatchingTranscriber(_StatsMixin):
 
     # --------------------------------------------------------------- worker
     def _run(self) -> None:
+        try:
+            self._run_inner()
+        except Exception as e:  # noqa: BLE001 — only under a mesh
+            logger.exception("micro-batch worker stopped")
+            self._crashed = f"worker stopped: {type(e).__name__}: {e}"
+            while True:
+                try:
+                    r = self._q.get_nowait()
+                except queue.Empty:
+                    return
+                if r is not None and not r.done.is_set():
+                    r.error = self._crashed
+                    r.done.set()
+
+    def _run_inner(self) -> None:
         while True:
             req = self._q.get()
             if req is None:
@@ -555,10 +608,31 @@ class BatchingTranscriber(_StatsMixin):
                 except queue.Empty:
                     break
                 if nxt is None:
-                    self._dispatch(batch)
+                    self._publish_dispatch(batch)
                     return
                 batch.append(nxt)
-            self._dispatch(batch)
+            self._publish_dispatch(batch)
+
+    def _publish_dispatch(self, batch: List[_Request]) -> None:
+        """Dispatch a micro-batch on every rank (the followers rebuild its
+        requests from their published fields)."""
+        batch = [r for r in batch if not r.cancelled]
+        if batch:
+            self._stream.call(
+                "dispatch", [{k: getattr(r, k) for k in _FIELDS}
+                             for r in batch],
+                run=lambda: self._dispatch(batch))
+
+    def _failed(self, reqs, e: Exception, what: str) -> None:
+        """Record a failed group on its requests.  Under a mesh an error
+        that is not the request's own (``REQUEST_ERRORS``, raised alike on
+        every rank) is raised again, so that the command stream closes and
+        the worker ends."""
+        logger.exception(what)
+        for r in reqs:
+            r.error = f"{type(e).__name__}: {e}"
+        if self._stream.distributed and not isinstance(e, REQUEST_ERRORS):
+            raise e
 
     def _dispatch(self, batch: List[_Request]) -> None:
         # drop requests whose client stopped waiting (timed out /
@@ -624,9 +698,7 @@ class BatchingTranscriber(_StatsMixin):
             for r, res in zip(reqs, results):
                 r.result = res
         except Exception as e:  # noqa: BLE001 — the worker must keep serving
-            logger.exception("word-timestamp batch failed")
-            for r in reqs:
-                r.error = f"{type(e).__name__}: {e}"
+            self._failed(reqs, e, "word-timestamp batch failed")
         finally:
             for r in reqs:
                 r.done.set()
@@ -636,8 +708,7 @@ class BatchingTranscriber(_StatsMixin):
             r.result = self._sequential.run(r.audio, r.language, r.task,
                                             r.max_new_tokens, r.num_beams)
         except Exception as e:  # noqa: BLE001 — the worker must keep serving
-            logger.exception("sequential-path request failed")
-            r.error = f"{type(e).__name__}: {e}"
+            self._failed([r], e, "sequential-path request failed")
         finally:
             r.done.set()
 
@@ -650,8 +721,7 @@ class BatchingTranscriber(_StatsMixin):
                 max_new_tokens=_budget(r.max_new_tokens, self.max_new_tokens),
                 generate_kwargs=gk)
         except Exception as e:  # noqa: BLE001 — the worker must keep serving
-            logger.exception("pipeline-path request failed")
-            r.error = f"{type(e).__name__}: {e}"
+            self._failed([r], e, "pipeline-path request failed")
         finally:
             r.done.set()
 
@@ -692,18 +762,14 @@ class BatchingTranscriber(_StatsMixin):
                                     no_timestamps=not return_timestamps)
             prompts = torch.tensor([prompt] * len(reqs), dtype=torch.long,
                                    device=pipe.device)
-            enc = encode(pipe.params["encoder"], cfg, mels, dtype=pipe.dtype)
-            cross = cross_kv(pipe.params["decoder"], cfg, enc)
             dec = pipe.params["decoder"]
             opts = GenerationOptions.from_config(
                 cfg, max_new_tokens=beam_budget or self.max_new_tokens,
                 return_timestamps=return_timestamps,
                 no_speech_token_id=tok.no_speech)
-            if num_beams > 1:
-                out = beam_search(dec, cfg, cross, prompts, opts,
-                                  num_beams=num_beams, length_penalty=1.0,
-                                  dtype=pipe.dtype)
-            elif sample is not None:
+            speculate = (num_beams == 1 and sample is None
+                         and (self.assistant is not None or self.ngram))
+            if sample is not None:
                 temp, top_k, seed = sample
                 opts = GenerationOptions.from_config(
                     cfg, max_new_tokens=self.max_new_tokens,
@@ -712,28 +778,53 @@ class BatchingTranscriber(_StatsMixin):
                     do_sample=True, top_k=top_k)
                 if seed is None:
                     seed = self._seeds.take()
-                gen = torch.Generator(device=pipe.device).manual_seed(seed)
-                out = generate(dec, cfg, cross, prompts, opts,
-                               temperature=float(temp), generator=gen,
-                               dtype=pipe.dtype)
-                self._bump("sampled", len(reqs))
-            elif self.assistant is not None or self.ngram:
-                # token-identical to the greedy path; faster whenever the
-                # acceptance earns back the draft's cost
+            if speculate:
                 g = (self._gamma_levels[self._gamma_idx]
                      if self.adaptive_gamma else self.gamma)
-                out = self._speculate(mels, enc, cross, prompts, opts, g)
-                d, a = int(out.drafted.sum()), int(out.accepted.sum())
+
+            def run_rows(rows):
+                """The group's rows ``rows`` (this data rank's under a
+                mesh): encode, then decode by the group's method."""
+                enc = encode(pipe.params["encoder"], cfg, mels[rows],
+                             dtype=pipe.dtype)
+                cross = cross_kv(dec, cfg, enc)
+                counts = (None, None)
+                if num_beams > 1:
+                    out = beam_search(dec, cfg, cross, prompts[rows], opts,
+                                      num_beams=num_beams, length_penalty=1.0,
+                                      dtype=pipe.dtype)
+                elif sample is not None:
+                    gen = torch.Generator(device=pipe.device).manual_seed(seed)
+                    out = generate(dec, cfg, cross, prompts[rows], opts,
+                                   temperature=float(temp), generator=gen,
+                                   dtype=pipe.dtype)
+                elif speculate:
+                    # token-identical to the greedy path; faster whenever
+                    # the acceptance earns back the draft's cost
+                    out = self._speculate(mels[rows], enc, cross,
+                                          prompts[rows], opts, g)
+                    counts = (out.drafted.cpu().numpy(),
+                              out.accepted.cpu().numpy())
+                else:
+                    out = generate(dec, cfg, cross, prompts[rows], opts,
+                                   dtype=pipe.dtype)
+                return (out.sequences.cpu().numpy(),
+                        out.seq_len.cpu().numpy(), *counts)
+
+            # a sampled group is not split over 'data': its rows draw from
+            # one generator over the whole group, as in one process
+            seqs, lens, drafted, accepted = decode_over_data(
+                None if sample is not None else getattr(pipe, "mesh", None),
+                len(reqs), run_rows)
+            if sample is not None:
+                self._bump("sampled", len(reqs))
+            if speculate:
+                d, a = int(drafted.sum()), int(accepted.sum())
                 self._bump("speculative_batches")
                 self._bump("drafted", d)
                 self._bump("accepted", a)
                 if self.adaptive_gamma:
                     self._update_gamma_controller(d, a, g)
-            else:
-                out = generate(dec, cfg, cross, prompts, opts,
-                               dtype=pipe.dtype)
-            seqs = out.sequences.cpu().numpy()
-            lens = out.seq_len.cpu().numpy()
 
             self._bump("batches")
             self._bump_max("max_batch", len(reqs))
@@ -746,9 +837,7 @@ class BatchingTranscriber(_StatsMixin):
                 r.result = _short_result(tok, seqs[j][:cut].tolist(),
                                          return_timestamps)
         except Exception as e:  # noqa: BLE001 — the worker must keep serving
-            logger.exception("batched request group failed")
-            for r in reqs:
-                r.error = f"{type(e).__name__}: {e}"
+            self._failed(reqs, e, "batched request group failed")
         finally:
             for r in reqs:
                 r.done.set()

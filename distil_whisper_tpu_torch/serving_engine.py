@@ -36,6 +36,20 @@ speculatively: each round drafts ``gamma`` tokens per lane at the per-lane
 cursors and verifies them in one (gamma + 1)-wide teacher decode, with the
 timestamp FSM run per verify column; tokens equal the greedy engine's.
 
+Under a mesh (a pipeline built with ``mesh=``, tensor parallel over its
+'model' axis) one engine spans the job, as JAX's does: the lanes are split
+over the 'data' axis (lane ``j`` lives on data rank ``j // (lanes / dp)``;
+``lanes`` must divide by dp), the ranks of a model group hold the same
+lanes and run the sharded products, admission scatters each row to its
+owner's lanes, and each block's packed vector is gathered over the ranks
+so that the leader reads every lane.  Global rank 0 leads: the
+transcriber's device calls (admissions, blocks, language detection, the
+fallback thread's pipeline calls) go through one command stream
+(``parallel/lockstep.py``) that the other ranks replay in
+:meth:`ContinuousTranscriber.follow`, so the step loop and the fallback
+thread never issue collectives in different orders on different ranks; a
+failed call ends the worker and later submissions are refused.
+
 What the JAX engine carries for XLA and the TPU is not ported: donated
 state buffers, a cache of compiled programs, power-of-two admission
 buckets (here every free lane is filled at once) and the two-deep dispatch
@@ -65,12 +79,15 @@ from .generation.speculative import (_bias_to, _oracle, _process,
                                      _propose_ngram, _teacher_choices,
                                      _ts_advance, _verify_accept,
                                      prepare_assistant)
-from .models.whisper import cross_kv, decode, encode, init_cache
+from .models.whisper import cross_kv, decode, encode, init_cache, kv_width
+from .parallel.lockstep import Lockstep
+from .parallel.mesh import coordinates
+from .parallel.multihost import world_size
 from .serving import (ServerOverloadedError, _budget, _coerce_beams,
                       _coerce_mode, _coerce_sampling, _coerce_timestamps,
                       _gamma_step, _SeedCounter, _SequentialRunner,
-                      _short_result, _StatsMixin, estimate_accept,
-                      refuse_mesh)
+                      _short_result, _StatsMixin, check_prompt,
+                      estimate_accept)
 
 logger = logging.getLogger("distil_whisper_tpu_torch")
 
@@ -144,11 +161,10 @@ def periodic_oracle(tok_pos: torch.Tensor, lane: torch.Tensor,
     return (((tok_pos + 31 * lane) % period) * 131 % 389) % 400 + 10
 
 
-def _zero_cross(cfg, batch: int, dtype, device):
+def _zero_cross(cfg, batch: int, dtype, device, width: int):
     """Zero-filled cross K/V of :func:`models.whisper.cross_kv`'s structure
-    for ``batch`` lanes."""
-    shape = (cfg.decoder_layers, batch, cfg.max_source_positions,
-             cfg.decoder_attention_heads * cfg.decoder_head_dim)
+    for ``batch`` lanes (``width``: this rank's heads times head dim)."""
+    shape = (cfg.decoder_layers, batch, cfg.max_source_positions, width)
     if cfg.quantize_cross_kv:
         scale = shape[:2] + (1, shape[3])
         return {"k_q": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -171,8 +187,11 @@ class ContinuousBatchingEngine:
     """Device state and the step and admit functions.
 
     One instance owns ``lanes`` decode slots over one
-    :class:`.pipeline.WhisperPipeline`'s params and config.  Thread safety
-    is the caller's: the :class:`ContinuousTranscriber` worker is the only
+    :class:`.pipeline.WhisperPipeline`'s params and config; under a mesh
+    this rank holds ``local`` of them, global lanes ``lane0 ..
+    lane0 + local - 1``, and :meth:`admit` and :meth:`step` take and
+    return global lanes (every rank calls them alike).  Thread safety is
+    the caller's: the :class:`ContinuousTranscriber` worker is the only
     thread that calls :meth:`admit` and :meth:`step`.
     """
 
@@ -186,13 +205,21 @@ class ContinuousBatchingEngine:
                  synthetic_acceptance: Optional[float] = None,
                  ngram_speculative: bool = False, max_ngram: int = 3,
                  synthetic_period: Optional[int] = None):
-        refuse_mesh(pipe)
         self.pipe = pipe
         self.cfg = pipe.cfg
         self.tok = pipe.tokenizer
         self.dtype = pipe.dtype
         self.device = resolve_device(pipe.device)   # a missing card fails here
+        mesh = getattr(pipe, "mesh", None)
+        d, n_data, _, _ = coordinates(mesh)
+        if lanes % n_data:
+            raise ValueError(f"{lanes} lanes do not divide over a data axis "
+                             f"of {n_data}")
         self.lanes = lanes
+        self.local = lanes // n_data
+        self.lane0 = d * self.local
+        # the block's packed vector is gathered over the job's ranks
+        self._gather = mesh is not None and world_size() > 1
         self.block_steps = block_steps
         self.max_new = int(max_new_tokens or pipe.max_new_tokens)
         # speculative lanes: ``assistant`` = (draft_params, draft_cfg), or
@@ -205,7 +232,8 @@ class ContinuousBatchingEngine:
         if self.ngram and assistant is not None:
             raise ValueError(
                 "pick ONE speculation method: assistant draft or ngram lookup")
-        self.assistant = prepare_assistant(assistant, self.dtype, self.device)
+        self.assistant = prepare_assistant(assistant, self.dtype, self.device,
+                                           mesh)
         self.gamma = int(gamma)
         self.max_ngram = int(max_ngram)
         self.synthetic_period = synthetic_period
@@ -242,15 +270,16 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------- state
     def init_state(self) -> Dict[str, Any]:
-        b, cfg, dev = self.lanes, self.cfg, self.device
+        b, cfg, dev = self.local, self.cfg, self.device
+        width = kv_width(self.pipe.params["decoder"])
 
         def full(value, dtype):
             return torch.full((b,), value, dtype=dtype, device=dev)
 
         self._state = dict(
             cache=init_cache(cfg, b, dtype=self.dtype, max_len=self.t_buf,
-                             device=dev),
-            cross=_zero_cross(cfg, b, self.dtype, dev),
+                             device=dev, width=width),
+            cross=_zero_cross(cfg, b, self.dtype, dev, width),
             tokens=torch.full((b, self.t_buf), cfg.pad_token_id,
                               dtype=torch.long, device=dev),
             last_logits=torch.zeros((b, cfg.vocab_size), device=dev),
@@ -267,11 +296,13 @@ class ContinuousBatchingEngine:
             self._state.update(drafted=full(0, torch.long),
                                accepted=full(0, torch.long))
             if self.assistant is not None:
-                d_cfg = self.assistant[1]
+                d_params, d_cfg = self.assistant
+                d_width = kv_width(d_params["decoder"])
                 self._state.update(
                     d_cache=init_cache(d_cfg, b, dtype=self.dtype,
-                                       max_len=self.t_buf, device=dev),
-                    d_cross=_zero_cross(d_cfg, b, self.dtype, dev))
+                                       max_len=self.t_buf, device=dev,
+                                       width=d_width),
+                    d_cross=_zero_cross(d_cfg, b, self.dtype, dev, d_width))
         else:
             # per-lane sampling state (sampled requests under a speculative
             # engine ride the fallback thread)
@@ -305,7 +336,7 @@ class ContinuousBatchingEngine:
                          | (gen_idx + 1 >= s["budget"]))
         # a frozen lane writes (a pad, its K/V) at its frozen cursor: a slot
         # past its content that nothing reads
-        rows = torch.arange(self.lanes, device=self.device)
+        rows = torch.arange(self.local, device=self.device)
         pos = s["pos"]
         s["tokens"][rows, pos] = nxt
         new_ts = s["ts"].update(nxt, cfg.timestamp_begin)
@@ -326,7 +357,7 @@ class ContinuousBatchingEngine:
         accepted token's K/V (the JAX engine's draft never writes its last
         proposal's slot after a fully accepted round)."""
         d_params, d_cfg = self.assistant
-        cfg, b, dev = self.cfg, self.lanes, self.device
+        cfg, b, dev = self.cfg, self.local, self.device
         pos, plen = s["pos"], s["prompt_len"]
         rows = torch.arange(b, device=dev)
         start = (pos - 2).clamp(min=0)
@@ -347,7 +378,7 @@ class ContinuousBatchingEngine:
             scores = _process(logits.float(), tok_pos - plen, cfg, self.opts,
                               plen, ts_state=dts, use_ts=s["use_ts"])
             if self.synthetic_acceptance is not None:
-                agree = synthetic_agree(tok_pos, rows,
+                agree = synthetic_agree(tok_pos, rows + self.lane0,
                                         self.synthetic_acceptance)
                 oracle = _oracle(tok_pos)
                 scores = _bias_to(scores, torch.where(agree, oracle,
@@ -363,7 +394,7 @@ class ContinuousBatchingEngine:
         accepted prefix and the teacher's token after it, cut by EOS and
         the lane's budget.  Built from :mod:`.generation.speculative`'s
         primitives; frozen lanes emit nothing."""
-        cfg, b, dev = self.cfg, self.lanes, self.device
+        cfg, b, dev = self.cfg, self.local, self.device
         pad, eos = cfg.pad_token_id, cfg.eos_token_id
         frozen, pos, plen = s["finished"], s["pos"], s["prompt_len"]
         last_tok = s["tokens"].gather(1, (pos - 1)[:, None])[:, 0]
@@ -381,7 +412,8 @@ class ContinuousBatchingEngine:
             def bias_fn(scores, p):
                 return _bias_to(scores, _oracle(p))
         elif self.synthetic_period is not None:
-            lane = torch.arange(b, device=dev).repeat_interleave(gamma + 1)
+            lane = (torch.arange(b, device=dev) + self.lane0
+                    ).repeat_interleave(gamma + 1)
 
             def bias_fn(scores, p):
                 return _bias_to(scores, periodic_oracle(
@@ -425,7 +457,8 @@ class ContinuousBatchingEngine:
         length ``gamma`` (at most ``gamma_max``).  Returns the packed
         device vector ``[finished | pos | (drafted | accepted |) tokens]``
         (read it with :meth:`unpack`); nothing in a block waits for the
-        device."""
+        device.  Under a mesh every rank steps its own lanes and the
+        vector holds every lane, gathered over the ranks."""
         if self._state is None:
             raise RuntimeError("call init_state() first")
         s = self._state
@@ -441,7 +474,22 @@ class ContinuousBatchingEngine:
             for _ in range(self.block_steps):
                 self._greedy_step(s, sampling)
             head = [s["finished"].long(), s["pos"]]
-        return torch.cat(head + [s["tokens"].reshape(-1)])
+        packed = torch.cat(head + [s["tokens"].reshape(-1)])
+        return self._gather_lanes(packed, len(head)) if self._gather \
+            else packed
+
+    def _gather_lanes(self, packed: torch.Tensor, heads: int) -> torch.Tensor:
+        """Every data rank's packed vector (from the first rank of each
+        model group), laid out as one engine's over all the lanes."""
+        import torch.distributed as dist
+        n = world_size()
+        parts = [torch.empty_like(packed) for _ in range(n)]
+        dist.all_gather(parts, packed.contiguous())
+        tp = coordinates(self.pipe.mesh)[3]
+        rows = torch.stack(parts[::tp])                  # [dp, local packed]
+        k = heads * self.local
+        head = rows[:, :k].reshape(-1, heads, self.local).transpose(0, 1)
+        return torch.cat([head.reshape(-1), rows[:, k:].reshape(-1)])
 
     def unpack(self, packed: torch.Tensor):
         """packed device vector -> (finished [B] bool, pos [B], tokens
@@ -470,14 +518,29 @@ class ContinuousBatchingEngine:
         speculative mode the draft is admitted alongside, on the teacher's
         encoder states when the widths match.  ``temps``/``top_ks``/
         ``seeds`` set per-lane sampling (greedy engine only; temperature 0
-        = greedy, the default)."""
-        a = len(lanes)
-        if not a == len(prompts) == len(budgets) == len(use_ts) == len(mels):
+        = greedy, the default).  Under a mesh each rank admits the rows
+        whose lanes it holds."""
+        if not (len(lanes) == len(prompts) == len(budgets) == len(use_ts)
+                == len(mels)):
             raise ValueError("admit: one mel, prompt, budget, timestamp flag "
                              "and lane per request")
         if self.spec and temps and any(t > 0 for t in temps):
             raise ValueError("sampled lanes are fallback-routed under a "
                              "speculative engine")
+        mine = [i for i, lane in enumerate(lanes)
+                if self.lane0 <= lane < self.lane0 + self.local]
+        if not mine:
+            return
+        if len(mine) < len(lanes):
+            def pick(xs):
+                return None if xs is None else [xs[i] for i in mine]
+            mels = mels[mine]
+            prompts, budgets, use_ts = (pick(prompts), pick(budgets),
+                                        pick(use_ts))
+            lanes, temps, top_ks, seeds = (pick(lanes), pick(temps),
+                                           pick(top_ks), pick(seeds))
+        lanes = [lane - self.lane0 for lane in lanes]
+        a = len(lanes)
         cfg, dev, dtype, s = self.cfg, self.device, self.dtype, self._state
         params = self.pipe.params
         prom = np.full((a, self.p_max), cfg.pad_token_id, np.int64)
@@ -492,7 +555,7 @@ class ContinuousBatchingEngine:
         enc = encode(params["encoder"], cfg, mels, dtype=dtype)
         cross_new = cross_kv(params["decoder"], cfg, enc)
         cache_new = init_cache(cfg, a, dtype=dtype, max_len=self.t_buf,
-                               device=dev)
+                               device=dev, width=kv_width(params["decoder"]))
         lg, _ = decode(params["decoder"], cfg, prom_t, cross=cross_new,
                        cache=cache_new, pos_offset=0, dtype=dtype)
         last = lg[torch.arange(a, device=dev), plens - 1].float()
@@ -538,7 +601,8 @@ class ContinuousBatchingEngine:
                                  dtype=dtype))
             d_cross_new = cross_kv(d_params["decoder"], d_cfg, d_enc)
             d_cache_new = init_cache(d_cfg, a, dtype=dtype,
-                                     max_len=self.t_buf, device=dev)
+                                     max_len=self.t_buf, device=dev,
+                                     width=kv_width(d_params["decoder"]))
             decode(d_params["decoder"], d_cfg, prom_t, cross=d_cross_new,
                    cache=d_cache_new, pos_offset=0, dtype=dtype)
             _scatter_lanes(s["d_cache"], d_cache_new, lanes_t)
@@ -589,6 +653,11 @@ class ContinuousTranscriber(_StatsMixin):
     by the continuous-batching engine: the same ``submit()`` contract (so
     :func:`.serving.make_http_server` serves either), but finished lanes
     are refilled from the queue between step blocks.
+
+    Over a meshed pipeline every rank of the job constructs it alike; the
+    leader (:attr:`leader`, global rank 0) calls :meth:`start` and serves,
+    the others call :meth:`follow`, which replays the leader's device calls
+    until :meth:`stop`.
     """
 
     def __init__(self, pipe, batch_size: Optional[int] = None,
@@ -669,6 +738,27 @@ class ContinuousTranscriber(_StatsMixin):
         # sampled lanes resident (worker-thread-owned): while > 0 the engine
         # runs its sampling block; greedy-only traffic runs the greedy one
         self._sampled_inflight = 0
+        # every device call that issues collectives under a mesh, by name
+        # (the engine's looked up at call time)
+        self._stream = Lockstep({
+            "admit": lambda *a, **k: self.engine.admit(*a, **k),
+            "step": lambda *a, **k: self.engine.step(*a, **k),
+            "detect": pipe.detect_language,
+            "words": pipe.transcribe_words_batch, "pipe": pipe,
+            "sequential": self._sequential.run,
+            "sampled": self._sampled_device}, device=self.engine.device,
+            mesh=getattr(pipe, "mesh", None))
+
+    @property
+    def leader(self) -> bool:
+        """True on the rank that serves (every rank without a mesh)."""
+        return self._stream.leader or not self._stream.distributed
+
+    def follow(self) -> None:
+        """A follower's part: replay the leader's device calls until it
+        stops (raises if one of them fails here)."""
+        self.engine.init_state()
+        self._stream.follow()
 
     # ------------------------------------------------------------- client
     def start(self) -> "ContinuousTranscriber":
@@ -695,6 +785,7 @@ class ContinuousTranscriber(_StatsMixin):
         if fb is not None:
             self._fb_q.put(None)
             fb.join(timeout=60)
+        self._stream.stop()
 
     def submit(self, audio, language: Optional[str] = None,
                task: str = "transcribe", return_timestamps: bool = False,
@@ -733,7 +824,9 @@ class ContinuousTranscriber(_StatsMixin):
                 raise ValueError(
                     f"top_k={k} exceeds this server's maximum "
                     f"{self.engine.k_max} (engine top_k_max)")
-        return _EngineRequest(wav, language or self.default_language, task,
+        language = language or self.default_language
+        check_prompt(self.pipe.tokenizer, language, task)
+        return _EngineRequest(wav, language, task,
                               ts, max_new_tokens, threading.Event(),
                               mode=md, num_beams=beams, temperature=temp,
                               top_k=k,
@@ -741,6 +834,9 @@ class ContinuousTranscriber(_StatsMixin):
                               stream=stream)
 
     def _enqueue(self, req: _EngineRequest) -> None:
+        if self._crashed is None and self._stream.closed is not None:
+            self._crashed = f"the mesh's command stream is closed: " \
+                            f"{self._stream.closed}"
         if self._crashed is not None:
             raise RuntimeError(self._crashed)
         # backlog = raw queue + featurised-but-unadmitted windows + windows
@@ -884,8 +980,8 @@ class ContinuousTranscriber(_StatsMixin):
             r._mel = self._window_mel(r.audio)
         tok = self.pipe.tokenizer
         if r.language is None and len(tok.lang_to_id) > 1:
-            r.language = self.pipe.detect_language(
-                r._mel.to(self.pipe.dtype))[0]
+            r.language = self._stream.call(
+                "detect", r._mel.to(self.pipe.dtype))[0]
 
     # --------------------------------------------------------------- worker
     def _drain_ready(self, block: bool) -> bool:
@@ -913,8 +1009,8 @@ class ContinuousTranscriber(_StatsMixin):
         chunks = self.pipe._chunk(r.audio, 30.0, None)
         if r.language is None and len(tok.lang_to_id) > 1:
             mel0 = self._window_mel(chunks[0]["audio"])
-            r.language = self.pipe.detect_language(
-                mel0.to(self.pipe.dtype))[0]
+            r.language = self._stream.call("detect",
+                                           mel0.to(self.pipe.dtype))[0]
         r._chunk_tokens = [None] * len(chunks)
         r._chunk_strides = [c["stride"] for c in chunks]
         r._chunks_left = len(chunks)
@@ -944,8 +1040,12 @@ class ContinuousTranscriber(_StatsMixin):
         budgets = [_budget(r.max_new_tokens, self.max_new_tokens)
                    for r in reqs]
         use_ts = [bool(r.return_timestamps) for r in reqs]
+        # the admitted requests are in flight from here, so that a failed
+        # admission errors them out with the rest (_abort_all)
+        for lane, r in zip(lanes, reqs):
+            self._inflight[lane] = r
         if eng.spec:
-            eng.admit(mels, prompts, budgets, use_ts, lanes)
+            self._stream.call("admit", mels, prompts, budgets, use_ts, lanes)
         else:
             for r in reqs:
                 if r.temperature > 0:
@@ -953,10 +1053,10 @@ class ContinuousTranscriber(_StatsMixin):
                         r.seed = self._seeds.take()
                     self._bump("sampled")
                     self._sampled_inflight += 1
-            eng.admit(mels, prompts, budgets, use_ts, lanes,
-                      temps=[r.temperature for r in reqs],
-                      top_ks=[r.top_k for r in reqs],
-                      seeds=[r.seed or 0 for r in reqs])
+            self._stream.call("admit", mels, prompts, budgets, use_ts, lanes,
+                              temps=[r.temperature for r in reqs],
+                              top_ks=[r.top_k for r in reqs],
+                              seeds=[r.seed or 0 for r in reqs])
         for lane, r, p in zip(lanes, reqs, prompts):
             r._plen = len(p)
             r._mel = None  # free the device buffer
@@ -1134,8 +1234,8 @@ class ContinuousTranscriber(_StatsMixin):
                     singles.append(b)
             for (task, max_new), reqs in groups.items():
                 try:
-                    results = self.pipe.transcribe_words_batch(
-                        [b.audio for b in reqs],
+                    results = self._stream.call(
+                        "words", [b.audio for b in reqs],
                         languages=[b.language for b in reqs],
                         task=task, max_new_tokens=max_new)
                     self._bump("fb_batches")
@@ -1152,16 +1252,16 @@ class ContinuousTranscriber(_StatsMixin):
     def _run_fallback_single(self, r: _EngineRequest) -> None:
         try:
             if r.mode == "sequential":
-                result = self._sequential.run(r.audio, r.language,
-                                              r.task, r.max_new_tokens,
-                                              r.num_beams)
+                result = self._stream.call("sequential", r.audio, r.language,
+                                           r.task, r.max_new_tokens,
+                                           r.num_beams)
             elif r.temperature > 0:
                 result = self._run_sampled_single(r)
             else:
                 gk = ({"num_beams": r.num_beams} if r.num_beams > 1
                       else None)
-                result = self.pipe(
-                    r.audio, language=r.language, task=r.task,
+                result = self._stream.call(
+                    "pipe", r.audio, language=r.language, task=r.task,
                     return_timestamps=r.return_timestamps,
                     max_new_tokens=_budget(r.max_new_tokens,
                                            self.max_new_tokens),
@@ -1171,38 +1271,47 @@ class ContinuousTranscriber(_StatsMixin):
             logger.exception("fallback request failed")
             self._finish_req(r, error=f"{type(e).__name__}: {e}")
 
-    @torch.no_grad()
     def _run_sampled_single(self, r: _EngineRequest) -> Dict[str, Any]:
         """Sampled short-form off the lanes (a speculative engine routes
         sampling here — the accept/verify contract is argmax agreement):
         the port's sampled ``generate`` with a generator on the pipeline's
         device seeded from the request."""
-        pipe, cfg, tok = self.pipe, self.pipe.cfg, self.pipe.tokenizer
-        mel = self._window_mel(r.audio).to(pipe.dtype)
-        language = r.language
-        if language is None and len(tok.lang_to_id) > 1:
-            language = pipe.detect_language(mel)[0]
-        prompt = tok.prompt_ids(language=language, task=r.task,
-                                no_timestamps=not r.return_timestamps)
-        opts = GenerationOptions.from_config(
-            cfg, max_new_tokens=self.max_new_tokens,
-            return_timestamps=bool(r.return_timestamps),
-            no_speech_token_id=tok.no_speech, do_sample=True, top_k=r.top_k)
         if r.seed is None:
             r.seed = self._seeds.take()
+        return self._stream.call(
+            "sampled", self._window_mel(r.audio), r.language, r.task,
+            r.return_timestamps, r.temperature, r.top_k, r.seed,
+            r.max_new_tokens)
+
+    @torch.no_grad()
+    def _sampled_device(self, mel: torch.Tensor, language, task: str,
+                        return_timestamps, temperature: float, top_k: int,
+                        seed: int, max_new_tokens: Optional[int]
+                        ) -> Dict[str, Any]:
+        """The device part of :meth:`_run_sampled_single` (every rank)."""
+        pipe, cfg, tok = self.pipe, self.pipe.cfg, self.pipe.tokenizer
+        mel = mel.to(pipe.dtype)
+        if language is None and len(tok.lang_to_id) > 1:
+            language = pipe.detect_language(mel)[0]
+        prompt = tok.prompt_ids(language=language, task=task,
+                                no_timestamps=not return_timestamps)
+        opts = GenerationOptions.from_config(
+            cfg, max_new_tokens=self.max_new_tokens,
+            return_timestamps=bool(return_timestamps),
+            no_speech_token_id=tok.no_speech, do_sample=True, top_k=top_k)
         enc = encode(pipe.params["encoder"], cfg, mel, dtype=pipe.dtype)
         out = generate(pipe.params["decoder"], cfg,
                        cross_kv(pipe.params["decoder"], cfg, enc),
                        torch.tensor([prompt], device=pipe.device), opts,
-                       temperature=float(r.temperature),
+                       temperature=float(temperature),
                        generator=torch.Generator(
-                           device=pipe.device).manual_seed(r.seed),
+                           device=pipe.device).manual_seed(seed),
                        dtype=pipe.dtype)
         cut = int(out.seq_len[0])
-        if r.max_new_tokens is not None:
-            cut = min(cut, len(prompt) + max(int(r.max_new_tokens), 0))
+        if max_new_tokens is not None:
+            cut = min(cut, len(prompt) + max(int(max_new_tokens), 0))
         return _short_result(tok, out.sequences[0, :cut].tolist(),
-                             r.return_timestamps)
+                             return_timestamps)
 
     def _reclaim_cancelled(self) -> None:
         """Free lanes whose occupant's client stopped waiting.  Safe without
@@ -1255,8 +1364,9 @@ class ContinuousTranscriber(_StatsMixin):
                 gamma = (self._gamma_levels[self._gamma_idx]
                          if self.engine.spec else None)
                 snap = dict(self._inflight)
-                packed = self.engine.step(self._sampled_inflight > 0,
-                                          gamma=gamma)
+                packed = self._stream.call("step",
+                                           self._sampled_inflight > 0,
+                                           gamma=gamma)
                 self._bump("blocks")
                 self._complete((packed, snap))
             if shutting_down and not self._inflight and not self._pending:

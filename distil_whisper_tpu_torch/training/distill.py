@@ -29,6 +29,13 @@ compute the same loss on their shards (``models/whisper.py``); the token
 counts, metrics and gradients are still summed over 'data' only, and the
 global norm takes the sharded leaves over the model group
 (``state.global_norm``).
+
+2-D sharding (the state placed under ``RULES_2D``): the model gathers each
+data-sliced leaf at use and reduce-scatters its gradient to the shard in
+the backward (``parallel/fsdp.py``), so those gradients are the data
+group's sums already; :class:`DataParallel` all-reduces only the leaves
+that 'data' does not slice (the q/k/v and fc1 biases).  The step is
+otherwise the 1-D step.
 """
 
 from __future__ import annotations
@@ -42,12 +49,13 @@ from ..config import WhisperConfig
 from ..models.params import tree_paths
 from ..models.whisper import decode, encode, forward
 from ..ops.qat import fake_quant_student_params
+from ..parallel import fsdp
 from ..parallel.mesh import data_group
 from ..parallel.multihost import all_reduce_sum
 from ..utils.profiling import StepTimer
 from .losses import (chunked_ce_kl, cross_entropy, get_layers_to_supervise,
                      hidden_state_mse, kl_divergence)
-from .state import OptimizerConfig, TrainState, global_norm
+from .state import OptimizerConfig, TrainState, global_norm, sharded_axes
 
 Params = Any
 
@@ -104,12 +112,17 @@ class DataParallel:
         summed = all_reduce_sum(list(metrics.values()), self.group)
         return {k: s.to(v.dtype) for (k, v), s in zip(metrics.items(), summed)}
 
-    def gradients(self, grads: Dict[str, Optional[torch.Tensor]]
+    def gradients(self, grads: Dict[str, Optional[torch.Tensor]],
+                  state: Optional[TrainState] = None
                   ) -> Dict[str, Optional[torch.Tensor]]:
-        """Gradients summed over the ranks (fp32)."""
+        """Gradients summed over the ranks (fp32); the leaves of a 2-D
+        ``state`` that 'data' slices were summed by their reduce-scatter
+        and are left as they are."""
         if self.group is None:
             return grads
-        live = [p for p, g in grads.items() if g is not None]
+        live = [p for p, g in grads.items() if g is not None and not (
+            state is not None
+            and sharded_axes(p, state.mesh, state.rules)[1])]
         if self.timer is None:
             self.timer = StepTimer(grads[live[0]].device if live else "cpu")
         with self.timer:
@@ -119,10 +132,10 @@ class DataParallel:
 
 def _step(state: TrainState, loss: torch.Tensor, metrics: Dict,
           dp: DataParallel, grad_norm: bool = True):
-    grads = dp.gradients(gradients(loss, state))
+    grads = dp.gradients(gradients(loss, state), state)
     metrics = dp.metrics(metrics)
     if grad_norm:
-        metrics["grad_norm"] = global_norm(grads, state.model_group)
+        metrics["grad_norm"] = global_norm(grads, state.mesh, state.rules)
     state.apply_gradients(grads)
     return state, metrics
 
@@ -163,7 +176,8 @@ def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
             # QAT: fresh scales every step, applied to the live tree
             params = fake_quant_student_params(
                 params, dcfg.quantize_student,
-                encoder_too=not dcfg.freeze_encoder)
+                encoder_too=not dcfg.freeze_encoder,
+                d_model=student_cfg.d_model)
         mel = batch["input_features"]
         dec_in = batch["decoder_input_ids"]
         labels = batch["labels"]
@@ -183,8 +197,12 @@ def build_train_step(student_cfg: WhisperConfig, teacher_cfg: WhisperConfig,
                            **common)
             if chunked:
                 loss, metrics = weighted(*chunked_ce_kl(
-                    s_out[0], t_out[0], params["decoder"]["tok_emb"],
-                    teacher["decoder"]["tok_emb"], labels,
+                    s_out[0], t_out[0],
+                    fsdp.gather_leaf(params["decoder"]["tok_emb"],
+                                     "decoder.tok_emb", student_cfg.d_model),
+                    fsdp.gather_leaf(teacher["decoder"]["tok_emb"],
+                                     "decoder.tok_emb", teacher_cfg.d_model),
+                    labels,
                     temperature=dcfg.temperature,
                     label_smoothing=dcfg.label_smoothing,
                     chunk=dcfg.loss_chunk_size))
@@ -250,7 +268,8 @@ def build_finetune_step(cfg: WhisperConfig, opt_cfg: OptimizerConfig,
     def loss_fn(params, batch, generator=None):
         if quantize_student != "none":
             params = fake_quant_student_params(
-                params, quantize_student, encoder_too=not freeze_encoder)
+                params, quantize_student, encoder_too=not freeze_encoder,
+                d_model=cfg.d_model)
         logits, _ = forward(params, cfg, batch["input_features"],
                             batch["decoder_input_ids"],
                             decoder_attention_mask=batch.get(

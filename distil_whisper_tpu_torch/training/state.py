@@ -35,6 +35,12 @@ squares over the model group and counts the replicated ones once, so that
 clipping is the unsharded step's; :meth:`TrainState.state_dict` gathers
 the shards (a collective) and :meth:`TrainState.load_state_dict` slices an
 unsharded state onto this rank, so checkpoints are topology-free.
+
+2-D sharding (``place_state(state, mesh, RULES_2D)``, JAX's
+``--param_sharding 2d``): the parameters, moments and accumulated gradient
+are sliced over 'data' too, each like its parameter; the global norm sums
+a data-sliced leaf's squares over the data group as well, and the
+checkpoint gathers and slices over both axes.
 """
 
 from __future__ import annotations
@@ -46,8 +52,9 @@ import torch
 
 from ..models.params import map_with_path, tree_paths, unflatten_paths
 from ..parallel import tensor_parallel as tp
-from ..parallel.mesh import (gather_leaf, model_dim, model_group,
-                             replicate_over_data, shard_leaf)
+from ..parallel.mesh import (DEFAULT_RULES, coordinates, data_dim,
+                             data_group, gather_leaf, model_dim, model_group,
+                             replicate_over_data, shard_leaf, shards_data)
 
 Params = Any
 
@@ -112,22 +119,40 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
                           else rest(count - cfg.warmup_steps))
 
 
-def global_norm(grads: Dict[str, Optional[torch.Tensor]],
-                group=None) -> torch.Tensor:
+def sharded_axes(path: str, mesh=None, rules=DEFAULT_RULES
+                 ) -> Tuple[bool, bool]:
+    """Whether the leaf at ``path`` of a state placed on ``mesh`` under
+    ``rules`` is sliced over (the model axis, the data axis)."""
+    _, dp, _, n_tp = coordinates(mesh)
+    return (n_tp > 1 and model_dim(path, rules) is not None,
+            dp > 1 and shards_data(rules) and data_dim(path, rules) is not None)
+
+
+def global_norm(grads: Dict[str, Optional[torch.Tensor]], mesh=None,
+                rules=DEFAULT_RULES) -> torch.Tensor:
     """fp32 sqrt of the sum of squares of every gradient (None = zeros),
-    the gradients keyed by parameter path.  ``group``: the model group of
-    a tensor-parallel state, over which the sharded leaves' squares are
-    summed (every rank holds the replicated leaves whole)."""
+    the gradients keyed by parameter path.  On a ``mesh`` the squares of a
+    leaf sliced over the model axis are summed over the model group, of
+    one sliced over 'data' (``RULES_2D``) over the data group, and of one
+    sliced over both over both; every rank holds the other leaves whole."""
     device = next((g.device for g in grads.values() if g is not None), "cpu")
 
     def total(keep):
         sq = [g.float().square().sum() for p, g in grads.items()
               if g is not None and keep(p)]
         return torch.stack(sq).sum() if sq else torch.zeros((), device=device)
-    if group is None:
+    if mesh is None:
         return total(lambda p: True).sqrt()
-    sharded = tp.reduce_sum(total(lambda p: model_dim(p) is not None), group)
-    return (total(lambda p: model_dim(p) is None) + sharded).sqrt()
+    kinds = {p: sharded_axes(p, mesh, rules) for p in grads}
+    out = total(lambda p: kinds[p] == (False, False))
+    for kind in ((True, False), (False, True), (True, True)):
+        part = total(lambda p: kinds[p] == kind)
+        if kind[0]:
+            part = tp.reduce_sum(part, model_group(mesh))
+        if kind[1]:
+            part = tp.reduce_sum(part, data_group(mesh))
+        out = out + part
+    return out.sqrt()
 
 
 @dataclasses.dataclass
@@ -145,12 +170,10 @@ class TrainState:
     count: int = 0
     acc: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     mini_step: int = 0
-    # the mesh whose 'model' axis the tensors are sharded over (place_state)
+    # the mesh and rules the tensors are sharded under (place_state)
     mesh: Any = None
-
-    @property
-    def model_group(self):
-        return model_group(self.mesh)
+    rules: Dict[str, Optional[str]] = dataclasses.field(
+        default_factory=lambda: DEFAULT_RULES)
 
     @classmethod
     def create(cls, params: Params, cfg: OptimizerConfig) -> "TrainState":
@@ -206,7 +229,7 @@ class TrainState:
     def _update(self, g32: Dict[str, Optional[torch.Tensor]]) -> None:
         cfg = self.cfg
         if cfg.max_grad_norm is not None:
-            norm = global_norm(g32, self.model_group)
+            norm = global_norm(g32, self.mesh, self.rules)
             keep = norm < cfg.max_grad_norm
             g32 = {p: (torch.where(keep, g, g / norm * cfg.max_grad_norm)
                        if g is not None else None) for p, g in g32.items()}
@@ -233,10 +256,10 @@ class TrainState:
 
     # -- checkpoint contents -------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
-        """The unsharded state: under tensor parallelism every rank of a
-        model group must call it (the shards are gathered)."""
+        """The unsharded state: on a mesh every rank must call it (the
+        shards are gathered over the model and data groups)."""
         def full(d):
-            return {p: gather_leaf(p, x.detach(), self.mesh)
+            return {p: gather_leaf(p, x.detach(), self.mesh, self.rules)
                     for p, x in d.items()}
         return {"step": self.step, "count": self.count,
                 "mini_step": self.mini_step,
@@ -250,35 +273,51 @@ class TrainState:
         device, so a resumed run continues bit for bit."""
         self.step, self.count = int(sd["step"]), int(sd["count"])
         self.mini_step = int(sd["mini_step"])
+        def mine_of(p, x):
+            return shard_leaf(p, x, self.mesh, self.rules)
         for path, x in tree_paths(self.params).items():
-            x.copy_(shard_leaf(path, sd["params"][path], self.mesh))
+            x.copy_(mine_of(path, sd["params"][path]))
         for name in ("mu", "nu"):
             mine = getattr(self, name)
             if sorted(mine) != sorted(sd[name]):
                 raise ValueError(f"checkpoint {name} covers other leaves "
                                  "(another frozen set?)")
             for p, m in mine.items():
-                m.copy_(shard_leaf(p, sd[name][p], self.mesh))
+                m.copy_(mine_of(p, sd[name][p]))
         device = next(iter(self.leaves().values())).device
-        self.acc = {p: shard_leaf(p, a, self.mesh).to(device)
-                    for p, a in sd["acc"].items()}
+        self.acc = {p: mine_of(p, a).to(device) for p, a in sd["acc"].items()}
         return self
 
 
-def place_state(state: TrainState, mesh=None) -> TrainState:
+def _slice_state(state: TrainState, mesh, rules, axis: str) -> None:
+    """Slice the params, moments and accumulated gradient over ``axis``."""
+    state.params = map_with_path(
+        lambda p, x: shard_leaf(p, x, mesh, rules, (axis,)), state.params)
+    for name in ("mu", "nu", "acc"):
+        setattr(state, name, {p: shard_leaf(p, x, mesh, rules, (axis,))
+                              for p, x in getattr(state, name).items()})
+
+
+def place_state(state: TrainState, mesh=None,
+                rules=DEFAULT_RULES) -> TrainState:
     """JAX ``place_state``'s counterpart: on a mesh with a 'model' axis the
     params, AdamW moments and accumulated gradient of an unsharded state
-    are sliced to this rank's shards (once: the state keeps its mesh), and
-    under data parallelism all of them are overwritten in place with the
-    first data rank's values (after a resume too, so every replica
-    continues from bit-identical state).  No-op in a single process."""
-    if model_group(mesh) is not None and state.mesh is None:
-        state.params = map_with_path(
-            lambda p, x: shard_leaf(p, x, mesh), state.params)
-        for name in ("mu", "nu", "acc"):
-            setattr(state, name, {p: shard_leaf(p, x, mesh)
-                                  for p, x in getattr(state, name).items()})
-        state.mesh = mesh
-    replicate_over_data({"params": state.params, "mu": state.mu,
-                         "nu": state.nu, "acc": state.acc}, mesh)
+    are sliced to this rank's shards (once: the state keeps its mesh and
+    rules), and under data parallelism all of them are overwritten in
+    place with the first data rank's values (after a resume too, so every
+    replica continues from bit-identical state).  ``RULES_2D`` then slices
+    each over 'data' as well, like its parameter (JAX: mu, nu and the
+    MultiSteps accumulator take the parameter shardings); a resume
+    re-broadcasts only the leaves that 'data' does not slice.  No-op in a
+    single process."""
+    first = state.mesh is None
+    if first and model_group(mesh) is not None:
+        _slice_state(state, mesh, rules, "model")
+    tree = {"params": state.params, "mu": state.mu, "nu": state.nu,
+            "acc": state.acc}
+    replicate_over_data(tree, mesh, DEFAULT_RULES if first else state.rules)
+    if first and shards_data(rules) and data_group(mesh) is not None:
+        _slice_state(state, mesh, rules, "data")
+    if first and mesh is not None:
+        state.mesh, state.rules = mesh, rules
     return state

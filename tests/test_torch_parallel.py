@@ -163,22 +163,58 @@ class _FakeMesh:
         return object()
 
 
-def test_next_slice_placements_raise():
-    """Parameters sharded over 'data' (RULES_2D) still raise, naming the
-    ROADMAP.md item of the next slice; a 'model' axis now shards the tree:
-    the second model rank holds the second half of the column-parallel
-    q kernel and bias and of the row-parallel out kernel's rows, and the
-    out bias and the layer norms whole."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        t_mesh.shard_params({"a": torch.ones(2)}, None,
-                            t_mesh.RULES_2D)
+class _FakeMesh22:
+    """Rank (1, 1) of a (2, 2) mesh: the 2-D slicing rules, with the data
+    axis's broadcast (a collective) left out."""
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return 2
+
+    def get_coordinate(self):
+        return [1, 1]
+
+    def get_group(self, name):
+        return object()
+
+
+def test_next_slice_placements_raise(monkeypatch):
+    """Parameters sharded over 'data' (RULES_2D) are placed now: on a
+    (2, 2) mesh rank (1, 1) holds the second half of every 'embed'
+    dimension of its model shard (the q kernel's rows, the out kernel's
+    columns, the out bias, the layer norms, the embedding's columns, the
+    conv's outputs) and the q bias (no 'embed' axis) only its model half.
+    A 'model' axis alone shards the tree as before: the second model rank
+    holds the second half of the column-parallel q kernel and bias and of
+    the row-parallel out kernel's rows, and the out bias and the layer
+    norms whole."""
     from distil_whisper_tpu_torch.models import init_params
     cfg = PRESETS["test-tiny"]
+    d = cfg.d_model
+    attn = "decoder.layers.self_attn"
+    monkeypatch.setattr(t_mesh, "replicate_over_data",
+                        lambda tree, mesh=None, rules=None: tree)
+    full = tree_paths(init_params(cfg, seed=0, device="cpu"))
+    two = tree_paths(t_mesh.shard_params(
+        _unflat(full), _FakeMesh22(),
+        t_mesh.RULES_2D, cfg=cfg))
+    h = d // 2
+    assert torch.equal(two[f"{attn}.q.kernel"],
+                       full[f"{attn}.q.kernel"][:, h:, h:])
+    assert torch.equal(two[f"{attn}.q.bias"], full[f"{attn}.q.bias"][:, h:])
+    assert torch.equal(two[f"{attn}.out.kernel"],
+                       full[f"{attn}.out.kernel"][:, h:, h:])
+    assert torch.equal(two[f"{attn}.out.bias"],
+                       full[f"{attn}.out.bias"][:, h:])
+    assert torch.equal(two["decoder.layers.final_ln.scale"],
+                       full["decoder.layers.final_ln.scale"][:, h:])
+    assert torch.equal(two["decoder.tok_emb"], full["decoder.tok_emb"][:, h:])
+    assert torch.equal(two["encoder.conv1.kernel"],
+                       full["encoder.conv1.kernel"][..., h:])
+    monkeypatch.undo()
     full = init_params(cfg, seed=0, device="cpu")
     ours = tree_paths(t_mesh.shard_params(full, _FakeMesh(), cfg=cfg))
     full = tree_paths(full)
-    d = cfg.d_model
-    attn = "decoder.layers.self_attn"
     assert torch.equal(ours[f"{attn}.q.kernel"],
                        full[f"{attn}.q.kernel"][..., d // 2:])
     assert torch.equal(ours[f"{attn}.q.bias"], full[f"{attn}.q.bias"][:, d // 2:])
@@ -187,6 +223,11 @@ def test_next_slice_placements_raise():
     for p in (f"{attn}.out.bias", "decoder.layers.final_ln.scale",
               "decoder.tok_emb", "encoder.conv1.kernel"):
         assert ours[p] is full[p], p
+
+
+def _unflat(flat):
+    from distil_whisper_tpu_torch.models.params import unflatten_paths
+    return unflatten_paths(flat)
 
 
 def test_all_reduce_buckets_split_by_size(monkeypatch):

@@ -218,16 +218,15 @@ OTHER_CLIS = {
 
 @pytest.mark.parametrize("flags,item", [
     (["--distributed"], "multi-GPU"), (["--model_parallel", "2"], "world size 1"),
-    (["--param_sharding", "2d"], "queue 1, item 2"),
+    (["--param_sharding", "2d"], "world size 1"),
     (["run_pseudo_labelling", "--distributed"], "multi-GPU"),
     (["convert_checkpoint_to_hf", "--distributed"], "multi-GPU")])
 def test_unported_flags_raise_naming_their_item(flags, item):
-    """Only the flag of the next multi-GPU slice (``--param_sharding 2d``)
-    still raises NotImplementedError, naming its ROADMAP.md item;
+    """No multi-GPU flag raises NotImplementedError any more:
     ``--distributed`` is ported and, with no multi-GPU job to join, fails
-    fast with RuntimeError; ``--model_parallel 2`` is ported and, in a
-    process alone (world size 1), raises ValueError: in both trainers, and
-    in the CLI a case names first."""
+    fast with RuntimeError; ``--model_parallel 2`` and ``--param_sharding
+    2d`` are ported and, in a process alone (world size 1), raise
+    ValueError: in both trainers, and in the CLI a case names first."""
     import importlib
     from distil_whisper_tpu_torch.cli import run_distillation, run_finetuning
     common = ["--device", "cpu"]
@@ -243,8 +242,7 @@ def test_unported_flags_raise_naming_their_item(flags, item):
                  (run_finetuning.main,
                   ["--model_checkpoint", "m", "--train_dataset_path", "d",
                    "--output_dir", "unused"] + flags)]
-    error = (RuntimeError if "--distributed" in flags else
-             ValueError if "--model_parallel" in flags else NotImplementedError)
+    error = RuntimeError if "--distributed" in flags else ValueError
     for fn, argv in calls:
         with pytest.raises(error, match=item):
             fn(argv + common)
