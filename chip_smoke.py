@@ -84,12 +84,16 @@
    int8 teacher, a resume from checkpoint-4 (step 5's loss equal to the
    uninterrupted run's), ``run_finetuning`` of the distilled checkpoint with
    the encoder unfrozen through the encoder-attention kernel and its
-   recompute backward (batch 4, remat), and ``run_eval`` of the distilled
-   checkpoint; launches counted from 0 around each run (log-mel, encoder
-   attention and the int8 MLP inside ``run_distillation``).  The kernel rows
-   include the encoder-attention gradient (the ``autograd.Function``
-   against autograd through the plain version, at (2, 20, 1500, 64) bf16
-   and (3, 5, 200, 64)/77, its backward timed).
+   backward kernel (batch 4, remat; one backward launch a layer a step),
+   and ``run_eval`` of the distilled checkpoint; launches counted from 0
+   around each run (log-mel, encoder attention, its backward and the int8
+   MLP inside ``run_distillation``).  The kernel rows include the
+   encoder-attention backward kernel (against its plain version, the
+   recompute it replaces and the fp32 gradient, at (2, 20, 1500, 64) bf16,
+   as views of [2, 1500, 1280], [2, 1500, 640] and [2, 1500, 320]
+   projections and on (3, 5, 200, 64)/77 and (2, 3, 65, 64)/64; two calls
+   equal bit for bit;
+   timed beside the recompute, the plain version and SDPA's backward).
 10. Drives the rest of the recipe (``recipe_path``) through the port's
    CLIs: the random large-v3 teacher pseudo-labels 48 clips of two
    speakers (batch 16, 64 new tokens, two featurizer workers, WER, a
@@ -134,7 +138,8 @@
    against one process), the small fp32 model's greedy and n-gram tokens
    equal one rank's, ``dryrun_multigpu(world, model_parallel=2)``.
 13. Prints the kernels line (launches from the int8 path's short-form run,
-   and per path in ``launches_by_path``), the card's name and power limit,
+   the backward kernel's from the fine-tuning run, and per path in
+   ``launches_by_path``), the card's name and power limit,
    and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises: the script then exits non-zero without a result
@@ -830,6 +835,7 @@ def _wrappers():
     from distil_whisper_tpu_torch.ops import int8_mlp
     return {"log_mel": mel_kernel.log10_mel_fused,
             "encoder_attention": ea.encoder_attention,
+            "encoder_attention_grad": ea.encoder_attention_grad,
             "int8_mlp": int8_mlp.fused_int8_mlp,
             "int8_decode_attention": ida.int8_decode_attention}
 
@@ -959,6 +965,7 @@ def phase_int8_main_path(tok, bf16):
                            tokenizer=tok, device="cuda")
     clips = bf16["clips"]
     expected = {"log_mel": 1, "encoder_attention": cfg.encoder_layers,
+                "encoder_attention_grad": 0,
                 "int8_mlp": cfg.encoder_layers, "int8_decode_attention": 0}
 
     torch.cuda.synchronize()
@@ -1063,7 +1070,8 @@ def phase_longform_path(tok, bf16):
     pcfg, k = pipe.cfg, 5
     launches, report = {}, {}
     bf16_path = {"log_mel": 1, "encoder_attention": cfg.encoder_layers,
-                 "int8_mlp": 0, "int8_decode_attention": 0}
+                 "encoder_attention_grad": 0, "int8_mlp": 0,
+                 "int8_decode_attention": 0}
 
     # -- 1. beam search: 16 windows x 5 beams = 80 decode rows -------------
     def beam_run(p):
@@ -1738,7 +1746,8 @@ def phase_speculative_path(tok, bf16):
                            assistant=(draft, dcfg), gamma=gamma)
     clips, audio_s = bf16["clips"], n * 30.0
     bf16_path = {"log_mel": 1, "encoder_attention": cfg.encoder_layers,
-                 "int8_mlp": 0, "int8_decode_attention": 0}
+                 "encoder_attention_grad": 0, "int8_mlp": 0,
+                 "int8_decode_attention": 0}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1947,82 +1956,161 @@ def training_manifests(root: Path, n: int, n_eval: int, seconds=(5.0, 30.0),
     return rows
 
 
+GRAD_TOL = 1e-2           # atol and rtol of the bf16 gradient comparisons
+GRAD_FP32_TOL = 2e-2      # against the fp32 gradient, of its largest value
+
+
 def kernel_row_encoder_attention_grad(gen):
-    """The gradient of the encoder-attention ``autograd.Function`` (kernel
-    forward, recompute backward through the plain version) at (2, 20, 1500,
-    64) bf16 and on the ragged (3, 5, 200, 64) with 77 live keys, against
-    ``torch.autograd`` through the plain version on the same inputs (the
-    same arithmetic: held at 1e-2 as the forward) and against the fp32
-    gradient (bf16 operands: within 2e-2 of the largest gradient); the
-    backward's time (CUDA events), its extra peak memory, its bound and
-    SDPA's backward beside it."""
+    """The encoder-attention backward kernel (``csrc/encoder_attention_bwd.cu``,
+    behind the ``autograd.Function``: the forward kernel stores its rows'
+    log-sum-exp, the backward kernel reads it) at (2, 20, 1500, 64) bf16,
+    as the main path's views (H 20) of [2, 1500, 1280] projections, the
+    tensor-parallel path's views (H 10 and 5) of [2, 1500, 640] and [2,
+    1500, 320] projections, and on the ragged (3, 5, 200, 64) with 77 live
+    keys and (2, 3, 65, 64) with 64.  Each held against ``encoder_attention_bwd_plain`` on the same
+    output and lse (the same arithmetic; bf16 casts of P and dS, fp32 sums
+    in another order and ``ex2.approx``: a few bf16 ulps, atol/rtol
+    ``GRAD_TOL``), against ``encoder_attention_vjp`` (the recompute through
+    the plain forward that it replaces, which rounds its gradients to bf16
+    at other places: ``GRAD_TOL``) and against the fp32 gradient (bf16
+    operands: within ``GRAD_FP32_TOL`` of its largest value); the direct
+    call equal bit for bit to the autograd one and to a second call.  Timed
+    at the first shape: the kernel, the recompute, the plain backward and
+    SDPA's backward (CUDA events); the extra peak memory of both backwards;
+    the bound."""
     import torch
     from distil_whisper_tpu_torch.ops import encoder_attention as ea
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    def held(shape, t_real):
-        q, k, v, g = (rand(*shape) for _ in range(4))
-        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        out = ea.encoder_attention(*leaves, t_real)
-        kernel = torch.autograd.grad(out, leaves, g)
-        plain_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        plain = torch.autograd.grad(
-            ea.encoder_attention_plain(*plain_leaves, t_real), plain_leaves, g)
+    def heads_view(b, t, h, d):
+        return rand(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+
+    def held(qkvg, t_real, label):
+        q, k, v, g = qkvg
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        kernel = torch.autograd.grad(ea.encoder_attention(*leaves, t_real),
+                                     leaves, g)
+        out, lse = ea._launch(q, k, v, t_real, with_lse=True)
+        direct = ea.encoder_attention_grad(q, k, v, out, lse, g, t_real)
+        again = ea.encoder_attention_grad(q, k, v, out, lse, g, t_real)
+        plain = ea.encoder_attention_bwd_plain(q, k, v, out, lse, g, t_real)
+        recompute = ea.encoder_attention_vjp(q, k, v, t_real, g)
         f32 = [x.float().requires_grad_(True) for x in (q, k, v)]
         ref = torch.autograd.grad(ea.encoder_attention_plain(*f32, t_real),
                                   f32, g.float())
-        err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in zip(kernel, plain))
+        torch.cuda.synchronize()
+        bits = all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(kernel, direct, again))
+        layout = all(x.transpose(1, 2).is_contiguous() for x in direct)
+        for name, other in (("plain", plain), ("recompute", recompute)):
+            for a, b in zip(kernel, other):
+                torch.testing.assert_close(
+                    a.float(), b.float(), atol=GRAD_TOL, rtol=GRAD_TOL,
+                    msg=lambda m: f"gradient vs {name} at {label}: {m}")
+        err = {name: max((a.float() - b.float()).abs().max().item()
+                         for a, b in zip(kernel, other))
+               for name, other in (("plain", plain), ("recompute", recompute))}
         rel32 = max(((a.float() - b).abs().max() / b.abs().max()).item()
                     for a, b in zip(kernel, ref))
-        if not (err <= 1e-2 and rel32 <= 2e-2 and all(
-                torch.isfinite(x).all() for x in kernel)):
-            raise AssertionError(f"encoder attention gradient disagrees at "
-                                 f"{shape}/{t_real}: {err}, fp32 rel {rel32}")
-        return {"shape": list(shape), "t_real": t_real, "max_abs_err": err,
-                "max_rel_err_vs_fp32": rel32}
+        finite = all(torch.isfinite(x).all() for x in kernel)
+        dead = (not kernel[1][:, :, t_real:].any()
+                and not kernel[2][:, :, t_real:].any())
+        if not (rel32 <= GRAD_FP32_TOL and finite and bits and layout
+                and dead):
+            raise AssertionError(
+                f"encoder attention gradient at {label}: fp32 rel {rel32}, "
+                f"finite {finite}, equal bits {bits}, layout {layout}, "
+                f"masked keys zero {dead}")
+        return {"case": label, "shape": list(q.shape), "t_real": t_real,
+                "max_abs_err": err["plain"],
+                "max_abs_err_vs_recompute": err["recompute"],
+                "max_rel_err_vs_fp32": rel32, "equal_bits_two_calls": bits}
 
-    ragged = held((3, 5, 200, 64), 77)
-    main = held((2, 20, 1500, 64), 1500)
     b, h, t, d = 2, 20, 1500, 64
-    q, k, v, g = (rand(b, h, t, d).requires_grad_(i < 3) for i in range(4))
-    out = ea.encoder_attention(q, k, v, t)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
-    extra = torch.cuda.max_memory_allocated() - base
-    ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
-                                             retain_graph=True), reps=5)
-    plain_out = ea.encoder_attention_plain(q, k, v, t)
-    plain_ms = cuda_ms(lambda: torch.autograd.grad(
-        plain_out, (q, k, v), g, retain_graph=True), reps=5)
-    sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, (q, k, v), g,
-                                                     retain_graph=True))
-    # the backward's work: recompute S = QK^T, dV = P^T dO, dP = dO V^T,
-    # dQ = dS K, dK = dS^T Q (five T x T x D products); bytes: q, k, v and
-    # dO read, dq, dk, dv written
+    q, k, v, g = (rand(b, h, t, d) for _ in range(4))
+    cases = [held((q, k, v, g), t, "contiguous")]
+    cases.append(held([heads_view(b, t, h, d) for _ in range(4)], t,
+                      "views of [2, 1500, 1280] (H 20)"))
+    for tp in (2, 4):
+        cases.append(held([heads_view(b, t, h // tp, d) for _ in range(4)], t,
+                          f"tp {tp}: views of [2, 1500, {h * d // tp}] "
+                          f"(H {h // tp})"))
+    cases.append(held([rand(3, 5, 200, 64) for _ in range(4)], 77,
+                      "ragged (3, 5, 200, 64) / 77"))
+    cases.append(held([rand(2, 3, 65, 64) for _ in range(4)], 64,
+                      "ragged (2, 3, 65, 64) / 64"))
+    torch.cuda.empty_cache()
+
+    out, lse = ea._launch(q, k, v, t, with_lse=True)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def extra_peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    fn_out = ea.encoder_attention(qg, kg, vg, t)
+    extra = extra_peak(lambda: torch.autograd.grad(
+        fn_out, (qg, kg, vg), g, retain_graph=True))
+    extra_recompute = extra_peak(
+        lambda: ea.encoder_attention_vjp(q, k, v, t, g))
+    ms = cuda_ms(lambda: ea.encoder_attention_grad(q, k, v, out, lse, g, t))
+    # each pass alone (each with the prep pass): dq only, dk and dv only
+    ms_dq = cuda_ms(lambda: ea.encoder_attention_grad(
+        q, k, v, out, lse, g, t, (True, False, False)))
+    ms_dkdv = cuda_ms(lambda: ea.encoder_attention_grad(
+        q, k, v, out, lse, g, t, (False, True, True)))
+    ms_autograd = cuda_ms(lambda: torch.autograd.grad(
+        fn_out, (qg, kg, vg), g, retain_graph=True))
+    recompute_ms = cuda_ms(lambda: ea.encoder_attention_vjp(q, k, v, t, g),
+                           reps=5)
+    plain_ms = cuda_ms(lambda: ea.encoder_attention_bwd_plain(
+        q, k, v, out, lse, g, t), reps=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa, (qg, kg, vg), g, retain_graph=True))
+    fwd_lse_ms = cuda_ms(lambda: ea._launch(q, k, v, t, with_lse=True))
+    fwd_ms = cuda_ms(lambda: ea._launch(q, k, v, t))
+    fwd_bits = torch.equal(ea._launch(q, k, v, t), out)
+    if not fwd_bits:
+        raise AssertionError("the forward's output changes when it stores lse")
+    # the gradient's work: S = QK^T, dV = P^T dO, dP = dO V^T, dQ = dS K,
+    # dK = dS^T Q (five T x T x D products; the kernel's dQ pass repeats S
+    # and dP: seven); bytes: q, k, v, o, dO and lse read, dq, dk, dv written
     ops = 10 * b * h * t * t * d
-    n_bytes = 2 * 7 * b * h * t * d
+    n_bytes = 2 * 8 * b * h * t * d + 4 * b * h * t
     bound_ms, bound_by = bound(n_bytes, ops, BF16_TENSOR)
     row = {"name": "encoder_attention_grad", "route": "cuda",
-           "source": "distil_whisper_tpu_torch/ops/encoder_attention.py",
-           "replaces": "distil_whisper_tpu/ops/encoder_attention.py:233",
-           "max_abs_err": main["max_abs_err"], "tolerance": 1e-2,
-           "max_rel_err_vs_fp32": main["max_rel_err_vs_fp32"],
-           "tolerance_vs_fp32": 2e-2, "ragged": ragged,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms,
+           "source": "distil_whisper_tpu_torch/csrc/encoder_attention_bwd.cu",
+           "replaces": "distil_whisper_tpu/ops/encoder_attention.py:238",
+           "max_abs_err": cases[0]["max_abs_err"], "tolerance": GRAD_TOL,
+           "max_abs_err_vs_recompute": cases[0]["max_abs_err_vs_recompute"],
+           "max_rel_err_vs_fp32": cases[0]["max_rel_err_vs_fp32"],
+           "tolerance_vs_fp32": GRAD_FP32_TOL, "held": cases,
+           "ms": ms, "tflops": ops / ms / 1e9, "ms_autograd": ms_autograd,
+           "ms_prep_and_dq": ms_dq, "ms_prep_and_dkdv": ms_dkdv,
+           "recompute_ms": recompute_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_seven_products": bound(n_bytes, 14 * b * h * t * t * d,
+                                            BF16_TENSOR)[0],
+           "library_ms": library_ms,
            "backward_extra_peak_bytes": extra,
            "backward_extra_peak_mb_per_row": extra / b / 1e6,
-           "shape": [b, h, t, d],
-           "note": "ms: the Function's backward (the plain version's "
-                   "forward recomputed, then its backward); plain_ms: the "
-                   "plain version's backward from its saved forward"}
-    del q, k, v, g, out, plain_out, sdpa
+           "recompute_extra_peak_mb_per_row": extra_recompute / b / 1e6,
+           "forward_ms_lse": fwd_lse_ms, "forward_ms_no_lse": fwd_ms,
+           "forward_bits_equal_with_lse": fwd_bits,
+           "shape": [b, h, t, d], "ptxas": ptxas_report("encoder_attention_bwd"),
+           "note": "ms: encoder_attention_grad from a saved forward (prep, "
+                   "dK/dV and dQ launches); ms_autograd: the same through "
+                   "the Function's backward; recompute_ms: "
+                   "encoder_attention_vjp, the route it replaces; plain_ms: "
+                   "encoder_attention_bwd_plain; library_ms: SDPA's backward"}
+    del q, k, v, g, qg, kg, vg, out, lse, fn_out, sdpa
     torch.cuda.empty_cache()
     return row
 
@@ -2331,7 +2419,7 @@ def phase_training_path(teacher_cfg, root):
             "idle_share_profiled": 1 - ft_prof["profile/device_ms_per_step"]
             / ft_prof["profile/wall_ms_per_step"],
             "attention_backward_device_ms": range_device_ms(
-                root / "ft_trace" / "trace.json", "encoder_attention_vjp")})
+                root / "ft_trace" / "trace.json", "encoder_attention_grad")})
         shutil.rmtree(root / "finetune")
 
         result = timed("eval", run_eval.main,
@@ -2391,9 +2479,12 @@ def phase_training_path(teacher_cfg, root):
         got = report[run]["launches"]
         if any(got[k] != v for k, v in counts.items()):
             bad.append(f"{run} launches {got}, want {counts}")
-    # three steps under remat: a forward and a recompute a layer a step
-    if report["finetune"]["launches"]["encoder_attention"] != 6 * n_layers:
-        bad.append(f"finetune launches {report['finetune']['launches']}")
+    # three steps under remat: a forward and its recompute a layer a step,
+    # and one backward kernel call a layer a step
+    ft_launches = report["finetune"]["launches"]
+    if (ft_launches["encoder_attention"] != 6 * n_layers
+            or ft_launches["encoder_attention_grad"] != 3 * n_layers):
+        bad.append(f"finetune launches {ft_launches}")
     if bad:
         raise AssertionError("training path: " + "; ".join(bad))
     return {name: report[name]["launches"] for name in
@@ -2555,7 +2646,7 @@ def phase_recipe_path(teacher_cfg, shared):
     again without QAT for the step-time comparison;
     ``run_finetuning --quantize_student w8a8`` trains the QAT student with
     its encoder unfrozen through the encoder-attention kernel and its
-    recompute backward (remat); ``convert_checkpoint_to_hf`` exports the QAT
+    backward kernel (remat); ``convert_checkpoint_to_hf`` exports the QAT
     checkpoint (reloaded bit for bit), whose w8a8 fake-quant decoder agrees
     with its int8 decoder projection by projection, and the port's int8
     pipeline serves it on 16 windows; a tiny model pseudo-labels on the
@@ -2717,7 +2808,7 @@ def phase_recipe_path(teacher_cfg, shared):
             "profiled_step": {k.split("/")[1]: v for k, v in ft_prof.items()
                               if k.startswith("profile/")},
             "attention_backward_device_ms": range_device_ms(
-                root / "ft_trace" / "trace.json", "encoder_attention_vjp")})
+                root / "ft_trace" / "trace.json", "encoder_attention_grad")})
         shutil.rmtree(root / "finetune_qat")
 
         converted = root / "converted"
@@ -2759,7 +2850,8 @@ def phase_recipe_path(teacher_cfg, shared):
         r = report[name]
         b = r["batches"]
         want = dict(log_mel=b, encoder_attention=n_layers * b,
-                    int8_mlp=mlp * b, int8_decode_attention=0)
+                    encoder_attention_grad=0, int8_mlp=mlp * b,
+                    int8_decode_attention=0)
         if r["launches"] != want:
             bad.append(f"{name} launches {r['launches']}, want {want}")
         if not (b >= 1 and r["rows"] == r["manifest_rows"] == r["csv_rows"]
@@ -2786,8 +2878,11 @@ def phase_recipe_path(teacher_cfg, shared):
     ft = report["finetune_qat"]
     if not all(map(math.isfinite, ft["loss"])):
         bad.append(f"non-finite QAT fine-tuning loss {ft['loss']}")
-    # remat: a forward and a recompute a layer a step, each one launch
-    if ft["launches"]["encoder_attention"] != 2 * n_layers * QAT_FT_STEPS:
+    # remat: a forward and its recompute a layer a step, each one launch,
+    # and one backward kernel call a layer a step
+    if (ft["launches"]["encoder_attention"] != 2 * n_layers * QAT_FT_STEPS
+            or ft["launches"]["encoder_attention_grad"]
+            != n_layers * QAT_FT_STEPS):
         bad.append(f"finetune_qat launches {ft['launches']}")
     if report["convert"]["differing_leaves"]:
         bad.append(f"converted weights differ: "
@@ -2801,6 +2896,7 @@ def phase_recipe_path(teacher_cfg, shared):
         bad.append(f"QAT vs int8: {qi}")
     ip = report["int8_pipeline"]
     if ip["launches"] != {"log_mel": 1, "encoder_attention": n_layers,
+                          "encoder_attention_grad": 0,
                           "int8_mlp": n_layers, "int8_decode_attention": 0}:
         bad.append(f"int8 pipeline launches {ip['launches']}")
     ref = report["small_reference"]
@@ -3674,7 +3770,8 @@ def phase_tensor_parallel_path(teacher_cfg, root):
                        f"a near-tie: {fp32['near_ties']}")
         for key, mlp in (("bf16", 0), ("int8", layers)):
             got = report[key][r]["launches"]
-            want = dict(log_mel=1, encoder_attention=layers, int8_mlp=mlp,
+            want = dict(log_mel=1, encoder_attention=layers,
+                        encoder_attention_grad=0, int8_mlp=mlp,
                         int8_decode_attention=0)
             if got != want:
                 bad.append(f"rank {r} {key} launches {got}, want {want}")
@@ -4477,14 +4574,12 @@ def main() -> int:
     longform.update({f"training_{k}": v for k, v in training.items()})
     longform.update(multigpu)
     longform.update({f"recipe_{k}": v for k, v in recipe.items()})
-    # the gradient row's launches: the kernel forwards of the fine-tuning
-    # run, each of which its recompute backward followed
-    counts["encoder_attention_grad"] = training["finetune"]["encoder_attention"]
+    # the gradient row's launches: its main path is the fine-tuning run
+    counts["encoder_attention_grad"] = (
+        training["finetune"]["encoder_attention_grad"])
     for row in rows:
-        kernel = ("encoder_attention" if row["name"] == "encoder_attention_grad"
-                  else row["name"])
         row["launches"] = counts[row["name"]]
-        row["launches_by_path"] = {path: c[kernel]
+        row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in longform.items()}
     emit({"kernels": rows})
     smi = subprocess.run(

@@ -40,6 +40,11 @@
 //   the output accumulator rescaled when the max grows): the same function
 //   as the TPU kernel's whole-row softmax, with another rounding.  Held to the
 //   plain version at atol/rtol 1e-2 in bf16 on the card.
+// - Under training the epilogue also stores each row's log-sum-exp of the
+//   scaled scores in base 2 (m * scale_log2 + log2 l, fp32 [B, H, T]), which
+//   the backward (csrc/encoder_attention_bwd.cu) turns back into P without a
+//   softmax of its own.  Inference passes no buffer and stores nothing; the
+//   output's bits are the same either way.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -198,7 +203,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 encoder_attention_kernel(__grid_constant__ const CUtensorMap qmap,
                          __grid_constant__ const CUtensorMap kmap,
                          __grid_constant__ const CUtensorMap vmap,
-                         __nv_bfloat16* __restrict__ o, int T, int t_real,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int T, int t_real,
                          int heads, int n_tiles, float scale_log2,
                          long long osb, long long osh, long long ost) {
   extern __shared__ uint8_t smem_raw[];
@@ -365,6 +371,15 @@ encoder_attention_kernel(__grid_constant__ const CUtensorMap qmap,
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       }
+      if (lse != nullptr && tq == 0) {
+        // the row's log-sum-exp in base 2 (m is the quad's common max)
+        float* lrow = lse + ((long long)b * heads + h) * T;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = qt * BQ + c * BQ_WG + w * 16 + g + 8 * r;
+          if (row < T) lrow[row] = fmaf(m[r], scale_log2, log2f(l[r]));
+        }
+      }
       __nv_bfloat16* oh = o + b * osb + h * osh;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -401,9 +416,11 @@ int make_map(CUtensorMap* map, const void* ptr, int T, int H, int B,
 }  // namespace
 
 // Byte strides come in (T, H, B) order for each of q, k, v and o, as the
-// wrapper's _tma_geometry gives them.
+// wrapper's _tma_geometry gives them.  lse: null, or fp32 [B, H, T]
+// contiguous.
 extern "C" int dw_encoder_attention(
-    const void* q, const void* k, const void* v, void* o, int batch, int heads,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int batch, int heads,
     int T, int t_real, float scale_log2,
     long long q_st, long long q_sh, long long q_sb,
     long long k_st, long long k_sh, long long k_sb,
@@ -425,7 +442,7 @@ extern "C" int dw_encoder_attention(
   const int n_tiles = (T + BQ - 1) / BQ * heads * batch;
   encoder_attention_kernel<<<n_tiles < n_sm ? n_tiles : n_sm, THREADS, SMEM_BYTES,
                              (cudaStream_t)stream>>>(
-      qmap, kmap, vmap, (__nv_bfloat16*)o, T, t_real, heads, n_tiles,
+      qmap, kmap, vmap, (__nv_bfloat16*)o, (float*)lse, T, t_real, heads, n_tiles,
       scale_log2, o_sb / 2, o_sh / 2, o_st / 2);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,9 @@
 // TMA loads and stores, wgmma descriptors and fences, thread-block-cluster
 // access to distributed shared memory, and the driver's tensor-map encoder.
 //
-// Included by csrc/encoder_attention.cu, csrc/int8_mlp.cu and
-// csrc/int8_decode_attention.cu; each source builds into its own library,
-// so everything here has internal linkage.
+// Included by csrc/encoder_attention.cu, csrc/encoder_attention_bwd.cu,
+// csrc/int8_mlp.cu and csrc/int8_decode_attention.cu; each source builds
+// into its own library, so everything here has internal linkage.
 
 #pragma once
 

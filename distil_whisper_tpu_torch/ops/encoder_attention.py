@@ -1,5 +1,6 @@
-"""Whisper encoder self-attention: the CUDA kernel's wrapper, its plain
-version, and the fused self-attention block around it.
+"""Whisper encoder self-attention: the CUDA kernels' wrappers (forward and
+backward), their plain versions, and the fused self-attention block around
+them.
 
 The kernel (``csrc/encoder_attention.cu``) replaces the Pallas TPU kernel of
 ``distil_whisper_tpu/ops/encoder_attention.py``: non-causal attention that
@@ -15,18 +16,22 @@ views of [B, T, H*64] projections: ``encode`` needs no pad or copy.
 and runs :func:`encoder_attention_plain` for CPU tensors; anything else
 raises.  ``encoder_attention.launches`` counts kernel launches.
 
-On the card the kernel runs inside a :class:`torch.autograd.Function`
-whose backward recomputes the attention through the plain version under
-autograd and returns its vector-Jacobian product, as the JAX package's
-``custom_vjp`` does (``_bwd`` recomputes through its einsum reference).  The
-backward launches no kernel; it holds the fp32 [B, H, T, T] scores and
-probabilities of one layer while it runs (180 MB per batch row at
-large-v3's 20 heads and T = 1500).  On the CPU autograd goes through the
-plain version directly.
+Under autograd on the card the kernel runs inside a
+:class:`torch.autograd.Function`: its forward also stores each row's
+log-sum-exp (fp32 [B, H, T], base 2), and its backward is a second kernel
+(``csrc/encoder_attention_bwd.cu``, :func:`encoder_attention_grad`) that
+rebuilds the probabilities from it tile by tile, so no [B, H, T, T] array
+reaches device memory.  It computes the gradient of the same function as
+the JAX package's ``custom_vjp`` (``_bwd`` recomputes through its einsum
+reference); :func:`encoder_attention_bwd_plain` is its arithmetic in plain
+PyTorch, and :func:`encoder_attention_vjp`, the recompute through the plain
+forward under autograd, stays as the bridge to JAX's ``_bwd`` and a second
+reference on the card.  ``encoder_attention_grad.launches`` counts backward
+kernel calls.  On the CPU autograd goes through the plain version directly.
 
 ``fused_self_attention`` also takes a QAT w8a8 tree (``ops/qat.py``): it
 fake-quantizes the q/k/v input and the out-projection's input, with the
-kernel and its recompute backward in between.  Under tensor parallelism it
+kernel and its backward kernel in between.  Under tensor parallelism it
 runs the kernel on this rank's heads ([B, H/tp, T, 64] views of the
 [B, T, d/tp] projections) and its out-projection is row-parallel: partials
 summed over the model group, an int8 or fake-quant row scale its max
@@ -50,13 +55,22 @@ from .qat import ACT_FQ_KEY, fake_quant_acts
 from .quant import dense_int8, quantize_acts
 
 
+LOG2E = math.log2(math.e)
+# rows of the backward's (lse2, delta) scratch are padded to this multiple
+LD_ALIGN = 128
+
+
 def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, t_real: int) -> torch.Tensor:
+                            v: torch.Tensor, t_real: int,
+                            return_lse: bool = False):
     """The kernel's arithmetic in plain PyTorch.  q/k/v [B, H, T, D].
 
     fp32 scores scaled by D^-0.5 after the product, keys >= t_real set to
     -inf, fp32 softmax statistics, the UNnormalised probabilities cast to the
     v dtype for p.v (fp32 accumulation), one division by the fp32 row sum.
+    With ``return_lse`` also returns the fp32 [B, H, T] log-sum-exp of each
+    row's scaled scores in base 2, as the forward kernel stores it for the
+    backward.
     """
     d = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (d ** -0.5)
@@ -67,7 +81,39 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(s - m)
     denom = torch.sum(p, dim=-1, keepdim=True)
     pv = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return (pv / denom).to(q.dtype)
+    out = (pv / denom).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, ((m + torch.log(denom)) * LOG2E).squeeze(-1).detach()
+
+
+def encoder_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                lse: torch.Tensor, g: torch.Tensor,
+                                t_real: int):
+    """The backward kernel's arithmetic in plain PyTorch: (dq, dk, dv) in
+    q.dtype for q/k/v, the forward's output ``out`` and its base-2
+    log-sum-exp ``lse`` [B, H, T], and the output cotangent ``g``.
+
+    P = exp2(S scale_log2 - lse) from the fp32 scores (keys >= t_real 0),
+    delta = rowsum(g * out), dS = P (g V^T - delta) in fp32; P and dS cast
+    to the q dtype before the products that take them (dV = P^T g,
+    dK = dS^T Q D^-0.5, dQ = dS K D^-0.5), all accumulated in fp32.
+    """
+    d = q.shape[-1]
+    scale = d ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    p = torch.exp2(s * (scale * LOG2E) - lse.float()[..., None])
+    if t_real < k.shape[2]:
+        p[..., t_real:] = 0.0
+    gf = g.float()
+    delta = (gf * out.float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, v.float())
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), gf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 @functools.lru_cache(maxsize=1)
@@ -75,9 +121,30 @@ def _lib():
     lib = _build.load("encoder_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dw_encoder_attention.argtypes = (
-        [p, p, p, p, i, i, i, i, ctypes.c_float] + [ll] * 12 + [p])
+        [p, p, p, p, p, i, i, i, i, ctypes.c_float] + [ll] * 12 + [p])
     lib.dw_encoder_attention.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_lib():
+    lib = _build.load("encoder_attention_bwd")
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    lib.dw_encoder_attention_bwd.argtypes = (
+        [p] * 10 + [i] * 5 + [f, f, i, i] + [ll] * 24 + [p])
+    lib.dw_encoder_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _tma_ok(x: torch.Tensor, strides) -> bool:
+    return x.stride(3) == 1 and not x.data_ptr() % 16 and all(
+        not s % 16 and 0 < s < 2 ** 40 for s in strides)
+
+
+def _byte_strides(x: torch.Tensor):
+    size = x.element_size()
+    return (x.stride(2) * size, x.stride(1) * size, x.stride(0) * size)
 
 
 def _tma_geometry(x: torch.Tensor):
@@ -90,10 +157,8 @@ def _tma_geometry(x: torch.Tensor):
         raise ValueError(f"encoder_attention: want [B, H, T, D], got "
                          f"{tuple(x.shape)}")
     b, h, t, d = x.shape
-    size = x.element_size()
-    strides = (x.stride(2) * size, x.stride(1) * size, x.stride(0) * size)
-    if x.stride(3) != 1 or x.data_ptr() % 16 or any(
-            s % 16 or not 0 < s < 2 ** 40 for s in strides):
+    strides = _byte_strides(x)
+    if not _tma_ok(x, strides):
         raise ValueError("encoder_attention: TMA needs unit stride along D, "
                          "a 16-byte aligned base and T/H/B strides that are "
                          f"multiples of 16 bytes; got strides {x.stride()} "
@@ -110,42 +175,125 @@ def _check_operand(name: str, x: torch.Tensor, shape) -> None:
                          f"!= {tuple(shape)}")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            t_real: int) -> torch.Tensor:
-    """One launch of the kernel on CUDA tensors (checked here)."""
+def _check_shapes(q: torch.Tensor, t_real: int, operands) -> None:
+    """The kernels' shared checks: head dim 64, 1 <= t_real <= T, and every
+    operand a bf16 tensor of q's shape on q's card."""
     b, h, t, d = q.shape
     if d != 64:
         raise ValueError(f"encoder_attention kernel takes head dim 64, got {d}")
     if not 1 <= t_real <= t:
         raise ValueError(f"encoder_attention: t_real {t_real} not in [1, {t}]")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in operands:
         if x.device != q.device:
             raise ValueError(f"encoder_attention: {name} on {x.device}")
         _check_operand(name, x, q.shape)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            t_real: int, with_lse: bool = False):
+    """One launch of the kernel on CUDA tensors (checked here).  Returns the
+    output, and with ``with_lse`` also the rows' base-2 log-sum-exp (fp32
+    [B, H, T]) that the backward reads."""
+    b, h, t, d = q.shape
+    _check_shapes(q, t_real, (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
+    lse = (torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = [s for x in (q, k, v, out) for s in _tma_geometry(x)[1]]
-    scale_log2 = d ** -0.5 * math.log2(math.e)
+    scale_log2 = d ** -0.5 * LOG2E
     # the .so launches on the CUDA runtime's current card
     with torch.cuda.device(q.device):
         err = _lib().dw_encoder_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t,
-            t_real, scale_log2, *strides,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            0 if lse is None else lse.data_ptr(), b, h, t, t_real,
+            scale_log2, *strides,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder attention kernel launch failed "
                            f"(cudaError {err})")
     _build.count_launch(encoder_attention)
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _grad_buffer(q: torch.Tensor) -> torch.Tensor:
+    """A [B, H, T, D] view of a [B, T, H, D] buffer: the layout in which the
+    projections' backward reads a gradient with no copy."""
+    b, h, t, d = q.shape
+    return torch.empty(b, t, h, d, dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+def _launch_bwd(q, k, v, out, lse, g, t_real: int, needs):
+    """One backward call of the kernel on CUDA tensors (checked here):
+    (dq, dk, dv), None where ``needs`` is false."""
+    b, h, t, d = q.shape
+    _check_shapes(q, t_real, (("q", q), ("k", k), ("v", v), ("out", out),
+                              ("g", g)))
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, t)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"encoder_attention_grad: lse must be fp32 "
+                         f"[{b}, {h}, {t}] contiguous on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    if not _tma_ok(g, _byte_strides(g)):
+        g = g.contiguous()          # e.g. the expanded cotangent of a sum
+    want_dq, want_dkdv = needs[0], needs[1] or needs[2]
+    dq = _grad_buffer(q) if want_dq else None
+    dk, dv = (_grad_buffer(q), _grad_buffer(q)) if want_dkdv else (None, None)
+    rows = -(-t // LD_ALIGN) * LD_ALIGN
+    ld = torch.empty(b * h * rows * 2, dtype=torch.float32, device=q.device)
+    tensors = [q, k, v, out, g] + [x if x is not None else q
+                                   for x in (dq, dk, dv)]
+    strides = [s for x in tensors for s in _tma_geometry(x)[1]]
+    ptrs = [x.data_ptr() if x is not None else 0
+            for x in (q, k, v, out, g, lse, ld, dq, dk, dv)]
+    with torch.cuda.device(q.device):
+        err = _bwd_lib().dw_encoder_attention_bwd(
+            *ptrs, b, h, t, rows, t_real, d ** -0.5 * LOG2E, d ** -0.5,
+            int(want_dq), int(want_dkdv), *strides,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"encoder attention backward kernel launch failed "
+                           f"(cudaError {err})")
+    _build.count_launch(encoder_attention_grad)
+    return (dq, dk if needs[1] else None, dv if needs[2] else None)
+
+
+def encoder_attention_grad(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, out: torch.Tensor,
+                           lse: torch.Tensor, g: torch.Tensor, t_real: int,
+                           needs=(True, True, True)):
+    """The encoder attention's backward: (dq, dk, dv) for q/k/v [B, H, T,
+    64], the forward's output ``out`` and base-2 log-sum-exp ``lse`` [B, H,
+    T], and the output cotangent ``g``; None where ``needs`` is false.
+
+    Launches the backward kernel for CUDA tensors (bf16 only; the gradients
+    come back as [B, H, T, 64] views of [B, T, H, 64] buffers) and runs
+    :func:`encoder_attention_bwd_plain` for CPU tensors; anything else
+    raises.  ``encoder_attention_grad.launches`` counts kernel calls."""
+    if q.device.type == "cpu":
+        grads = encoder_attention_bwd_plain(q, k, v, out, lse, g, t_real)
+        return tuple(x if n else None for x, n in zip(grads, needs))
+    if q.device.type != "cuda":
+        raise ValueError(f"encoder_attention_grad: unsupported device "
+                         f"{q.device}")
+    # a named range, so that a profile of a training step can sum the
+    # backward's device time
+    with torch.profiler.record_function("encoder_attention_grad"):
+        return _launch_bwd(q, k, v, out, lse, g, t_real, needs)
+
+
+encoder_attention_grad.launches = 0
 
 
 def encoder_attention_vjp(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, t_real: int, g: torch.Tensor,
                           needs=(True, True, True)):
-    """The kernel's backward: the vector-Jacobian product of
+    """The recompute route of the backward: the vector-Jacobian product of
     :func:`encoder_attention_plain` at (q, k, v) with the output cotangent
     ``g``, recomputed under autograd (JAX's ``_bwd``).  Returns (dq, dk,
     dv), None where ``needs`` is false; each gradient comes back laid out as
-    autograd lays out its input."""
+    autograd lays out its input.  A reference for the backward kernel; no
+    path of the port calls it."""
     # a named range, so that a profile of a training step can sum the
     # recompute's device time
     with torch.profiler.record_function("encoder_attention_vjp"), \
@@ -158,20 +306,21 @@ def encoder_attention_vjp(q: torch.Tensor, k: torch.Tensor,
 
 
 class _KernelAttention(torch.autograd.Function):
-    """The kernel's forward, the plain version's recompute backward (JAX:
-    ``_fwd``/``_bwd`` of the custom_vjp)."""
+    """The forward kernel, storing its rows' log-sum-exp, and the backward
+    kernel (JAX: ``_fwd``/``_bwd`` of the custom_vjp)."""
 
     @staticmethod
     def forward(ctx, q, k, v, t_real):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _launch(q, k, v, t_real, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.t_real = t_real
-        return _launch(q, k, v, t_real)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        return (*encoder_attention_vjp(q, k, v, ctx.t_real, g,
-                                       ctx.needs_input_grad[:3]), None)
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*encoder_attention_grad(q, k, v, out, lse, g, ctx.t_real,
+                                        ctx.needs_input_grad[:3]), None)
 
 
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -184,7 +333,10 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return encoder_attention_plain(q, k, v, t_real)
     if q.device.type != "cuda":
         raise ValueError(f"encoder_attention: unsupported device {q.device}")
-    return _KernelAttention.apply(q, k, v, t_real)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _KernelAttention.apply(q, k, v, t_real)
+    return _launch(q, k, v, t_real)     # inference: no lse stored
 
 
 encoder_attention.launches = 0

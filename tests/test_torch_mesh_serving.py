@@ -36,7 +36,7 @@ import torch
 
 import torch_port_helpers  # noqa: F401  (threads, TF32 off)
 from helpers import make_tiny_checkpoint
-from torch_port_helpers import serving_cases, tone
+from torch_port_helpers import serving_cases, serving_goldens, tone
 
 HERE = Path(__file__).parent
 sys.path.insert(0, str(HERE))
@@ -72,10 +72,8 @@ def mesh_serve(tmp_path_factory):
         jparams, jcfg = jax_load_params(ck)
         jpipe = JPipeline(ck, dtype=jnp.float32, batch_size=2,
                           max_new_tokens=10, params=jparams, cfg=jcfg)
-        golden = [_jsonable(jpipe(c["wav"], language=c["language"],
-                                  return_timestamps=c["return_timestamps"],
-                                  max_new_tokens=c["max_new_tokens"]))
-                  for c in cases]
+        golden = [_jsonable(g) for g in
+                  serving_goldens(tmp_path_factory, ck, cases, jpipe)]
     finally:
         finish(procs, logs, timeout=600)
     from distil_whisper_tpu_torch.pipeline import WhisperPipeline

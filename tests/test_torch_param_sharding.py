@@ -23,8 +23,9 @@ on a (2, 2) mesh under ``RULES_2D``:
   2 --param_sharding 2d``: their losses equal a one-process replay of the
   data ranks' batches.
 
-The JAX references are computed while the ranks run.  The dry run's 2-D
-parts run in a job of their own.
+The JAX references are computed while the ranks run, and the CLIs'
+checkpoints and manifests beside them.  The dry run's 2-D parts run in a
+job of their own.
 """
 
 import json
@@ -51,8 +52,10 @@ from distil_whisper_tpu.parallel import shardings_for_tree as j_shardings
 
 HERE = Path(__file__).parent
 sys.path.insert(0, str(HERE))
-from test_torch_tensor_parallel import (DIMS, JCFG, _cli_data,  # noqa: E402
-                                        _pad_cat, finish, start, step_batch)
+from test_torch_tensor_parallel import (DIMS, JCFG,  # noqa: E402
+                                        _pad_cat, cli_paths, finish,
+                                        refs_beside_cli_data, start,
+                                        step_batch)
 from torch_mp_worker import (BASE_OPT, FSDP_CASES, FSDP_MICRO,  # noqa: E402
                              FSDP_TRAIN)
 
@@ -130,14 +133,15 @@ def fsdp_run(tmp_path_factory):
         arrays[f"split{i}"] = np.asarray([0, 2, 4])
         arrays.update({f"batch{i}/{k}": v for k, v in b.items()})
     np.savez(tmp / "inputs.npz", **arrays)
-    teacher_ck, student_ck, data = _cli_data(tmp)
+    teacher_ck, student_ck, data = cli_paths(tmp)
     ckpt, out = tmp / "ckpt", tmp / "out"
     out.mkdir()
     procs, logs = start("fsdp", tmp / "inputs.npz", ckpt, teacher_ck,
                         student_ck, data, out)
     try:
         m["mesh"] = j_make_mesh((2, 2), devices=jax.devices()[:4])
-        m["ref"] = _jax_references(m, m["mesh"])
+        m["ref"] = refs_beside_cli_data(
+            tmp, lambda: _jax_references(m, m["mesh"]))
     finally:
         finish(procs, logs)
     m.update(out=out, ckpt=ckpt, teacher_ck=teacher_ck,

@@ -2,7 +2,8 @@
 checkpoint (tests/helpers.py::make_tiny_checkpoint) and one JSONL manifest
 of 16-bit WAV clips from two speakers and some without one (CPU).
 
-Each case runs both CLIs once per module: with speaker packing (the
+Each case runs both CLIs once per module (the port's in a child process,
+beside JAX's): with speaker packing (the
 default ``--concatenate_audio``, WER on), without it, with beams 2, and with
 two featurizer workers.  The port's manifest rows equal JAX's Arrow rows:
 ``whisper_transcript``, ``text`` and ``condition_on_prev`` row for row, and
@@ -25,6 +26,7 @@ import pytest
 
 import torch_port_helpers  # noqa: F401  (two torch threads, TF32 off)
 from helpers import make_tiny_checkpoint
+from torch_port_helpers import ChildCall
 
 SPEAKERS = ["b", "a", "b", None, "a", "b", "a", None, "b"]
 SECONDS = [6, 9, 12, 4, 14, 7, 10, 5, 3]
@@ -98,11 +100,23 @@ def _run(workspace, name, side):
             "csv": (out / "transcriptions.csv").read_text()}
 
 
+def _port_runs(ws):
+    """The port's CLI on every case, in a child process (JSON in and
+    out)."""
+    ws = {**ws, "root": Path(ws["root"])}
+    return {name: _run(ws, name, "port") for name in CASES}
+
+
 @pytest.fixture(scope="module")
 def runs(workspace):
-    """Both CLIs on every case, once per module."""
-    return {(name, side): _run(workspace, name, side)
-            for name in CASES for side in ("jax", "port")}
+    """Both CLIs on every case, once per module: the port's in a child
+    process while JAX's run here."""
+    port = ChildCall("test_torch_pseudo_labelling", "_port_runs",
+                     {k: str(v) for k, v in workspace.items()})
+    res = {(name, "jax"): _run(workspace, name, "jax") for name in CASES}
+    for name, r in port.result().items():
+        res[name, "port"] = {**r, "out": Path(r["out"])}
+    return res
 
 
 def _jax_rows(path):

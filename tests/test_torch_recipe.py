@@ -5,7 +5,8 @@ pseudo-labels with timestamps and prompts, a filtered row, eval with WER
 and a best checkpoint) -> run_eval.  Students equal exactly; per-step
 losses and grad norms, final parameters and eval predictions equal JAX's
 at 1e-4; the output directories hold the same checkpoint names.  Each
-package's side runs once per module.
+package's side runs once per module, the two at once (the port's in a
+child process).
 """
 
 import json
@@ -17,6 +18,7 @@ import pytest
 
 import torch_port_helpers  # noqa: F401  (two torch threads, TF32 off)
 from helpers import make_tiny_checkpoint
+from torch_port_helpers import ChildCall
 from distil_whisper_tpu.models import load_params as j_load_params
 from distil_whisper_tpu.models.params import tree_paths as j_tree_paths
 
@@ -111,9 +113,21 @@ def _recipe(ws, side):
             "evals": [m for m in metrics if "eval/wer" in m]}
 
 
+def _port_recipe(ws):
+    """The port's side of ``runs``, in a child process (JSON in and out)."""
+    return _recipe({**ws, "root": Path(ws["root"])}, "port")
+
+
 @pytest.fixture(scope="module")
 def runs(workspace):
-    return {side: _recipe(workspace, side) for side in ("jax", "port")}
+    """Both packages' recipes at once: the port's in a child process while
+    JAX's runs here."""
+    port = ChildCall("test_torch_recipe", "_port_recipe",
+                     {k: str(v) for k, v in workspace.items()})
+    jax_side = _recipe(workspace, "jax")
+    port = port.result()
+    port["out"] = Path(port["out"])
+    return {"jax": jax_side, "port": port}
 
 
 def test_students_equal(runs):

@@ -14,7 +14,8 @@ import torch
 
 import torch_port_helpers  # noqa: F401  (threads, TF32 off)
 from helpers import make_tiny_checkpoint
-from torch_port_helpers import serving_cases, submit_all, tone, torch_params
+from torch_port_helpers import (serving_cases, serving_goldens, submit_all,
+                                tone, torch_params)
 
 import distil_whisper_tpu.serving as J
 from distil_whisper_tpu_torch import serving as S
@@ -89,7 +90,8 @@ def test_coerce_helpers_equal_jax():
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     """The JAX pipeline's goldens on the staggered cases (the module's one
-    JAX run) and the port's pipeline on the converted JAX parameters."""
+    JAX run, shared with the other scheduler modules) and the port's
+    pipeline on the converted JAX parameters."""
     from distil_whisper_tpu.models import load_params as jax_load_params
     from distil_whisper_tpu.pipeline import WhisperPipeline as JPipeline
     root = tmp_path_factory.mktemp("microbatch")
@@ -98,9 +100,7 @@ def setup(tmp_path_factory):
     jpipe = JPipeline(ck, dtype=jnp.float32, batch_size=2, max_new_tokens=10,
                       params=jparams, cfg=jcfg)
     cases = serving_cases()
-    golden = [jpipe(c["wav"], language=c["language"],
-                    return_timestamps=c["return_timestamps"],
-                    max_new_tokens=c["max_new_tokens"]) for c in cases]
+    golden = serving_goldens(tmp_path_factory, ck, cases, jpipe)
     _, cfg = load_params(ck, device="cpu")
     pipe = WhisperPipeline(ck, dtype=torch.float32, batch_size=2,
                            max_new_tokens=10, params=torch_params(jparams),

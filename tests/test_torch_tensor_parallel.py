@@ -22,7 +22,9 @@ on a (2, 2) and a (1, 4) mesh:
 - ``run_distillation --distributed --model_parallel 2``: its losses equal
   a one-process replay of the data ranks' batches.
 
-The JAX references are computed while the ranks run.  Plain unit tests
+The JAX references are computed while the ranks run, and the CLI's
+checkpoints and manifests beside them (the ranks wait for those only
+where the CLI runs).  Plain unit tests
 hold the shard rules, the degree checks and the int8 MLP's partial mode.
 """
 
@@ -136,42 +138,69 @@ def step_batch(seed):
             "labels": labels.astype(np.int32)}
 
 
+def cli_paths(root):
+    """Where :func:`_cli_data` puts the teacher and student checkpoints and
+    the manifests."""
+    return str(root / "teacher"), str(root / "student"), root / "data"
+
+
 def _cli_data(root):
     """A teacher and student checkpoint and the manifests of the CLI run
-    (as tests/test_torch_multiprocess.py makes them)."""
+    (as tests/test_torch_multiprocess.py makes them), then the ``ready``
+    marker that the ranks wait for (``failed`` if making them raised): the
+    fixtures make them beside the JAX references while the ranks run."""
     from distil_whisper_tpu_torch.audio.io import write_wav
     from distil_whisper_tpu_torch.cli import create_student_model
-    data = root / "data"
+    teacher, student, data = cli_paths(root)
     data.mkdir()
-    teacher = make_tiny_checkpoint(root / "teacher", encoder_layers=2,
-                                   decoder_layers=4)
-    student = str(root / "student")
-    create_student_model.main(["--teacher_checkpoint", teacher,
-                               "--save_dir", student, "--decoder_layers", "2",
-                               "--device", "cpu"])
-    rows = []
-    for i, text in enumerate(TEXTS):
-        secs = 1.5 + 0.5 * (i % 4)
-        write_wav(str(data / f"{i}.wav"), tone(secs, 200 + 40 * i, i), 16000)
-        rows.append({"audio": str(data / f"{i}.wav"), "text": text,
-                     "whisper_transcript": "<|startoftranscript|><|en|>"
-                     f"<|transcribe|><|notimestamps|> {text}<|endoftext|>"})
-    for name, sel in (("train", rows), ("eval", rows[:4])):
-        (data / f"{name}.jsonl").write_text(
-            "".join(json.dumps(r) + "\n" for r in sel))
+    try:
+        make_tiny_checkpoint(teacher, encoder_layers=2, decoder_layers=4)
+        create_student_model.main(["--teacher_checkpoint", teacher,
+                                   "--save_dir", student,
+                                   "--decoder_layers", "2", "--device", "cpu"])
+        rows = []
+        for i, text in enumerate(TEXTS):
+            secs = 1.5 + 0.5 * (i % 4)
+            write_wav(str(data / f"{i}.wav"), tone(secs, 200 + 40 * i, i),
+                      16000)
+            rows.append({"audio": str(data / f"{i}.wav"), "text": text,
+                         "whisper_transcript": "<|startoftranscript|><|en|>"
+                         f"<|transcribe|><|notimestamps|> {text}"
+                         "<|endoftext|>"})
+        for name, sel in (("train", rows), ("eval", rows[:4])):
+            (data / f"{name}.jsonl").write_text(
+                "".join(json.dumps(r) + "\n" for r in sel))
+    except BaseException:
+        (data / "failed").touch()
+        raise
+    (data / "ready").touch()
     return teacher, student, data
 
 
-def _jax_references(m):
-    """JAX's unsharded generations and its (4, 2)-mesh steps."""
+def refs_beside_cli_data(root, references, *beside):
+    """``references()`` (the JAX references, computed while the ranks run,
+    a dict) updated with the dicts of ``beside`` (more references, each in
+    a thread), with :func:`_cli_data` made in a thread beside them."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1 + len(beside)) as pool:
+        cli = pool.submit(_cli_data, root)
+        more = [pool.submit(fn) for fn in beside]
+        ref = references()
+        for f in more:
+            ref.update(f.result())
+        cli.result()
+    return ref
+
+
+def _jax_generations(m):
+    """JAX's unsharded generations (greedy with timestamps, int8, draft
+    speculation)."""
     from distil_whisper_tpu.generation import GenerationOptions as JOpts
     from distil_whisper_tpu.generation import encode_and_generate as j_gen
     from distil_whisper_tpu.generation.speculative import \
         speculative_generate
     from distil_whisper_tpu.models.whisper import cross_kv, encode
-    from distil_whisper_tpu.ops.quant import (maybe_quantize_encoder,
-                                              quantize_decoder_params,
-                                              quantize_encoder_params)
+    from distil_whisper_tpu.ops.quant import maybe_quantize_encoder
     ref = {}
     prompt4 = jnp.full((4, 1), 3, jnp.int32)
     out = j_gen(m["inf"], JINF, jnp.asarray(m["mel_ts"]), prompt4,
@@ -192,7 +221,14 @@ def _jax_references(m):
         cross_kv(t["decoder"], JINF, enc), cross_kv(dr["decoder"], dcfg, enc),
         jnp.asarray([[3]], jnp.int32), JOpts(max_new_tokens=16), gamma=3)
     ref["spec_sequences"] = np.asarray(out.sequences)
+    return ref
 
+
+def _jax_steps(m):
+    """JAX's (4, 2)-mesh steps, every case."""
+    from distil_whisper_tpu.ops.quant import (quantize_decoder_params,
+                                              quantize_encoder_params)
+    ref = {}
     mesh = j_make_mesh((4, 2))
     s_axes = j_param_axes(m["scfg"])
     for name, (opt_kw, dcfg_kw, int8) in TP_STEP_CASES.items():
@@ -250,13 +286,14 @@ def tp_run(tmp_path_factory):
     m["audios"] = [tone(2.0 + j, 220.0 + 60 * j, 10 + j) for j in range(3)]
     arrays.update({f"audio{j}": a for j, a in enumerate(m["audios"])})
     np.savez(tmp / "inputs.npz", **arrays)
-    teacher_ck, student_ck, data = _cli_data(tmp)
+    teacher_ck, student_ck, data = cli_paths(tmp)
     ckpt, out = tmp / "ckpt", tmp / "out"
     out.mkdir()
     procs, logs = start("tp", tmp / "inputs.npz", ckpt, teacher_ck,
                         student_ck, data, out)
     try:
-        m["ref"] = _jax_references(m)
+        m["ref"] = refs_beside_cli_data(tmp, lambda: _jax_steps(m),
+                                        lambda: _jax_generations(m))
     finally:
         finish(procs, logs)
     m.update(out=out, ckpt=ckpt, teacher_ck=teacher_ck,

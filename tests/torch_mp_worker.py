@@ -47,6 +47,19 @@ from pathlib import Path
 import numpy as np
 
 
+def _wait_for_cli_data(data_dir, timeout=600):
+    """The test makes the CLI's checkpoints and manifests while the ranks
+    run; it marks them ``ready`` (or ``failed``) in ``data_dir``."""
+    import time
+    t0 = time.monotonic()
+    while not Path(data_dir, "ready").exists():
+        if Path(data_dir, "failed").exists():
+            raise RuntimeError("the test failed to make the CLI data")
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"no CLI data in {data_dir}")
+        time.sleep(0.2)
+
+
 def _join(rank, world, port, timeout=None):
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
@@ -343,6 +356,7 @@ def tp(rank, world, inputs, ckpt, teacher_ck, student_ck, data_dir, out):
     res["dropout_effect"] = max_diff(after["tp1"], after["tp1_no_dropout"])
 
     # -- the pipeline ------------------------------------------------------
+    _wait_for_cli_data(data_dir)
     pipe = WhisperPipeline(teacher_ck, dtype=torch.float32, device="cpu",
                            mesh=mesh22)
     audios = [data[f"audio{j}"] for j in range(3)]
@@ -496,6 +510,7 @@ def fsdp(rank, world, inputs, ckpt, teacher_ck, student_ck, data_dir, out):
         np.savez(out / f"fsdp-resume-{tag}-rank{rank}.npz", **saved)
 
     # -- the CLIs ----------------------------------------------------------
+    _wait_for_cli_data(data_dir)
     flags = ["--device", "cpu", "--distributed", "--model_parallel", "2",
              "--param_sharding", "2d", "--language", "en", "--precision",
              "full", "--max_label_length", "64", "--logging_steps", "1",
