@@ -198,36 +198,58 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 3) -> float:
     return statistics.median(times)
 
 
-def cuda_graph_ms(fn, reps: int = 20, rounds: int = 3) -> float:
+def cuda_graph_ms(fn, reps: int = 20, rounds: int = 3, setup=None) -> float:
     """Device time of one call of ``fn`` without the host's launch work:
     ``reps`` calls captured in one CUDA graph, the graph replayed between
     CUDA events, over ``reps``; the median of ``rounds`` replays, after
     warm-up.  For kernels of tens of microseconds, where back-to-back
-    launches from Python would time the host."""
+    launches from Python would time the host.  Everything runs on a side
+    stream; with ``setup``, ``fn = setup()`` runs there first, so that an
+    autograd graph recorded by ``setup`` runs its backward (``fn``) on the
+    capturing stream."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
+        if setup is not None:
+            fn = setup()
         for _ in range(2):
             fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
     torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
+    del graph, fn
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 20, rounds: int = 5) -> float:
+    """Host microseconds a call of ``fn``: a CPU clock around ``calls``
+    calls with their device work queued (not synchronised), the median of
+    ``rounds`` after warm-up."""
+    import torch
+    fn()
     times = []
     for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -664,6 +686,30 @@ def kernel_row_encoder_attention(gen):
     del q, k, v, qm, km, vm
     torch.cuda.empty_cache()
     return row
+
+
+def sass_report(source: str, lib=None):
+    """Each kernel of one source's built library (or of the library at
+    ``lib``): the highest register its SASS names and its local-memory
+    loads and stores (spills), from ``cuobjdump -sass``.  ptxas reports the
+    registers a thread is given at launch; setmaxnreg lets a warpgroup use
+    more."""
+    import re
+    from distil_whisper_tpu_torch.ops import _build
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass",
+                           str(lib or _build._lib_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        kernel = re.search(r"([a-z_]+_kernel)E", name)
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", part)]
+        out[kernel.group(1) if kernel else name] = {
+            "max_register": max(regs) if regs else None,
+            "local_stores": len(re.findall(r"\bSTL\b", part)),
+            "local_loads": len(re.findall(r"\bLDL\b", part))}
+    return out
 
 
 def ptxas_report(source: str):
@@ -1966,8 +2012,11 @@ def kernel_row_encoder_attention_grad(gen):
     log-sum-exp, the backward kernel reads it) at (2, 20, 1500, 64) bf16,
     as the main path's views (H 20) of [2, 1500, 1280] projections, the
     tensor-parallel path's views (H 10 and 5) of [2, 1500, 640] and [2,
-    1500, 320] projections, and on the ragged (3, 5, 200, 64) with 77 live
-    keys and (2, 3, 65, 64) with 64.  Each held against ``encoder_attention_bwd_plain`` on the same
+    1500, 320] projections, on the ragged (3, 5, 200, 64) with 77 live
+    keys and (2, 3, 65, 64) with 64, on one row (1, 1, 1, 64) and on the
+    main path's views with 1437 live keys (inside the last 128-key tile, so
+    a work item of the persistent schedule is part live, part dead).  Each
+    held against ``encoder_attention_bwd_plain`` on the same
     output and lse (the same arithmetic; bf16 casts of P and dS, fp32 sums
     in another order and ``ex2.approx``: a few bf16 ulps, atol/rtol
     ``GRAD_TOL``), against ``encoder_attention_vjp`` (the recompute through
@@ -1975,9 +2024,12 @@ def kernel_row_encoder_attention_grad(gen):
     at other places: ``GRAD_TOL``) and against the fp32 gradient (bf16
     operands: within ``GRAD_FP32_TOL`` of its largest value); the direct
     call equal bit for bit to the autograd one and to a second call.  Timed
-    at the first shape: the kernel, the recompute, the plain backward and
-    SDPA's backward (CUDA events); the extra peak memory of both backwards;
-    the bound."""
+    at the first shape and at the fine-tuning shape (4, 20, 1500, 64): the
+    kernel, each pass alone and SDPA's backward in CUDA graphs (the same
+    host-free method for all three), both backwards through autograd in a
+    graph and back to back from Python, the host microseconds a call; at
+    the first shape also the recompute and the plain backward (CUDA events)
+    and the extra peak memory of both backwards; the bound."""
     import torch
     from distil_whisper_tpu_torch.ops import encoder_attention as ea
 
@@ -2012,7 +2064,12 @@ def kernel_row_encoder_attention_grad(gen):
         err = {name: max((a.float() - b.float()).abs().max().item()
                          for a, b in zip(kernel, other))
                for name, other in (("plain", plain), ("recompute", recompute))}
-        rel32 = max(((a.float() - b).abs().max() / b.abs().max()).item()
+        # relative to each fp32 gradient's largest value; a gradient that
+        # is exactly zero in fp32 (dq and dk when T is 1: one key, dS = 0)
+        # is held relative to the case's largest fp32 gradient instead
+        largest = max(b.abs().max().item() for b in ref)
+        rel32 = max((a.float() - b).abs().max().item()
+                    / (b.abs().max().item() or largest)
                     for a, b in zip(kernel, ref))
         finite = all(torch.isfinite(x).all() for x in kernel)
         dead = (not kernel[1][:, :, t_real:].any()
@@ -2041,6 +2098,10 @@ def kernel_row_encoder_attention_grad(gen):
                       "ragged (3, 5, 200, 64) / 77"))
     cases.append(held([rand(2, 3, 65, 64) for _ in range(4)], 64,
                       "ragged (2, 3, 65, 64) / 64"))
+    cases.append(held([rand(1, 1, 1, 64) for _ in range(4)], 1,
+                      "one row (1, 1, 1, 64) / 1"))
+    cases.append(held([heads_view(b, t, h, d) for _ in range(4)], 1437,
+                      "views of [2, 1500, 1280], 1437 live keys"))
     torch.cuda.empty_cache()
 
     out, lse = ea._launch(q, k, v, t, with_lse=True)
@@ -2059,21 +2120,50 @@ def kernel_row_encoder_attention_grad(gen):
         fn_out, (qg, kg, vg), g, retain_graph=True))
     extra_recompute = extra_peak(
         lambda: ea.encoder_attention_vjp(q, k, v, t, g))
-    ms = cuda_ms(lambda: ea.encoder_attention_grad(q, k, v, out, lse, g, t))
-    # each pass alone (each with the prep pass): dq only, dk and dv only
-    ms_dq = cuda_ms(lambda: ea.encoder_attention_grad(
-        q, k, v, out, lse, g, t, (True, False, False)))
-    ms_dkdv = cuda_ms(lambda: ea.encoder_attention_grad(
-        q, k, v, out, lse, g, t, (False, True, True)))
-    ms_autograd = cuda_ms(lambda: torch.autograd.grad(
-        fn_out, (qg, kg, vg), g, retain_graph=True))
+    def timings(q, k, v, g):
+        """At one shape: the backward, each pass alone (dq alone is the dQ
+        pass, which also forms the (lse2, delta) pairs; dk and dv alone are
+        that pass without dQ and the dK/dV pass) and SDPA's backward, all
+        in CUDA graphs; the backward through the Function's autograd and
+        SDPA's, in graphs and back to back from Python."""
+        out, lse = ea._launch(q, k, v, t, with_lse=True)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def backward_of(forward):
+            def setup():
+                y = forward(*leaves)
+                return lambda: torch.autograd.grad(y, leaves, g,
+                                                   retain_graph=True)
+            return setup
+
+        ours = backward_of(lambda *x: ea.encoder_attention(*x, t))
+        sdpa = backward_of(torch.nn.functional.scaled_dot_product_attention)
+        r = {"ms": cuda_graph_ms(lambda: ea.encoder_attention_grad(
+                 q, k, v, out, lse, g, t)),
+             "ms_dq_pass": cuda_graph_ms(lambda: ea.encoder_attention_grad(
+                 q, k, v, out, lse, g, t, (True, False, False))),
+             "ms_dkdv_only": cuda_graph_ms(lambda: ea.encoder_attention_grad(
+                 q, k, v, out, lse, g, t, (False, True, True))),
+             "library_ms": cuda_graph_ms(None, setup=sdpa),
+             "ms_autograd": cuda_graph_ms(None, setup=ours),
+             "ms_direct_back_to_back": cuda_ms(
+                 lambda: ea.encoder_attention_grad(q, k, v, out, lse, g, t)),
+             "ms_autograd_back_to_back": cuda_ms(ours()),
+             "library_ms_back_to_back": cuda_ms(sdpa()),
+             "host_us_per_call": host_us(lambda: ea.encoder_attention_grad(
+                 q, k, v, out, lse, g, t)),
+             "host_us_per_autograd_call": host_us(ours())}
+        r["ms_vs_library"] = r["ms"] / r["library_ms"]
+        return r
+
+    main_times = timings(q, k, v, g)
+    ms, library_ms = main_times["ms"], main_times["library_ms"]
+    finetune_shape = [4, h, t, d]
+    finetune_times = timings(*(heads_view(4, t, h, d) for _ in range(4)))
     recompute_ms = cuda_ms(lambda: ea.encoder_attention_vjp(q, k, v, t, g),
                            reps=5)
     plain_ms = cuda_ms(lambda: ea.encoder_attention_bwd_plain(
         q, k, v, out, lse, g, t), reps=5)
-    sdpa = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        sdpa, (qg, kg, vg), g, retain_graph=True))
     fwd_lse_ms = cuda_ms(lambda: ea._launch(q, k, v, t, with_lse=True))
     fwd_ms = cuda_ms(lambda: ea._launch(q, k, v, t))
     fwd_bits = torch.equal(ea._launch(q, k, v, t), out)
@@ -2092,8 +2182,8 @@ def kernel_row_encoder_attention_grad(gen):
            "max_abs_err_vs_recompute": cases[0]["max_abs_err_vs_recompute"],
            "max_rel_err_vs_fp32": cases[0]["max_rel_err_vs_fp32"],
            "tolerance_vs_fp32": GRAD_FP32_TOL, "held": cases,
-           "ms": ms, "tflops": ops / ms / 1e9, "ms_autograd": ms_autograd,
-           "ms_prep_and_dq": ms_dq, "ms_prep_and_dkdv": ms_dkdv,
+           "ms": ms, "tflops": ops / ms / 1e9, **main_times,
+           "finetune_shape": finetune_shape, "finetune": finetune_times,
            "recompute_ms": recompute_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_ms_seven_products": bound(n_bytes, 14 * b * h * t * t * d,
@@ -2105,12 +2195,17 @@ def kernel_row_encoder_attention_grad(gen):
            "forward_ms_lse": fwd_lse_ms, "forward_ms_no_lse": fwd_ms,
            "forward_bits_equal_with_lse": fwd_bits,
            "shape": [b, h, t, d], "ptxas": ptxas_report("encoder_attention_bwd"),
-           "note": "ms: encoder_attention_grad from a saved forward (prep, "
-                   "dK/dV and dQ launches); ms_autograd: the same through "
-                   "the Function's backward; recompute_ms: "
-                   "encoder_attention_vjp, the route it replaces; plain_ms: "
-                   "encoder_attention_bwd_plain; library_ms: SDPA's backward"}
-    del q, k, v, g, qg, kg, vg, out, lse, fn_out, sdpa
+           "sass": sass_report("encoder_attention_bwd"),
+           "note": "ms: encoder_attention_grad from a saved forward (the dQ "
+                   "and dK/dV launches) in a CUDA graph; ms_autograd: the "
+                   "same through the Function's backward; library_ms: "
+                   "SDPA's backward, in a graph the same way; *_back_to_back:"
+                   " CUDA events around calls from Python; host_us_*: host "
+                   "time a call, device work queued; recompute_ms: "
+                   "encoder_attention_vjp, the recompute the kernel "
+                   "replaced; "
+                   "plain_ms: encoder_attention_bwd_plain"}
+    del q, k, v, g, qg, kg, vg, out, lse, fn_out
     torch.cuda.empty_cache()
     return row
 

@@ -21,13 +21,16 @@ Under autograd on the card the kernel runs inside a
 log-sum-exp (fp32 [B, H, T], base 2), and its backward is a second kernel
 (``csrc/encoder_attention_bwd.cu``, :func:`encoder_attention_grad`) that
 rebuilds the probabilities from it tile by tile, so no [B, H, T, T] array
-reaches device memory.  It computes the gradient of the same function as
-the JAX package's ``custom_vjp`` (``_bwd`` recomputes through its einsum
-reference); :func:`encoder_attention_bwd_plain` is its arithmetic in plain
-PyTorch, and :func:`encoder_attention_vjp`, the recompute through the plain
-forward under autograd, stays as the bridge to JAX's ``_bwd`` and a second
-reference on the card.  ``encoder_attention_grad.launches`` counts backward
-kernel calls.  On the CPU autograd goes through the plain version directly.
+reaches device memory: a dQ pass that also forms the rows' (lse2, delta)
+pairs, then a dK/dV pass, each a persistent grid of min(SMs, work items)
+blocks (:func:`bwd_geometry`).  It computes the gradient of the same
+function as the JAX package's ``custom_vjp`` (``_bwd`` recomputes through
+its einsum reference); :func:`encoder_attention_bwd_plain` is its
+arithmetic in plain PyTorch, and :func:`encoder_attention_vjp`, the
+recompute through the plain forward under autograd, stays as the bridge to
+JAX's ``_bwd`` and a second reference on the card.
+``encoder_attention_grad.launches`` counts backward kernel calls.  On the
+CPU autograd goes through the plain version directly.
 
 ``fused_self_attention`` also takes a QAT w8a8 tree (``ops/qat.py``): it
 fake-quantizes the q/k/v input and the out-projection's input, with the
@@ -56,7 +59,8 @@ from .quant import dense_int8, quantize_acts
 
 
 LOG2E = math.log2(math.e)
-# rows of the backward's (lse2, delta) scratch are padded to this multiple
+# rows of a backward work item; the (lse2, delta) scratch's rows are padded
+# to this multiple
 LD_ALIGN = 128
 
 
@@ -126,15 +130,34 @@ def _lib():
     return lib
 
 
+# the byte strides of T, H and B of q, k, v, out and g, as one argument
+_BWD_STRIDES = ctypes.c_longlong * 15
+
+
 @functools.lru_cache(maxsize=1)
 def _bwd_lib():
     lib = _build.load("encoder_attention_bwd")
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_float
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dw_encoder_attention_bwd.argtypes = (
-        [p] * 10 + [i] * 5 + [f, f, i, i] + [ll] * 24 + [p])
+        [p] * 10 + [i] * 5 + [f, f, p, p])
     lib.dw_encoder_attention_bwd.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_geometry(b: int, h: int, t: int, n_sm: int):
+    """``(items, grid, rows)`` of the backward kernel's two persistent
+    launches: the work items of each pass (a 128-row tile of queries or of
+    keys, a head, a batch row), the blocks of each grid, min(``n_sm``,
+    items), and the rows Tp of the (lse2, delta) scratch, T rounded up to a
+    whole tile (the dQ pass writes every one of them, pad rows zero)."""
+    tiles = -(-t // LD_ALIGN)
+    items = tiles * h * b
+    return items, min(items, n_sm), tiles * LD_ALIGN
 
 
 def _tma_ok(x: torch.Tensor, strides) -> bool:
@@ -215,12 +238,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
-def _grad_buffer(q: torch.Tensor) -> torch.Tensor:
-    """A [B, H, T, D] view of a [B, T, H, D] buffer: the layout in which the
+def _grad_buffers(q: torch.Tensor, n: int):
+    """``n`` gradient buffers of q's shape from one allocation: [B, H, T, D]
+    views of consecutive [B, T, H, D] slices, the layout in which the
     projections' backward reads a gradient with no copy."""
     b, h, t, d = q.shape
-    return torch.empty(b, t, h, d, dtype=q.dtype,
-                       device=q.device).transpose(1, 2)
+    return torch.empty_strided(
+        (n, b, h, t, d), (b * t * h * d, t * h * d, d, h * d, 1),
+        dtype=q.dtype, device=q.device).unbind(0)
 
 
 def _launch_bwd(q, k, v, out, lse, g, t_real: int, needs):
@@ -236,20 +261,25 @@ def _launch_bwd(q, k, v, out, lse, g, t_real: int, needs):
                          f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     if not _tma_ok(g, _byte_strides(g)):
         g = g.contiguous()          # e.g. the expanded cotangent of a sum
+    strides = _BWD_STRIDES(
+        *(s for x in (q, k, v, out, g) for s in _tma_geometry(x)[1]))
     want_dq, want_dkdv = needs[0], needs[1] or needs[2]
-    dq = _grad_buffer(q) if want_dq else None
-    dk, dv = (_grad_buffer(q), _grad_buffer(q)) if want_dkdv else (None, None)
-    rows = -(-t // LD_ALIGN) * LD_ALIGN
+    grads = _grad_buffers(q, int(want_dq) + 2 * int(want_dkdv))
+    # the kernel writes dq, dk and dv as views of contiguous [B, T, H, 64]
+    # buffers, with strides it derives from H and T
+    if grads and grads[0].stride() != (t * h * d, d, h * d, 1):
+        raise ValueError(f"encoder_attention_grad: the kernel writes [B, T, "
+                         f"H, 64] buffers, got strides {grads[0].stride()}")
+    dq = grads[0] if want_dq else None
+    dk, dv = grads[-2:] if want_dkdv else (None, None)
+    _, grid, rows = bwd_geometry(b, h, t, _sm_count(q.device.index))
     ld = torch.empty(b * h * rows * 2, dtype=torch.float32, device=q.device)
-    tensors = [q, k, v, out, g] + [x if x is not None else q
-                                   for x in (dq, dk, dv)]
-    strides = [s for x in tensors for s in _tma_geometry(x)[1]]
-    ptrs = [x.data_ptr() if x is not None else 0
-            for x in (q, k, v, out, g, lse, ld, dq, dk, dv)]
     with torch.cuda.device(q.device):
         err = _bwd_lib().dw_encoder_attention_bwd(
-            *ptrs, b, h, t, rows, t_real, d ** -0.5 * LOG2E, d ** -0.5,
-            int(want_dq), int(want_dkdv), *strides,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), ld.data_ptr(),
+            *(0 if x is None else x.data_ptr() for x in (dq, dk, dv)),
+            b, h, t, t_real, grid, d ** -0.5 * LOG2E, d ** -0.5, strides,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder attention backward kernel launch failed "

@@ -18,8 +18,10 @@ MLP at the encoder's shape (x [24000, 1280] bf16, ffn 5120), int8 decode
 attention at the cross shape (B 16, T 1536, 1500 live keys, per-head scales)
 and the self-cache shape (T 448, per-token scales, per-row masks; device
 time from a CUDA graph of 20 calls, since at tens of microseconds
-back-to-back launches from Python time the host), and the PyTorch calls
-beside each: SDPA, the ``torch.stft`` composition, the
+back-to-back launches from Python time the host), the encoder-attention
+backward at (2, 20, 1500, 64) and (4, 20, 1500, 64) (a CUDA graph too,
+beside the host microseconds a call takes), and the PyTorch calls
+beside each: SDPA (and its backward), the ``torch.stft`` composition, the
 ``torch._int_mm`` composition and bf16 ``F.linear``-gelu-``F.linear``, SDPA
 on dequantized bf16 K/V.  Inputs come from one seed, so every checkout sees
 the same numbers.  Prints one JSON line with the ptxas report of every
@@ -30,59 +32,63 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
+HERE = Path(__file__).resolve().parents[1]
+# the timing helpers of this checkout's chip_smoke.py (cuda_ms, cuda_graph_ms,
+# host_us), imported before --root goes first on the path, so that every
+# checkout timed is timed by the same code
+sys.path.insert(0, str(HERE))
+from chip_smoke import cuda_graph_ms, cuda_ms, host_us  # noqa: E402
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 3) -> float:
+
+def attention_backward_times(gen):
+    """The encoder-attention backward at (B, 20, 1500, 64), B 2 and 4, on
+    [B, H, T, 64] views of [B, T, 1280] projections: the kernel from a
+    saved forward, dq alone and dk/dv alone, the Function's backward
+    through autograd and SDPA's backward, all in CUDA graphs; the host
+    microseconds of a direct and of an autograd call."""
     import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+    import torch.nn.functional as F
+    from distil_whisper_tpu_torch.ops import encoder_attention as ea
+    h, t, d = 20, 1500, 64
+    out = {}
+    for b in (2, 4):
+        q, k, v, g = (torch.randn(b, t, h * d, generator=gen, device="cuda")
+                      .to(torch.bfloat16).view(b, t, h, d).transpose(1, 2)
+                      for _ in range(4))
+        o, lse = ea._launch(q, k, v, t, with_lse=True)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
 
+        def backward_of(forward):
+            def setup():
+                y = forward(*leaves)
+                return lambda: torch.autograd.grad(y, leaves, g,
+                                                   retain_graph=True)
+            return setup
 
-def cuda_graph_ms(fn, reps: int = 20, rounds: int = 3) -> float:
-    """Device time of one call without the host's launch work: ``reps``
-    calls captured in a CUDA graph, replayed between CUDA events (as
-    ``chip_smoke.py``)."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
-    return statistics.median(times)
+        ours = backward_of(lambda *x: ea.encoder_attention(*x, t))
+        key = f"attention_bwd_b{b}"
+        out[f"{key}_ms"] = cuda_graph_ms(
+            lambda: ea.encoder_attention_grad(q, k, v, o, lse, g, t))
+        out[f"{key}_dq_only_ms"] = cuda_graph_ms(
+            lambda: ea.encoder_attention_grad(q, k, v, o, lse, g, t,
+                                              (True, False, False)))
+        out[f"{key}_dkdv_only_ms"] = cuda_graph_ms(
+            lambda: ea.encoder_attention_grad(q, k, v, o, lse, g, t,
+                                              (False, True, True)))
+        out[f"{key}_autograd_ms"] = cuda_graph_ms(None, setup=ours)
+        out[f"sdpa_bwd_b{b}_ms"] = cuda_graph_ms(
+            None, setup=backward_of(F.scaled_dot_product_attention))
+        out[f"{key}_host_us"] = host_us(
+            lambda: ea.encoder_attention_grad(q, k, v, o, lse, g, t),
+            rounds=15)
+        out[f"{key}_autograd_host_us"] = host_us(ours(), rounds=15)
+        del q, k, v, g, o, lse, leaves
+        torch.cuda.empty_cache()
+    return out
 
 
 def int8_mlp_times(gen, cuda_ms):
@@ -144,7 +150,7 @@ def int8_decode_attention_times(gen):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    parser.add_argument("--root", default=str(HERE))
     parser.add_argument("--tag", default="")
     args = parser.parse_args()
     sys.path.insert(0, args.root)
@@ -191,6 +197,7 @@ def main() -> int:
     out["sdpa_main_layout_ms"] = cuda_ms(
         lambda: F.scaled_dot_product_attention(qm, km, vm))
     del q, k, v, qm, km, vm
+    out.update(attention_backward_times(gen))
     out.update(int8_mlp_times(gen, cuda_ms))
     out.update(int8_decode_attention_times(gen))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -124,10 +124,11 @@ def _bf16(*shape):
 
 
 @pytest.mark.parametrize("case", ["fp32", "head_dim", "t_real", "lse_shape",
-                                  "lse_dtype", "shape"])
-def test_kernel_backward_refuses_what_it_cannot_take(case):
+                                  "lse_dtype", "shape", "grad_layout"])
+def test_kernel_backward_refuses_what_it_cannot_take(case, monkeypatch):
     """The checks before any launch: bf16 only, head dim 64 only,
-    1 <= t_real <= T, an fp32 [B, H, T] lse, operands of q's shape."""
+    1 <= t_real <= T, an fp32 [B, H, T] lse, operands of q's shape, and
+    gradient buffers in the [B, T, H, 64] layout the kernel writes."""
     shape, t_real = (1, 2, 40, 64), 40
     x = {n: _bf16(*shape) for n in ("q", "k", "v", "out", "g")}
     lse = torch.zeros(1, 2, 40)
@@ -141,6 +142,9 @@ def test_kernel_backward_refuses_what_it_cannot_take(case):
         lse = torch.zeros(1, 2, 41)
     elif case == "lse_dtype":
         lse = lse.bfloat16()
+    elif case == "grad_layout":
+        monkeypatch.setattr(tenc, "_grad_buffers", lambda q, n: [
+            torch.empty_like(q) for _ in range(n)])
     else:
         x["v"] = _bf16(1, 2, 41, 64)
     with pytest.raises(ValueError):
@@ -151,12 +155,35 @@ def test_kernel_backward_refuses_what_it_cannot_take(case):
 
 def test_grad_buffers_are_views_of_projection_rows():
     """The kernel writes dq/dk/dv into [B, H, T, 64] views of [B, T, H, 64]
-    buffers, which TMA's geometry also takes."""
+    buffers, which TMA's geometry also takes; the three are consecutive
+    slices of one allocation."""
     q = _bf16(2, 20, 50, 64)
-    buf = tenc._grad_buffer(q)
-    assert buf.shape == q.shape
-    assert buf.transpose(1, 2).is_contiguous()
-    assert tenc._tma_geometry(buf)[1] == (2560, 128, 50 * 2560)
+    bufs = tenc._grad_buffers(q, 3)
+    assert len(bufs) == 3
+    for i, buf in enumerate(bufs):
+        assert buf.shape == q.shape
+        assert buf.transpose(1, 2).is_contiguous()
+        assert tenc._tma_geometry(buf)[1] == (2560, 128, 50 * 2560)
+        assert buf.data_ptr() == bufs[0].data_ptr() + i * q.numel() * 2
+    assert bufs[0].untyped_storage().nbytes() == 3 * q.numel() * 2
+
+
+def test_bwd_geometry():
+    """The backward's persistent launches: (items, grid, rows) for T, B, H
+    and the SM count, where an item is a 128-row tile of one (batch row,
+    head), a grid min(SMs, items) blocks, and the (lse2, delta) scratch T
+    rounded up to whole tiles."""
+    for t, b, h, n_sm, want in (
+            (1, 1, 1, 132, (1, 1, 128)),
+            (64, 1, 1, 132, (1, 1, 128)),
+            (65, 2, 20, 132, (40, 40, 128)),
+            (200, 2, 20, 132, (80, 80, 256)),
+            (1437, 2, 20, 132, (480, 132, 1536)),
+            (1500, 2, 20, 132, (480, 132, 1536)),
+            (1500, 4, 20, 132, (960, 132, 1536)),
+            (1500, 4, 20, 7, (960, 7, 1536)),
+            (1500, 1, 5, 114, (60, 60, 1536))):
+        assert tenc.bwd_geometry(b, h, t, n_sm) == want, (t, b, h, n_sm)
 
 
 def test_grad_on_an_unsupported_device_raises():
@@ -195,5 +222,5 @@ def test_cotangent_layouts_tma_cannot_take_are_copied():
     assert not tenc._tma_ok(g, tenc._byte_strides(g))
     c = g.contiguous()
     assert tenc._tma_ok(c, tenc._byte_strides(c))
-    view = tenc._grad_buffer(_bf16(2, 3, 40, 64))
+    view = tenc._grad_buffers(_bf16(2, 3, 40, 64), 1)[0]
     assert tenc._tma_ok(view, tenc._byte_strides(view))
