@@ -36,7 +36,20 @@
 5. Drives the long-form paths on the main path's weights (beam search,
    word timestamps, the sequential ladder, the int8 beam run), each path's
    launches counted from 0 around it.
-6. Drives serving (``serving_path``) on the same weights: the continuous
+6. Drives the compiled decode loops (``compiled_decode_path``): ``generate``
+   replaying CUDA graphs against the plain step loop (``generate_eager``),
+   bit for bit, on distil-large-v3 (16 windows, 128 new tokens) in bf16,
+   with the five int8 flags, with segment timestamps and sampled under one
+   seed, the block length swept over ``GRAPH_BLOCK_SWEEP``; the pipeline
+   and the sequential ladder (2 files) with the plain loop patched in
+   against their graphs (texts and segments equal, kernel launches equal);
+   the continuous engine's greedy and sampling blocks, captured against
+   eager, over one admission sequence (packed vectors equal); the large-v3
+   teacher at 64 tokens (run by ``speculative_path`` on its teacher).  Each
+   case prints wall and device ms a step and the idle share before and
+   after, host syncs a call, captures, replays, capture seconds and the
+   graph pool's bytes.
+7. Drives serving (``serving_path``) on the same weights: the continuous
    engine (16 lanes, block 16) and the micro-batch scheduler (batch 16),
    server budget 96, each given 38 concurrent requests — 32 single 30 s
    windows with budgets drawn from 24-96 (8 of them sampled), 2 files of
@@ -49,7 +62,7 @@
    (healthz, POST, stream=1, /v1/stats); the engine step loop's device
    idle share and host syncs a block; the near-tie report of every
    greedy request whose text parts from the pipeline's.
-7. Drives speculative decoding (``speculative_path``) with large-v3 at full
+8. Drives speculative decoding (``speculative_path``) with large-v3 at full
    width as the teacher (32 + 32 layers, random bf16 weights from seed 0)
    and distil-large-v3's 2-layer decoder as its draft (seed 1, on the
    teacher's encoder states): the teacher's plain greedy and draft
@@ -62,7 +75,7 @@
    rung; then the continuous engine serving large-v3 (16 requests, 64-token
    budgets, 16 lanes): plain, the draft under ``synthetic_acceptance`` 0.8
    and n-gram lookup with ``synthetic_period`` 16.
-8. A small model on the card agrees with the CPU: fp32 tokens identical,
+9. A small model on the card agrees with the CPU: fp32 tokens identical,
    bf16 fused encoder close; the same model with the int8 flags (fp32 tokens
    and prefill logits against the CPU; the bf16 int8 encoder, through both
    encoder kernels, close to the fp32 CPU int8 encoder); beam, sequential
@@ -71,17 +84,20 @@
    t = 0 rung equal to the plain CPU rung; the continuous engine (greedy,
    draft and n-gram lanes) and the micro-batch scheduler on the card equal
    to the CPU pipeline.
-9. Drives distillation training (``training_path``) through the port's
-   CLIs at full width: a random large-v3 teacher (seed 0, bf16) written by
-   ``save_pretrained``, ``create_student_model`` to a distil-large-v3-shaped
-   student (32 encoder, 2 decoder layers), a JSONL manifest of 48 synthetic
+10. Drives distillation training (``training_path``) through the port's
+   CLIs at full width and cut depth: a random teacher of large-v3's widths
+   and ``TEACHER_LAYERS`` encoder and decoder layers (seed 0, bf16; the
+   training, recipe and multi-rank phases spend their time loading, saving
+   and all-reducing weights, which scales with depth) written by
+   ``save_pretrained``, ``create_student_model`` to a student of its
+   encoder and 2 decoder layers, a JSONL manifest of 48 synthetic
    clips of 5-30 s, ``run_distillation`` at half_mixed with the inference
-   teacher (batch 16, labels up to 128 tokens, 8 steps, warmup 2,
-   checkpoints every 4 steps, one profiled step, one eval of 16 rows at 32
+   teacher (batch 16, labels up to 128 tokens, 4 steps, warmup 2,
+   checkpoints every 2 steps, one profiled step, one eval of 16 rows at 32
    new tokens: step times, tokens a second, losses, peak memory, the
    device idle share), one step with the train teacher (step 1's CE and
    KL within bf16 rounding of the inference teacher's), 2 steps with the
-   int8 teacher, a resume from checkpoint-4 (step 5's loss equal to the
+   int8 teacher, a resume from checkpoint-2 (step 3's loss equal to the
    uninterrupted run's), ``run_finetuning`` of the distilled checkpoint with
    the encoder unfrozen through the encoder-attention kernel and its
    backward kernel (batch 4, remat; one backward launch a layer a step),
@@ -94,13 +110,15 @@
    projections and on (3, 5, 200, 64)/77 and (2, 3, 65, 64)/64; two calls
    equal bit for bit;
    timed beside the recompute, the plain version and SDPA's backward).
-10. Drives the rest of the recipe (``recipe_path``) through the port's
-   CLIs: the random large-v3 teacher pseudo-labels 48 clips of two
-   speakers (batch 16, 64 new tokens, two featurizer workers, WER, a
-   publish mirror; launches log-mel 1 and encoder attention 32 a batch),
-   then one batch with all five int8 flags at 32 tokens (int8 MLP 32 a
-   batch); ``run_distillation --streaming --quantize_student w8a8`` trains
-   the distil-large-v3-shaped student on that manifest (4 steps of 16,
+11. Drives the rest of the recipe (``recipe_path``) through the port's
+   CLIs: the random teacher of ``training_path`` pseudo-labels 32 clips of
+   two speakers (batch 16, 64 new tokens, two featurizer workers, WER, a
+   publish mirror; launches log-mel 1 and encoder attention one a layer a
+   batch),
+   then one batch with all five int8 flags at 32 tokens (int8 MLP one an
+   encoder layer a batch); ``run_distillation --streaming
+   --quantize_student w8a8`` trains the student of ``training_path`` on
+   that manifest (4 steps of 16,
    half_mixed, beside the same run without QAT for the step time);
    ``run_finetuning --quantize_student w8a8`` with the unfrozen encoder
    (batch 4, remat); ``convert_checkpoint_to_hf`` exports the QAT
@@ -108,27 +126,31 @@
    its int8 decoder projection by projection; the int8 pipeline serves it
    on 16 windows; a tiny fp32 model pseudo-labels on the card as on the
    CPU.
-11. Drives data-parallel multi-GPU (``multigpu_path``, after
+12. Drives data-parallel multi-GPU (``multigpu_path``, after
    ``training_path``, on its teacher, student and manifests) over
    ``max(2, cards)`` spawned ranks (NCCL, a card each; on one card two ranks
    share it over gloo), each running the CLIs with ``--distributed``:
-   ``run_distillation`` with the inference and the int8 teacher (3 steps of
-   16 rows a rank), ``convert_checkpoint_to_hf``, ``run_eval`` on 32 clips,
-   ``run_pseudo_labelling`` of 48 clips and the small fp32 model's eval and
-   pseudo-labelling; launches counted per rank around each run (log-mel,
+   ``run_distillation`` with the inference and the int8 teacher (2 steps of
+   16 rows a rank), ``convert_checkpoint_to_hf``, ``run_eval`` on 16 clips,
+   ``run_pseudo_labelling`` of 48 clips at 32 new tokens and the small fp32
+   model's eval and pseudo-labelling; launches counted per rank around each
+   run (log-mel,
    encoder attention, the int8 MLP in the int8-teacher run).  Here: the
    step-1 losses against one process on the concatenated global batch, the
    one-rank step time and pseudo-labelling rate, the small model's WER and
-   pseudo-labels equal to one rank's, ``dryrun_multigpu`` on the card.
+   pseudo-labels equal to one rank's, ``dryrun_multigpu`` on the card
+   (the three multi-rank phases' dry runs run together before
+   ``training_path``: ``run_dryruns``).
    Ranks print world size and backend, per-rank step and all-reduce times,
    and summed eval and pseudo-labelling rates in the phase line.
-12. Drives tensor parallelism (``tensor_parallel_path``, after
+13. Drives tensor parallelism (``tensor_parallel_path``, after
    ``multigpu_path``) over ``max(2, cards)`` spawned ranks on a
    ``(ranks / 2, 2)`` mesh (two ranks sharing one card over gloo; on four
    cards a (2, 2) mesh over NCCL, plus tp 4): the bf16, fp32 and int8
-   distil-large-v3 pipelines with ``mesh=`` on 4 windows against one
-   rank's (launches a rank: log-mel 1, encoder attention 32, the int8 MLP
-   32 in its partial mode; texts equal, each parting with its near-tie
+   distil-large-v3 pipelines (encoder cut to ``TP_ENCODER_LAYERS`` layers)
+   with ``mesh=`` on 4 windows against one rank's (launches a rank: log-mel
+   1, encoder attention and the int8 MLP in its partial mode one a layer;
+   texts equal, each parting with its near-tie
    report against the drift of one rank's other numerics (its cached
    step over its einsum encoder's states); the sharded encode against
    one rank's, relative L2, under ``TP_ENCODE_REL_L2``; encode and
@@ -137,10 +159,11 @@
    ``run_distillation --distributed --model_parallel 2`` (step-1 loss
    against one process), the small fp32 model's greedy and n-gram tokens
    equal one rank's, ``dryrun_multigpu(world, model_parallel=2)``.
-13. Prints the kernels line (launches from the int8 path's short-form run,
-   the backward kernel's from the fine-tuning run, and per path in
-   ``launches_by_path``), the card's name and power limit,
-   and last the result line ``{"ok": true, "device": {...}}``.
+14. Prints each phase's seconds (``{"phase": "seconds", ...}``), the
+   kernels line (launches from the int8 path's short-form run, the backward
+   kernel's from the fine-tuning run, and per path in
+   ``launches_by_path``), the card's name and power limit, and last the
+   result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises: the script then exits non-zero without a result
 line.  It also exits non-zero without a GPU, and outside the repository.
@@ -148,6 +171,7 @@ line.  It also exits non-zero without a GPU, and outside the repository.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -155,6 +179,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1339,23 +1364,38 @@ def _percentile(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
-def _device_ms(fn):
-    """(wall ms, summed device kernel ms) of ``fn`` under the profiler."""
+def _device_ms(fn, key_averages: bool = False):
+    """(wall ms, summed device ms of kernels, copies and fills) of ``fn``
+    under the profiler (device activity only).  The raw events are summed:
+    building the profiler's event tree costs seconds a 100k launches.
+    With ``key_averages`` the host is traced too and a third number comes
+    back from the same trace: the self device time of the event tree's
+    device entries, the other way to sum it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA]
+    if key_averages:
+        acts.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = 0.0
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA":
-            busy += float(getattr(e, "self_device_time_total",
-                                  getattr(e, "self_cuda_time_total", 0.0)))
-    return wall, busy / 1e3
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA)
+    if not key_averages:
+        return wall, busy / 1e6
+    tree = sum(float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+               for e in prof.key_averages() if e.device_type.name == "CUDA")
+    return wall, busy / 1e6, tree / 1e3
+
+
+def idle_share(device_ms: float, wall_ms: float) -> float:
+    """1 - device / wall, unclamped: below 0 where work on overlapping
+    streams summed to more than the wall time."""
+    return 1.0 - device_ms / wall_ms
 
 
 def serving_traffic(clips, long_clips):
@@ -1456,6 +1496,30 @@ def run_scheduler(name, tr, reqs, audio_s, n_greedy, greedy_ref):
     return report, launches, results
 
 
+def sync_sites(fn):
+    """``(fn(), the Python frames of every synchronising CUDA call in it)``
+    (``torch.cuda.set_sync_debug_mode``)."""
+    import traceback
+    import warnings
+    import torch
+    where = []
+
+    def record(message, category, filename, lineno, *a, **k):
+        if "synchronizing CUDA operation" in str(message):
+            where.append([f"{Path(f.filename).name}:{f.lineno}"
+                          for f in traceback.extract_stack()[-6:-1]])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, where
+
+
 def engine_idle_share(tr, mels, tok, blocks: int = 4):
     """The step loop alone, greedy and sampling blocks: 16 lanes admitted at
     once (96-token budgets; sampled lanes at temperature 0.8, top_k 8),
@@ -1464,31 +1528,11 @@ def engine_idle_share(tr, mels, tok, blocks: int = 4):
     unprofiled wall (as scripts/torch_profile_main_path.py).  Also the
     Python frames of every synchronising CUDA call in one block and in its
     ``unpack`` (``torch.cuda.set_sync_debug_mode``)."""
-    import traceback
-    import warnings
     import torch
     eng = tr.engine
     prompt = tok.prompt_ids(language="en")
     n = eng.lanes
-
-    def syncs(fn):
-        where = []
-
-        def record(message, category, filename, lineno, *a, **k):
-            if "synchronizing CUDA operation" in str(message):
-                where.append([f"{Path(f.filename).name}:{f.lineno}"
-                              for f in traceback.extract_stack()[-6:-1]])
-
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = record
-            torch.cuda.set_sync_debug_mode(1)
-            try:
-                out = fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        return out, where
-
+    syncs = sync_sites
     report = {}
     for sampling in (False, True):
         def admit():
@@ -1518,7 +1562,7 @@ def engine_idle_share(tr, mels, tok, blocks: int = 4):
             "wall_ms_per_block": wall_ms / blocks,
             "profiled_wall_ms_per_block": prof_wall / blocks,
             "device_ms_per_block": busy / blocks,
-            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "idle_share": idle_share(busy, wall_ms),
             "host_syncs_in_step": in_step, "host_syncs_in_unpack": in_unpack}
     return {"blocks": blocks, "block_steps": eng.block_steps, **report}
 
@@ -1568,6 +1612,426 @@ def http_drive(tr, clip):
             "stream_lines": len(lines),
             "stream_final_latency_ms": lines[-1]["latency_ms"],
             "stats_scheduler": stats["scheduler"]}
+
+
+# -- the compiled decode loops (CUDA graphs) against the plain step loop ----
+
+GRAPH_BLOCK_SWEEP = (4, 8, 16, 32)   # block lengths timed on distil bf16
+LADDER_TOKENS = 32                   # the sequential ladder's budget here
+LADDER_FILES_S = (40.0, 50.0)        # its two files, seconds
+OWNERLESS_KEPT_BYTES = 128 * 2 ** 20  # what an owner-less generate may leave
+#                                      allocated (a library workspace for a
+#                                      new stream), against 245 MB of one
+#                                      program's cross K/V
+
+
+def plain_generate():
+    """A context in which every caller of ``generate`` takes the plain step
+    loop (``generate_eager``): the reference the graphs are held against."""
+    import contextlib
+    import importlib
+    from distil_whisper_tpu_torch import pipeline, serving, serving_engine
+    G = importlib.import_module("distil_whisper_tpu_torch.generation.generate")
+
+    def plain(dec, cfg, cross, prompt, opts, temperature=0.0, generator=None,
+              pad_len=None, sot_slot=None, dtype=None, graphs=None):
+        return G.generate_eager(dec, cfg, cross, prompt, opts, temperature,
+                                generator, pad_len, sot_slot, dtype)
+
+    @contextlib.contextmanager
+    def patched():
+        mods = (G, pipeline, serving, serving_engine)
+        saved = [m.generate for m in mods]
+        for m in mods:
+            m.generate = plain
+        try:
+            yield
+        finally:
+            for m, f in zip(mods, saved):
+                m.generate = f
+    return patched()
+
+
+def outputs_equal(a, b) -> bool:
+    import torch
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def decode_timing(run, repeats: int = 3, cold: bool = False,
+                  same=outputs_equal):
+    """``run()``'s result and its numbers: launches and synchronising calls
+    counted around one call (after a first, cold call with ``cold``: a
+    capture, whose result must be ``same`` as the warm one's), wall ms
+    (host clock to a synchronise, median of ``repeats``), device ms (the
+    profiler's sum over one more call) and the idle share (1 - device /
+    wall)."""
+    import torch
+    first = run() if cold else None
+    reset_counts()
+    out, sites = sync_sites(run)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if cold and not same(first, out):
+        raise AssertionError("the capturing call and a replay differ")
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    _, busy = _device_ms(run)
+    return out, {"wall_ms": wall, "device_ms": busy,
+                 "idle_share": idle_share(busy, wall),
+                 "host_syncs": len(sites), "launches": launches}
+
+
+def graph_stats_since(before, owner=None):
+    from distil_whisper_tpu_torch.generation import graphs
+    now = graphs.read_stats()
+    out = {k: now[k] - before[k] for k in now}
+    if owner is not None:
+        out["pool_bytes"] = graphs.pool_bytes(owner)
+    return out
+
+
+def compare_decode(name, plain_run, graph_run, owner, repeats=3,
+                   prompt_len=None, same=outputs_equal):
+    """One case: the plain loop, then the graphs (the first call captures),
+    results ``same`` (bit for bit), launches equal; returns the report,
+    with ``prompt_len`` a step's wall and device ms over the plain loop's
+    steps (the longest row's generated tokens)."""
+    from distil_whisper_tpu_torch.generation import graphs
+    plain_out, before = decode_timing(plain_run, repeats, same=same)
+    stats0 = graphs.read_stats()
+    graph_out, after = decode_timing(graph_run, repeats, cold=True,
+                                     same=same)
+    stats = graph_stats_since(stats0, owner)
+    if not same(plain_out, graph_out):
+        raise AssertionError(f"{name}: graph replay differs from the plain "
+                             f"loop")
+    if before["launches"] != after["launches"]:
+        raise AssertionError(f"{name}: launches {after['launches']} against "
+                             f"the plain loop's {before['launches']}")
+    report = {"plain": before, "graph": after,
+              "captures": stats["captures"],
+              "replays_a_call": stats["replays"] / (3 + repeats),
+              "capture_s": stats["capture_s"],
+              "pool_bytes": stats.get("pool_bytes"), "equal": True}
+    if prompt_len is not None:
+        steps = int(plain_out.seq_len.max()) - prompt_len
+        report["steps"] = steps
+        for rep in (before, after):
+            rep["wall_ms_per_step"] = rep["wall_ms"] / max(steps, 1)
+            rep["device_ms_per_step"] = rep["device_ms"] / max(steps, 1)
+    return report, graph_out
+
+
+def engine_blocks(eng, mels, prompt, sampling: bool, blocks: int):
+    """One admission sequence on ``eng``: 16 lanes admitted (budgets 24-96,
+    timestamps on every third lane, on ``sampling`` every other lane at
+    temperature 0.8, top-k 8), ``blocks`` blocks, the lanes that finished
+    re-admitted after the second and fourth; returns every packed vector
+    read on the host."""
+    import numpy as np
+    n = eng.lanes
+
+    def admit(lanes):
+        k = len(lanes)
+        eng.admit(mels[[j % len(mels) for j in lanes]], [prompt] * k,
+                  [24 + 24 * (j % 4) for j in lanes],
+                  [j % 3 == 0 for j in lanes], lanes,
+                  temps=[0.8 * (sampling and j % 2 == 0) for j in lanes],
+                  top_ks=[8 * sampling] * k, seeds=[100 + j for j in lanes])
+
+    admit(list(range(n)))
+    out = []
+    for b in range(blocks):
+        packed = eng.step(sampling)
+        out.append(packed.cpu())
+        finished = eng.unpack(packed)[0]
+        if b in (1, 3):
+            free = [int(j) for j in np.flatnonzero(finished)]
+            if free:
+                admit(free)
+    return out
+
+
+def engine_block_timing(eng, mels, prompt, sampling: bool, blocks: int = 4):
+    """Wall, device ms and idle share of ``blocks`` blocks (step + unpack)
+    after 16 lanes were admitted at budget 96; the synchronising calls of
+    one step and of its unpack."""
+    import torch
+    n = eng.lanes
+
+    def admit():
+        eng.admit(mels[:n], [prompt] * n, [eng.max_new] * n, [False] * n,
+                  list(range(n)), temps=[0.8 * sampling] * n,
+                  top_ks=[8 * sampling] * n, seeds=list(range(n)))
+
+    def run():
+        for _ in range(blocks):
+            eng.unpack(eng.step(sampling))
+
+    admit()
+    run()
+    admit()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    admit()
+    _, busy = _device_ms(run)
+    admit()
+    torch.cuda.synchronize()
+    packed, in_step = sync_sites(lambda: eng.step(sampling))
+    _, in_unpack = sync_sites(lambda: eng.unpack(packed))
+    return {"wall_ms_per_block": wall / blocks,
+            "device_ms_per_block": busy / blocks,
+            "idle_share": idle_share(busy, wall),
+            "host_syncs_in_step": len(in_step),
+            "host_syncs_in_unpack": len(in_unpack)}
+
+
+def phase_compiled_decode_path(tok, bf16):
+    """``generate``, the sequential ladder and the continuous engine's
+    blocks as CUDA graphs against the plain step loop, bit for bit, at full
+    width (random bf16 weights, seed 0): distil-large-v3 at 16 windows and
+    128 new tokens in bf16 and with the five int8 flags, with segment
+    timestamps, sampled under one seed; the sequential ladder on 2 files;
+    the engine's greedy and sampling blocks over one admission sequence
+    (the large-v3 teacher's case runs in ``phase_speculative_path``, on its
+    teacher).  Each case reports
+    wall and device ms a step and the idle share before (plain) and after
+    (graphs), host syncs a call, captures, replays, capture seconds and the
+    graph pool's bytes; log-mel, encoder-attention and int8-MLP launches
+    around each run equal the plain loop's."""
+    import importlib
+    import operator
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.generation import (
+        GenerationOptions, SequentialOptions, SequentialTranscriber,
+        generate, generate_eager, graphs)
+    from distil_whisper_tpu_torch.generation.generate import BLOCK_STEPS
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+    from distil_whisper_tpu_torch.serving_engine import \
+        ContinuousBatchingEngine
+
+    t_phase = time.perf_counter()
+    dtype = torch.bfloat16
+    cfg = PRESETS["distil-large-v3"]
+    pipe = WhisperPipeline(None, dtype=dtype, batch_size=16,
+                           max_new_tokens=128, params=bf16["params"],
+                           cfg=cfg, tokenizer=tok, device="cuda")
+    pcfg, params, mels = pipe.cfg, pipe.params, bf16["mels"]
+    prompt = torch.tensor([tok.prompt_ids(language="en")] * 16, device="cuda")
+    ts_prompt = torch.tensor([tok.prompt_ids(language="en",
+                                             no_timestamps=False)] * 16,
+                             device="cuda")
+    report, launches = {}, {}
+
+    def case(name, p_params, p_cfg, enc, prompt_ids, opts, temperature=0.0,
+             seed=None, repeats=3):
+        owner = graphs.GraphOwner(f"smoke:{name}")
+
+        def gen():
+            return (None if seed is None else
+                    torch.Generator(device="cuda").manual_seed(seed))
+
+        def plain():
+            return generate_eager(p_params["decoder"], p_cfg, enc, prompt_ids,
+                                  opts, temperature, gen(), dtype=dtype)
+
+        def graphed():
+            return generate(p_params["decoder"], p_cfg, enc, prompt_ids, opts,
+                            temperature=temperature, generator=gen(),
+                            dtype=dtype, graphs=owner)
+
+        report[name], _ = compare_decode(name, plain, graphed, owner,
+                                         repeats, prompt_ids.shape[1])
+        del owner
+        emit({"phase": f"compiled_decode_path.{name}", **report[name]})
+
+    # 1. distil-large-v3 bf16, greedy, 16 windows x 128 tokens
+    enc = W.encode(params["encoder"], pcfg, mels, dtype=dtype)
+    greedy = GenerationOptions.from_config(pcfg, max_new_tokens=128,
+                                           no_speech_token_id=tok.no_speech)
+    case("distil_bf16", params, pcfg, enc, prompt, greedy)
+    # one trace summed both ways, on the plain loop and on the graphs: the
+    # raw device events (this script's device ms) and the event tree's self
+    # device time (32 tokens: the tree costs seconds a 10^4 launches)
+    two_sums = {}
+    both_owner = graphs.GraphOwner("smoke:two_sums")
+    short = GenerationOptions.from_config(pcfg, max_new_tokens=32,
+                                          no_speech_token_id=tok.no_speech)
+    for label, run in (
+            ("plain", lambda: generate_eager(params["decoder"], pcfg, enc,
+                                             prompt, short, dtype=dtype)),
+            ("graph", lambda: generate(params["decoder"], pcfg, enc, prompt,
+                                       short, dtype=dtype,
+                                       graphs=both_owner))):
+        run()
+        wall, raw, tree = _device_ms(run, key_averages=True)
+        two_sums[label] = {"wall_ms": wall, "device_ms_raw_events": raw,
+                           "device_ms_key_averages": tree}
+    del both_owner
+    report["device_ms_two_sums"] = two_sums
+    emit({"phase": "compiled_decode_path.device_ms_two_sums", **two_sums})
+    # a call given no owner captures into one of its own and frees it on
+    # return: what it leaves allocated stays far below one program's state
+    # (its cross K/V alone are 2 layers x 2 x 16 x 1500 x 1280 x 2 B)
+    kept = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        out = generate(params["decoder"], pcfg, enc, prompt, greedy,
+                       dtype=dtype)
+        del out
+        torch.cuda.synchronize()
+        kept.append(torch.cuda.memory_allocated() - before)
+    emit({"phase": "compiled_decode_path.ownerless", "kept_bytes": kept})
+    if max(kept) >= OWNERLESS_KEPT_BYTES:
+        raise AssertionError(f"a call without an owner kept {kept} bytes")
+    report["ownerless_kept_bytes"] = kept
+    # the block length: the graph path alone at each K
+    sweep = {}
+    G = importlib.import_module(
+        "distil_whisper_tpu_torch.generation.generate")
+    for k in GRAPH_BLOCK_SWEEP:
+        owner = graphs.GraphOwner(f"smoke:k{k}")
+        G.BLOCK_STEPS = k
+        try:
+            def run(owner=owner):
+                return generate(params["decoder"], pcfg, enc, prompt, greedy,
+                                dtype=dtype, graphs=owner)
+            ref = run()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            G.BLOCK_STEPS = BLOCK_STEPS
+        if not outputs_equal(ref, out):
+            raise AssertionError(f"block length {k}: two calls differ")
+        sweep[k] = {"wall_ms": statistics.median(walls),
+                    "wall_ms_all": walls}
+        del owner
+    report["block_sweep"] = sweep
+    emit({"phase": "compiled_decode_path.block_sweep", "sweep": sweep})
+    # 2. segment timestamps
+    ts_opts = GenerationOptions.from_config(
+        pcfg, max_new_tokens=128, return_timestamps=True,
+        no_speech_token_id=tok.no_speech)
+    case("timestamps", params, pcfg, enc, ts_prompt, ts_opts, repeats=1)
+    # 3. sampling under one seed (top-k 50, temperature 0.7)
+    s_opts = GenerationOptions.from_config(
+        pcfg, max_new_tokens=128, do_sample=True, top_k=50,
+        no_speech_token_id=tok.no_speech)
+    case("sampling", params, pcfg, enc, prompt, s_opts, temperature=0.7,
+         seed=0, repeats=1)
+    # 4. the int8 lane: the same weights with the five flags
+    qpipe = WhisperPipeline(None, dtype=dtype, batch_size=16,
+                            max_new_tokens=128, params=bf16["params"],
+                            cfg=cfg.replace(**INT8_FLAGS), tokenizer=tok,
+                            device="cuda")
+    qenc = W.encode(qpipe.params["encoder"], qpipe.cfg, mels, dtype=dtype)
+    q_opts = GenerationOptions.from_config(qpipe.cfg, max_new_tokens=128,
+                                           no_speech_token_id=tok.no_speech)
+    case("distil_int8", qpipe.params, qpipe.cfg, qenc, prompt, q_opts,
+         repeats=1)
+    del qenc, qpipe
+
+    # 5. through the pipeline: launches of the kernels equal the plain
+    # loop's (the encoder launches eagerly; the graphs hold no kernel here)
+    clips = bf16["clips"]
+    reset_counts()
+    with plain_generate():
+        plain_texts = pipe(clips, language="en")
+    launches["pipeline_plain"] = read_counts()
+    reset_counts()
+    graph_texts = pipe(clips, language="en")
+    launches["pipeline_graph"] = read_counts()
+    if plain_texts != graph_texts or (launches["pipeline_plain"]
+                                      != launches["pipeline_graph"]):
+        raise AssertionError(f"pipeline: texts or launches differ "
+                             f"{launches}")
+
+    # 6. the sequential ladder on 2 files (the plain loop patched in)
+    files = [a[:int(sec * 16000)] for a, sec in
+             zip(synthetic_audio(2, 75.0, seed=7), LADDER_FILES_S)]
+    feats = [compute_mel(a, pcfg, pad_to_chunk=False, device="cuda")[0]
+             for a in files]
+    seq_opts = SequentialOptions(max_new_tokens=LADDER_TOKENS)
+
+    def ladder(tr):
+        return tr.transcribe(feats, generator=torch.Generator().manual_seed(0))
+
+    tr = SequentialTranscriber(params, pcfg, tok, seq_opts, language="en",
+                               batch_size=16, dtype=dtype, device="cuda")
+
+    def plain_ladder():
+        with plain_generate():
+            return ladder(tr)
+
+    rep, seq_graph = compare_decode("sequential", plain_ladder,
+                                    lambda: ladder(tr), tr.graphs, repeats=1,
+                                    same=operator.eq)
+    report["sequential"] = {"files": len(files),
+                            "max_new_tokens": LADDER_TOKENS, **rep,
+                            "segments": sum(len(r["segments"])
+                                            for r in seq_graph)}
+    emit({"phase": "compiled_decode_path.sequential",
+          **report["sequential"]})
+    del tr
+
+    # 7. the continuous engine: greedy and sampling blocks, graphs against
+    # the eager blocks over one admission sequence
+    e_prompt = tok.prompt_ids(language="en")
+    engines = {}
+    for graphed in (False, True):
+        eng = ContinuousBatchingEngine(pipe, lanes=16, block_steps=16,
+                                       max_new_tokens=96)
+        eng.graphed = graphed
+        stats0 = graphs.read_stats()
+        t0 = time.perf_counter()
+        eng.init_state()
+        engines[graphed] = (eng, time.perf_counter() - t0,
+                            graph_stats_since(stats0, eng.graphs))
+    eng_report = {}
+    for sampling in (False, True):
+        name = "sampling" if sampling else "greedy"
+        seqs = [engine_blocks(engines[g][0], mels, e_prompt, sampling, 6)
+                for g in (False, True)]
+        if not all(torch.equal(a, b) for a, b in zip(*seqs)):
+            raise AssertionError(f"engine {name} blocks: graphs differ from "
+                                 f"the eager blocks")
+        eng_report[name] = {
+            g_name: engine_block_timing(engines[g][0], mels, e_prompt,
+                                        sampling)
+            for g, g_name in ((False, "plain"), (True, "graph"))}
+    eng_report["init_state_s"] = {"plain": engines[False][1],
+                                  "graph": engines[True][1]}
+    eng_report["captures"] = engines[True][2]["captures"]
+    eng_report["capture_s"] = engines[True][2]["capture_s"]
+    eng_report["pool_bytes"] = graphs.pool_bytes(engines[True][0].graphs)
+    eng_report["equal"] = True
+    report["engine"] = eng_report
+    emit({"phase": "compiled_decode_path.engine", **eng_report})
+    del engines
+
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "compiled_decode_path", "seconds": seconds,
+          "block_steps": BLOCK_STEPS, "launches": launches,
+          "cases": sorted(report)})
+    return {"compiled_decode_pipeline": launches["pipeline_graph"]}
 
 
 def phase_serving_path(tok, bf16):
@@ -1771,7 +2235,8 @@ def phase_speculative_path(tok, bf16):
     from distil_whisper_tpu_torch.audio import compute_mel
     from distil_whisper_tpu_torch.config import PRESETS
     from distil_whisper_tpu_torch.generation import (
-        GenerationOptions, SequentialOptions, SequentialTranscriber, generate)
+        GenerationOptions, SequentialOptions, SequentialTranscriber, generate,
+        generate_eager, graphs)
     from distil_whisper_tpu_torch.generation import speculative as S
     from distil_whisper_tpu_torch.models import init_params
     from distil_whisper_tpu_torch.models import whisper as W
@@ -1803,7 +2268,9 @@ def phase_speculative_path(tok, bf16):
         return out, time.perf_counter() - t0
 
     # -- 1. the entry point: plain greedy and draft speculation ------------
-    plain(clips, language="en")                                 # warm-up
+    stats0 = graphs.read_stats()
+    plain(clips, language="en")                # warm-up: captures the decode
+    warm_graphs = graph_stats_since(stats0, plain.graphs)
     greedy_text, greedy_s = timed(lambda: plain(clips, language="en"))
     reset_counts()
     stats0 = dict(spec.spec_stats)
@@ -1834,12 +2301,28 @@ def phase_speculative_path(tok, bf16):
     opts = GenerationOptions.from_config(pcfg, max_new_tokens=max_new,
                                          no_speech_token_id=tok.no_speech)
     p = prompt.shape[1]
-    greedy, gen_s = timed(lambda: generate(teacher["decoder"], pcfg, t_cross,
-                                           prompt, opts, dtype=dtype))
+    # the plain pipeline's program (captured by its warm-up), on the
+    # encoder states: the graph projects the cross K/V itself
+    greedy, gen_s = timed(lambda: generate(teacher["decoder"], pcfg, enc,
+                                           prompt, opts, dtype=dtype,
+                                           graphs=plain.graphs))
     steps = int(greedy.seq_len.max()) - p
     report = {"greedy": {"ms_per_step": gen_s * 1e3 / max(steps, 1),
                          "decode_s": gen_s, "steps": steps,
                          "audio_s_per_s": audio_s / (encode_s + gen_s)}}
+    # the teacher's decode as graphs against the plain step loop (the
+    # compiled decode loops' large-v3 case; the pipeline's warm-up captured
+    # its programs)
+    rep, _ = compare_decode(
+        "teacher_large_v3",
+        lambda: generate_eager(teacher["decoder"], pcfg, enc, prompt, opts,
+                               dtype=dtype),
+        lambda: generate(teacher["decoder"], pcfg, enc, prompt, opts,
+                         dtype=dtype, graphs=plain.graphs),
+        plain.graphs, repeats=1, prompt_len=p)
+    report["teacher_graphs"] = {**rep, "captured_at_warm_up": warm_graphs}
+    emit({"phase": "compiled_decode_path.teacher_large_v3",
+          **report["teacher_graphs"]})
 
     def loop_report(name, out, seconds, synthetic):
         rounds, drafted, accepted = (out.rounds.sum().item(),
@@ -2233,7 +2716,9 @@ def _train_rows(metrics):
 
 TRAIN_CLIPS = 48      # synthetic clips of 5-30 s in the training manifest
 TRAIN_BATCH = 16      # distillation batch, and the eval's
-TRAIN_STEPS = 8       # distillation steps (checkpoints at 4 and 8)
+TRAIN_STEPS = 4       # distillation steps
+TRAIN_SAVE = 2        # checkpoint every this many steps (resumed from the
+#                       first checkpoint)
 TRAIN_EVAL_ROWS = 16  # rows of the one eval
 FT_BATCH = 4          # fine-tuning batch (unfrozen encoder)
 # the inference teacher's encoder states (the kernel) may be no further
@@ -2300,6 +2785,20 @@ def state_differences(a, b, path=""):
     return [] if a == b else [path]
 
 
+TEACHER_LAYERS = 4    # encoder and decoder layers of the training teacher
+
+
+def training_teacher():
+    """The teacher of ``training_path``, ``multigpu_path``,
+    ``tensor_parallel_path``, ``param_sharding_path`` and ``recipe_path``:
+    large-v3's widths (d_model 1280, 20 heads, 128 mel bins, its vocabulary)
+    at ``TEACHER_LAYERS`` encoder and decoder layers.  Every check of those
+    phases counts its launches from the config's depth."""
+    from distil_whisper_tpu_torch.config import PRESETS
+    return PRESETS["large-v3"].replace(encoder_layers=TEACHER_LAYERS,
+                                       decoder_layers=TEACHER_LAYERS)
+
+
 def shared_inputs(teacher_cfg) -> Path:
     """A new directory holding what ``training_path`` leaves there for
     ``multigpu_path`` and ``recipe_path``: the random bf16 teacher (seed
@@ -2323,15 +2822,16 @@ def shared_inputs(teacher_cfg) -> Path:
 
 def phase_training_path(teacher_cfg, root):
     """Distillation through the port's CLIs, at the width of
-    ``teacher_cfg`` (large-v3): a random bf16 teacher (seed 0) written by
-    ``save_pretrained``, its encoder held with and without the
+    ``teacher_cfg`` (``training_teacher``): a random bf16 teacher (seed 0)
+    written by ``save_pretrained``, its encoder held with and without the
     encoder-attention kernel; ``create_student_model`` to a 2-layer
     decoder; ``run_distillation`` at half_mixed with the inference teacher
-    (``TRAIN_STEPS`` steps of ``TRAIN_BATCH``, warmup 2, checkpoints every 4
-    steps, one profiled step, one eval), again for one step with the train
-    teacher (step 1's CE and KL against the inference teacher's), for 2
-    steps with the int8 teacher, and resumed from checkpoint-4 to the end
-    (steps 5-8 and checkpoint-8's params, moments and counters equal to the
+    (``TRAIN_STEPS`` steps of ``TRAIN_BATCH``, warmup 2, checkpoints every
+    ``TRAIN_SAVE`` steps, one profiled step, one eval), again for one step
+    with the train teacher (step 1's CE and KL against the inference
+    teacher's), for 2 steps with the int8 teacher, and resumed from the
+    first checkpoint to the end (the later steps and the last checkpoint's
+    params, moments and counters equal to the
     uninterrupted run's, bit for bit); ``run_finetuning`` with the unfrozen
     encoder through the encoder-attention kernel and its backward (remat
     on); ``run_eval`` on the distilled checkpoint.  Kernel launches counted
@@ -2353,6 +2853,8 @@ def phase_training_path(teacher_cfg, root):
 
     logging.basicConfig(level=logging.WARNING)   # the CLIs' INFO stays off
     report = {"teacher": teacher_cfg.d_model,
+              "teacher_layers": [teacher_cfg.encoder_layers,
+                                 teacher_cfg.decoder_layers],
               # what earlier phases still hold: inside every peak below
               "allocated_before_gib": torch.cuda.memory_allocated() / 2 ** 30}
     try:
@@ -2397,7 +2899,8 @@ def phase_training_path(teacher_cfg, root):
                     "--per_device_eval_batch_size", str(TRAIN_BATCH),
                     "--max_label_length", "128", "--max_steps", str(max_steps),
                     "--warmup_steps", "2", "--learning_rate", "1e-4",
-                    "--save_steps", "4", "--save_total_limit", "2",
+                    "--save_steps", str(TRAIN_SAVE),
+                    "--save_total_limit", "2",
                     "--eval_steps", "1000", "--logging_steps", "1",
                     "--language", "en", "--seed", "42",
                     "--wer_threshold", "10", *extra]
@@ -2411,7 +2914,7 @@ def phase_training_path(teacher_cfg, root):
         times = [m["train/step_time_s"] for m in train]
         tokens = [m["train/label_tokens"] for m in train]
         prof = next(m for m in inf if "profile/device_ms_per_step" in m)
-        step_s = statistics.median(times[2:])
+        step_s = statistics.median(times[2:])   # after warm-up
         report["distill_inference"].update({
             "steps": len(train), "batch": TRAIN_BATCH,
             "loss": [m["train/loss"] for m in train],
@@ -2419,7 +2922,7 @@ def phase_training_path(teacher_cfg, root):
             "kl": [m["train/kl_loss"] for m in train],
             "grad_norm": [m["train/grad_norm"] for m in train],
             "step_time_s": times,
-            "step_time_s_median_3_to_8": step_s,
+            "step_time_s_median_from_3": step_s,
             "label_tokens_per_step": tokens,
             "label_tokens_per_s": statistics.mean(tokens) / step_s,
             "peak_mem_gib_steps": max(m.get("train/peak_mem_gib", 0)
@@ -2457,24 +2960,26 @@ def phase_training_path(teacher_cfg, root):
         # to the end; hard links, so its rotation cannot touch the original
         resume = root / "resume"
         resume.mkdir()
-        shutil.copytree(root / "inference" / "checkpoint-4",
-                        resume / "checkpoint-4", copy_function=os.link)
+        shutil.copytree(root / "inference" / f"checkpoint-{TRAIN_SAVE}",
+                        resume / f"checkpoint-{TRAIN_SAVE}",
+                        copy_function=os.link)
         timed("distill_resume", run_distillation.main,
               *distill("resume", "inference", TRAIN_STEPS,
                        "--resume_from_checkpoint"))
         resumed = _train_rows(_metrics(resume))
-        states = [torch.load(d / "checkpoint-8" / "state.pt",
+        states = [torch.load(d / f"checkpoint-{TRAIN_STEPS}" / "state.pt",
                              map_location="cpu", weights_only=True)
                   for d in (root / "inference", resume)]
         report["resume"] = {
             "steps": [m["step"] for m in resumed],
             "loss": [m["train/loss"] for m in resumed],
-            "uninterrupted_loss": [m["train/loss"] for m in train[4:]],
+            "uninterrupted_loss": [m["train/loss"]
+                                   for m in train[TRAIN_SAVE:]],
             "grad_norm": [m["train/grad_norm"] for m in resumed],
             "uninterrupted_grad_norm": [m["train/grad_norm"]
-                                        for m in train[4:]],
-            "checkpoint8_moment_tensors": len(states[0]["mu"]),
-            "checkpoint8_differences": state_differences(*states)}
+                                        for m in train[TRAIN_SAVE:]],
+            "last_checkpoint_moment_tensors": len(states[0]["mu"]),
+            "last_checkpoint_differences": state_differences(*states)}
         del states
         shutil.rmtree(resume)
 
@@ -2535,7 +3040,7 @@ def phase_training_path(teacher_cfg, root):
     if not all(map(math.isfinite, inf["loss"] + inf["grad_norm"])):
         bad.append("non-finite distillation loss")
     if inf["steps"] != TRAIN_STEPS or inf["checkpoints"] != [
-            "checkpoint-4", "checkpoint-8",
+            f"checkpoint-{TRAIN_SAVE}", f"checkpoint-{TRAIN_STEPS}",
             next(n for n in inf["checkpoints"] if "val-wer" in n)]:
         bad.append(f"steps/checkpoints {inf['steps']} {inf['checkpoints']}")
     enc = report["teacher_encoder_agreement"]
@@ -2548,10 +3053,10 @@ def phase_training_path(teacher_cfg, root):
         bad.append(f"inference teacher disagrees with the train teacher: "
                    f"{agree}")
     res = report["resume"]
-    if (res["steps"] != list(range(5, TRAIN_STEPS + 1))
+    if (res["steps"] != list(range(TRAIN_SAVE + 1, TRAIN_STEPS + 1))
             or res["loss"] != res["uninterrupted_loss"]
             or res["grad_norm"] != res["uninterrupted_grad_norm"]
-            or res["checkpoint8_differences"]):
+            or res["last_checkpoint_differences"]):
         bad.append(f"resume: {res}")
     if not all(map(math.isfinite, report["finetune"]["loss"])):
         bad.append("non-finite fine-tuning loss")
@@ -2568,7 +3073,8 @@ def phase_training_path(teacher_cfg, root):
                                           encoder_attention=0, int8_mlp=0),
             "distill_resume": dict(
                 log_mel=TRAIN_CLIPS,
-                encoder_attention=n_layers * (TRAIN_STEPS - 4), int8_mlp=0),
+                encoder_attention=n_layers * (TRAIN_STEPS - TRAIN_SAVE),
+                int8_mlp=0),
             "eval": dict(log_mel=1, encoder_attention=n_layers)}
     for run, counts in want.items():
         got = report[run]["launches"]
@@ -2586,7 +3092,8 @@ def phase_training_path(teacher_cfg, root):
             ("distill_inference", "distill_int8_teacher", "finetune", "eval")}
 
 
-RECIPE_CLIPS = 48         # synthetic clips of 5-30 s, two speakers
+RECIPE_CLIPS = 32         # synthetic clips of 5-30 s, two speakers: two
+#                           batches of 16, so a steady rate past the first
 RECIPE_BATCH = 16         # pseudo-labelling and QAT distillation batch
 RECIPE_NEW_TOKENS = 64    # the pseudo-labelling budget (32 on the int8 run;
 #                           128 until the multi-GPU phase joined the smoke)
@@ -2731,13 +3238,13 @@ def qat_vs_int8_logits(student_dir: Path, root: Path):
 
 def phase_recipe_path(teacher_cfg, shared):
     """The rest of the recipe through the port's CLIs, at the width of
-    ``teacher_cfg`` (large-v3): a random bf16 teacher (seed 0) pseudo-labels
-    ``RECIPE_CLIPS`` clips of two speakers (``RECIPE_BATCH`` a batch,
+    ``teacher_cfg`` (``training_teacher``): a random bf16 teacher (seed 0)
+    pseudo-labels ``RECIPE_CLIPS`` clips of two speakers (``RECIPE_BATCH`` a batch,
     ``RECIPE_NEW_TOKENS`` new tokens, two featurizer workers, WER and a
     publish mirror), then one batch with all five int8 flags at 32 tokens;
-    the distil-large-v3-shaped student of ``training_path`` distils from the pseudo-labelled manifest (its audio, texts and
-    ``condition_on_prev`` prompts) with ``--streaming --quantize_student
-    w8a8`` (``QAT_STEPS`` steps, half_mixed, the inference teacher) and
+    the student of ``training_path`` distils from the pseudo-labelled
+    manifest (its audio, texts and ``condition_on_prev`` prompts) with
+    ``--streaming --quantize_student w8a8`` (``QAT_STEPS`` steps, half_mixed, the inference teacher) and
     again without QAT for the step-time comparison;
     ``run_finetuning --quantize_student w8a8`` trains the QAT student with
     its encoder unfrozen through the encoder-attention kernel and its
@@ -3007,9 +3514,9 @@ def phase_recipe_path(teacher_cfg, shared):
 
 MG_BATCH = 16         # distillation rows a rank a step (the global batch:
 #                       this times the ranks)
-MG_STEPS = 3          # data-parallel distillation steps, each teacher
-MG_EVAL_CLIPS = 32    # clips of the distributed eval
-MG_PL_TOKENS = 64     # pseudo-labelling budget of the full-width runs
+MG_STEPS = 2          # data-parallel distillation steps, each teacher
+MG_EVAL_CLIPS = 16    # clips of the distributed eval
+MG_PL_TOKENS = 32     # pseudo-labelling budget of the full-width runs
 MG_PL_BATCH = 4       # its batch: several batches a rank, so that the
 #                       steady rate (first batch excluded) exists at 4 ranks
 MG_SPEAKER_BLOCK = 12  # consecutive clips a speaker in the PL manifest, so
@@ -3031,6 +3538,52 @@ def small_checkpoint(root: Path) -> Path:
     save_pretrained(init_params(cfg, seed=3, device="cpu"), cfg, str(ckpt))
     synthetic_tokenizer(ckpt)
     return ckpt
+
+
+# the dry runs (``parallel/dryrun.py``) of multigpu_path,
+# tensor_parallel_path and param_sharding_path, by phase, once
+# ``run_dryruns`` has run them
+_DRYRUNS: dict = {}
+
+
+def dryrun_args(world: int) -> dict:
+    """``dryrun_multigpu``'s arguments for each phase's dry run."""
+    return {"multigpu": dict(n_ranks=world),
+            "tensor_parallel": dict(n_ranks=world, model_parallel=TP_DEGREE),
+            "param_sharding": dict(n_ranks=4, model_parallel=2,
+                                   param_sharding="2d")}
+
+
+def _timed_dryrun(kw: dict) -> dict:
+    from distil_whisper_tpu_torch.parallel.dryrun import dryrun_multigpu
+    t0 = time.perf_counter()
+    report = dryrun_multigpu(**kw)
+    report["s"] = time.perf_counter() - t0
+    return report
+
+
+def run_dryruns() -> dict:
+    """The three phases' dry runs at once, a thread each: their ranks are
+    small spawned processes (eight on one card), mostly start-up, so
+    together they take about as long as the longest.  Each raises as
+    ``dryrun_multigpu`` does; a phase takes its report from
+    :func:`dryrun`.  Returns each run's seconds."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    world = max(2, torch.cuda.device_count())
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = {name: pool.submit(_timed_dryrun, kw)
+                   for name, kw in dryrun_args(world).items()}
+        _DRYRUNS.update({name: f.result() for name, f in futures.items()})
+    return {name: round(r["s"], 1) for name, r in _DRYRUNS.items()}
+
+
+def dryrun(name: str, world: int) -> dict:
+    """Phase ``name``'s dry run: the report of :func:`run_dryruns`, or
+    run here when the phase runs alone."""
+    if name in _DRYRUNS:
+        return _DRYRUNS.pop(name)
+    return _timed_dryrun(dryrun_args(world)[name])
 
 
 def multigpu_rank(rank: int, world: int, port: int, spec: dict) -> None:
@@ -3232,8 +3785,8 @@ def one_process_reference(teacher_dir: Path, student_dir: Path, batches):
 
 def phase_multigpu_path(teacher_cfg, root):
     """Data-parallel multi-GPU through the port's CLIs with
-    ``--distributed``, at the width of ``teacher_cfg`` (large-v3), over
-    ``max(2, cards)`` ranks: NCCL when every rank has a card, else two ranks
+    ``--distributed``, at the width of ``teacher_cfg``
+    (``training_teacher``), over ``max(2, cards)`` ranks: NCCL when every rank has a card, else two ranks
     sharing one card over gloo.  Each rank: ``run_distillation`` with the
     inference teacher and with the int8 teacher (``MG_STEPS`` steps of
     ``MG_BATCH`` rows a rank, half_mixed), ``convert_checkpoint_to_hf`` of
@@ -3255,7 +3808,6 @@ def phase_multigpu_path(teacher_cfg, root):
     import torch
     from distil_whisper_tpu_torch.cli import run_eval, run_pseudo_labelling
     from distil_whisper_tpu_torch.cli.common import shard_rows, write_jsonl
-    from distil_whisper_tpu_torch.parallel.dryrun import dryrun_multigpu
 
     logging.basicConfig(level=logging.WARNING)
     cards = torch.cuda.device_count()
@@ -3393,10 +3945,10 @@ def phase_multigpu_path(teacher_cfg, root):
         report["rank_backends"] = [r["backend"] for r in ranks]
         report["exported"] = sorted(p.name for p in (out / "hf").iterdir())
         # raises when the step parts from one process's (1e-5 relative)
-        dry = dryrun_multigpu(world)
+        dry = dryrun("multigpu", world)
         report["dryrun"] = {k: dry[k] for k in (
             "backend", "grad_err", "param_err", "loss_rel_err", "loss",
-            "update_err", "worst_element")}
+            "update_err", "worst_element", "s")}
         shard = [len(shard_rows(rows, world, k)) for k in range(world)]
     finally:
         shutil.rmtree(root / "multigpu", ignore_errors=True)
@@ -3458,10 +4010,13 @@ def phase_multigpu_path(teacher_cfg, root):
 
 TP_DEGREE = 2         # the model axis of tensor_parallel_path
 TP_WINDOWS = 4        # windows of its pipeline runs
-TP_NEW_TOKENS = 64    # their budget
+TP_ENCODER_LAYERS = 8  # encoder layers of their distil-large-v3 (each
+#                        layer's sharded encode all-reduces over gloo on
+#                        one card: most of the phase at 32)
+TP_NEW_TOKENS = 32    # their budget
 TP_BATCH = 4          # distillation rows a data rank a step (each row's
 #                       activations cross the model group at every layer)
-TP_STEPS = 2          # tensor-parallel distillation steps
+TP_STEPS = 1          # tensor-parallel distillation steps
 TP_MLP_ROWS = 24000   # rows of the int8 MLP partial mode's timing (the
 #                       encoder's 16 windows); the ffn is a rank's shard
 # the sharded encode of a data rank's windows against one rank's encode
@@ -3535,14 +4090,15 @@ def tp_rank(rank: int, world: int, port: int, spec: dict) -> None:
               "mesh": [n_data, tp], "coordinate": [d, m]}
     encodes = {}    # one rank's encode of this data rank's windows, a lane
     dtype = torch.bfloat16
-    full = init_params(PRESETS["distil-large-v3"], seed=0, device="cuda",
-                       dtype=dtype)
+    tp_cfg = PRESETS["distil-large-v3"].replace(
+        encoder_layers=TP_ENCODER_LAYERS)
+    full = init_params(tp_cfg, seed=0, device="cuda", dtype=dtype)
     clips = synthetic_audio(TP_WINDOWS, 30.0, seed=1)
     prompt = tok.prompt_ids(language="en")
 
     def pipelines(flags, mesh_, dtype):
         """(the pipeline on ``mesh_``, one rank's) over ``full``."""
-        cfg = PRESETS["distil-large-v3"].replace(**flags)
+        cfg = tp_cfg.replace(**flags)
         return [WhisperPipeline(None, dtype=dtype, batch_size=TP_WINDOWS,
                                 max_new_tokens=TP_NEW_TOKENS, params=full,
                                 cfg=cfg, tokenizer=tok, device="cuda",
@@ -3774,14 +4330,15 @@ def phase_tensor_parallel_path(teacher_cfg, root):
     across ``max(2, cards)`` spawned ranks: NCCL when every rank has a
     card (a (2, 2) mesh on four cards), else two ranks sharing one card
     over gloo (a (1, 2) mesh).  Each rank (``tp_rank``): the bf16 and int8
-    distil-large-v3 pipelines with ``mesh=`` on ``TP_WINDOWS`` windows
-    (launches a rank: log-mel 1, encoder attention 32, the int8 MLP 32 on
-    the int8 flags; texts against one rank's, with the near-tie report of
+    distil-large-v3 pipelines (``TP_ENCODER_LAYERS`` encoder layers) with
+    ``mesh=`` on ``TP_WINDOWS`` windows (launches a rank: log-mel 1,
+    encoder attention and, on the int8 flags, the int8 MLP one a layer;
+    texts against one rank's, with the near-tie report of
     every parting row; the encode of the rank's windows and its
     all-reduces timed), the int8 MLP's partial mode (bit for bit its plain
     version; summed plus the bias against the unsharded kernel),
-    ``run_distillation --distributed --model_parallel`` with the large-v3
-    teacher (``TP_STEPS`` steps of ``TP_BATCH`` rows a data rank), the
+    ``run_distillation --distributed --model_parallel`` with the
+    ``training_teacher`` (``TP_STEPS`` steps of ``TP_BATCH`` rows a data rank), the
     small fp32 model's greedy and n-gram speculation.  On four cards, also
     the bf16 pipeline at tp 4.  Here: the step-1 loss against one process
     on the data ranks' concatenated batches (``MG_LOSS_TOL``) and
@@ -3790,7 +4347,6 @@ def phase_tensor_parallel_path(teacher_cfg, root):
     import logging
     import shutil
     import torch
-    from distil_whisper_tpu_torch.parallel.dryrun import dryrun_multigpu
 
     logging.basicConfig(level=logging.WARNING)
     t_phase = time.perf_counter()
@@ -3841,17 +4397,17 @@ def phase_tensor_parallel_path(teacher_cfg, root):
             for a, b in report["step1_vs_one_process"].values())
         report["step_ms_one_process_one_rank_batch"] = ref["step_ms_one_rank"]
         # raises when the step or the tokens part from one process's
-        dry = dryrun_multigpu(world, model_parallel=TP_DEGREE)
+        dry = dryrun("tensor_parallel", world)
         report["dryrun"] = {k: dry[k] for k in (
             "backend", "model_parallel", "grad_err", "param_err",
-            "loss_rel_err", "update_err", "generate_tokens_equal")}
+            "loss_rel_err", "update_err", "generate_tokens_equal", "s")}
     finally:
         shutil.rmtree(tp_dir, ignore_errors=True)
     report["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "tensor_parallel_path", **report})
 
     bad = []
-    layers = 32    # distil-large-v3's encoder
+    layers = TP_ENCODER_LAYERS
     for r in range(world):
         for key, limit in TP_ENCODE_REL_L2.items():
             got = report[key][r]["encode_rel_l2_vs_one_rank"]
@@ -3894,10 +4450,10 @@ def phase_tensor_parallel_path(teacher_cfg, root):
         f"tp_distill_rank{r}": report["distill"]["launches"][r]
         for r in range(world)}
 
-PS_STEPS = 2          # 2-D distillation steps of param_sharding_path
+PS_STEPS = 1          # 2-D distillation steps of param_sharding_path
 PS_BATCH = 4          # its rows a data rank a step
 PS_LANES = 8          # engine lanes / micro-batch rows of its meshed serving
-PS_NEW_TOKENS = 64    # their budget (8 requests a scheduler)
+PS_NEW_TOKENS = 32    # their budget (8 requests a scheduler)
 # the int8 teacher's step-1 KL term on a model axis, vs one process: its
 # fused MLP's partial mode is another rounding of the unsharded kernel, and
 # moves the small KL term by 1.24e-4 of itself on four H100s; the bf16
@@ -4189,7 +4745,7 @@ def phase_param_sharding_path(teacher_cfg, root):
     ``max(2, cards)`` spawned ranks (one card: two ranks over gloo; four
     cards: one a card over NCCL).  Each rank (``ps_rank``):
     ``run_distillation --distributed --param_sharding 2d`` with the
-    large-v3 teacher, bf16 and int8, ``PS_STEPS`` steps of ``PS_BATCH``
+    ``training_teacher``, bf16 and int8, ``PS_STEPS`` steps of ``PS_BATCH``
     rows a data rank, on a (2, 1) mesh (one card) or (2, 2) (four); the
     continuous engine and the micro-batch scheduler serving distil-large-v3
     in bf16 from a (1, 2) mesh (one card) or (2, 2) (four), ``PS_LANES``
@@ -4206,7 +4762,6 @@ def phase_param_sharding_path(teacher_cfg, root):
     import logging
     import shutil
     import torch
-    from distil_whisper_tpu_torch.parallel.dryrun import dryrun_multigpu
 
     logging.basicConfig(level=logging.WARNING)
     t_phase = time.perf_counter()
@@ -4265,14 +4820,13 @@ def phase_param_sharding_path(teacher_cfg, root):
         report["engine_one_rank_texts"] = ranks[0]["engine_one_rank_texts"]
         report["http"] = ranks[0]["http"]
         report["http_launches"] = [r["http_launches"] for r in ranks]
-        t0 = time.perf_counter()
-        dry = dryrun_multigpu(4, model_parallel=2, param_sharding="2d")
+        dry = dryrun("param_sharding", world)
         report["dryrun"] = {k: dry[k] for k in (
             "backend", "param_sharding", "grad_err", "param_err",
             "loss_rel_err", "int8_teacher_err", "qat_err",
             "generate_tokens_equal", "engine_texts_equal",
             "engine_ts_fallback", "engine_drafted")}
-        report["dryrun"]["s"] = time.perf_counter() - t0
+        report["dryrun"]["s"] = dry["s"]
     finally:
         shutil.rmtree(ps_dir, ignore_errors=True)
     report["seconds"] = time.perf_counter() - t_phase
@@ -4622,6 +5176,29 @@ def small_reference_int8(cfg, mel, prompt):
                              "test-tiny")
 
 
+def phase_released(weights):
+    """After the distil phases: the weights behind ``weights`` (weak
+    references) are freed and no graph owner is alive; the bytes left
+    allocated once the library workspaces of the streams are dropped."""
+    import torch
+    from distil_whisper_tpu_torch.generation.graphs import GraphOwner
+    gc.collect()
+    alive = [w for w in weights if w() is not None]
+    owners = sorted(o.name for o in gc.get_objects()
+                    if isinstance(o, GraphOwner))
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    report = {"weights_alive": len(alive), "graph_owners_alive": owners,
+              "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+    emit({"phase": "released", **report})
+    if alive or owners:
+        raise AssertionError(f"the distil phases left {report} behind")
+    return report
+
+
 def main() -> int:
     if not (ROOT / "distil_whisper_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -4638,34 +5215,61 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
-    phase_build()
-    rows = phase_kernels()
+    seconds = {}
+
+    def timed_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed_phase("build", phase_build)
+    rows = timed_phase("kernels", phase_kernels)
     with tempfile.TemporaryDirectory() as tmp:
         tok = synthetic_tokenizer(Path(tmp))
     with torch.no_grad():
-        bf16 = phase_main_path(tok)
-        counts = phase_int8_main_path(tok, bf16)
-        longform = phase_longform_path(tok, bf16)
-        longform.update(phase_serving_path(tok, bf16))
-        longform.update(phase_speculative_path(tok, bf16))
+        bf16 = timed_phase("main_path", phase_main_path, tok)
+        counts = timed_phase("int8_main_path", phase_int8_main_path, tok,
+                             bf16)
+        longform = timed_phase("longform_path", phase_longform_path, tok,
+                               bf16)
+        longform.update(timed_phase("compiled_decode_path",
+                                    phase_compiled_decode_path, tok, bf16))
+        longform.update(timed_phase("serving_path", phase_serving_path, tok,
+                                    bf16))
+        longform.update(timed_phase("speculative_path",
+                                    phase_speculative_path, tok, bf16))
+        # nothing of the distil phases outlives them: no weights, no graph
+        # owner (whose programs hold weights and a pool)
+        weights = [weakref.ref(t) for t in (
+            bf16["params"]["decoder"]["tok_emb"],
+            bf16["params"]["encoder"]["conv1"]["kernel"])]
         del bf16
-        torch.cuda.empty_cache()
-        phase_small_reference(tok)
-    from distil_whisper_tpu_torch.config import PRESETS
+        timed_phase("released", phase_released, weights)
+        timed_phase("small_reference", phase_small_reference, tok)
     # the teacher, student and manifests of training_path serve
     # multigpu_path and recipe_path too
     shared = Path(tempfile.mkdtemp(prefix="dw_training_"))
+    teacher_cfg = training_teacher()
     try:
-        training = phase_training_path(PRESETS["large-v3"], shared)
-        multigpu = phase_multigpu_path(PRESETS["large-v3"], shared)
-        multigpu.update(phase_tensor_parallel_path(PRESETS["large-v3"],
-                                                   shared))
-        multigpu.update(phase_param_sharding_path(PRESETS["large-v3"],
-                                                  shared))
-        recipe = phase_recipe_path(PRESETS["large-v3"], shared)
+        emit({"phase": "dryruns", "seconds_each": timed_phase(
+            "dryruns", run_dryruns)})
+        training = timed_phase("training_path", phase_training_path,
+                               teacher_cfg, shared)
+        multigpu = timed_phase("multigpu_path", phase_multigpu_path,
+                               teacher_cfg, shared)
+        multigpu.update(timed_phase("tensor_parallel_path",
+                                    phase_tensor_parallel_path, teacher_cfg,
+                                    shared))
+        multigpu.update(timed_phase("param_sharding_path",
+                                    phase_param_sharding_path, teacher_cfg,
+                                    shared))
+        recipe = timed_phase("recipe_path", phase_recipe_path, teacher_cfg,
+                             shared)
     finally:
         import shutil
         shutil.rmtree(shared, ignore_errors=True)
+    emit({"phase": "seconds", **seconds})
     longform.update({f"training_{k}": v for k, v in training.items()})
     longform.update(multigpu)
     longform.update({f"recipe_{k}": v for k, v in recipe.items()})

@@ -59,6 +59,7 @@ from ..audio import compute_mel
 from ..audio.io import load_audio
 from ..device import resolve_device
 from ..generation import GenerationOptions, encode_and_generate
+from ..generation.graphs import GraphOwner
 from ..metrics import WordErrors, process_words
 from ..models import load_params, save_pretrained
 from ..models.convert import FP32_LEAVES
@@ -556,6 +557,11 @@ def main(argv=None):
         else:
             next_indices()
 
+    # the eval's decode as CUDA graphs on the card, for the whole run: the
+    # optimizer writes the parameters in place, so one program serves
+    # every eval
+    eval_graphs = GraphOwner("eval")
+
     @torch.no_grad()
     def run_eval(step):
         nonlocal best_wer
@@ -580,7 +586,7 @@ def main(argv=None):
             out = encode_and_generate(state.params, student_cfg,
                                       batch["input_features"],
                                       [prompt] * ebsz, opts, dtype=dtype,
-                                      device=device)
+                                      device=device, graphs=eval_graphs)
             seqs, lens = out.sequences.cpu().numpy(), out.seq_len.cpu().numpy()
             for j in range(n):
                 hyps.append(normalizer(tok.decode(seqs[j][:lens[j]].tolist())))

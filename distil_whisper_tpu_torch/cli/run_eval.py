@@ -46,6 +46,7 @@ from ..device import resolve_device
 from ..generation import (GenerationOptions, SequentialOptions,
                           SequentialTranscriber, encode_and_beam_search,
                           encode_and_generate, generate)
+from ..generation.graphs import GraphOwner
 from ..metrics import WordErrors, count_repeated_ngrams, process_words
 from ..models import load_params
 from ..models.whisper import cross_kv, encode
@@ -177,10 +178,11 @@ def _precise_tok_per_s(args, pipe, dtype, device):
     prompt = torch.full((args.batch_size, 1), cfg.decoder_start_token_id,
                         dtype=torch.long, device=device)
 
+    graphs = GraphOwner("precise_tok_per_s")
+
     def fixed():
-        cross = cross_kv(params["decoder"], cfg, enc)
-        out = generate(params["decoder"], cfg, cross, prompt, opts,
-                       dtype=dtype)
+        out = generate(params["decoder"], cfg, enc, prompt, opts,
+                       dtype=dtype, graphs=graphs)
         out.seq_len.cpu()
 
     with torch.no_grad():
@@ -232,7 +234,8 @@ def _short(args, pipe, audios, dtype, device):
                     torch.tensor(prompts, device=device), opts)
         else:
             out = encode_and_generate(params, cfg, mels, prompts, opts,
-                                      dtype=dtype, device=device)
+                                      dtype=dtype, device=device,
+                                      graphs=pipe.graphs)
         seqs, lens = out.sequences.cpu().numpy(), out.seq_len.cpu().numpy()
         for j in range(len(group)):
             ids = seqs[j][:lens[j]].tolist()

@@ -54,7 +54,7 @@ import torch
 from ..audio import compute_mel
 from ..audio.io import load_audio, write_wav
 from ..device import resolve_device
-from ..generation import GenerationOptions, encode_and_generate
+from ..generation import GenerateOutput, GenerationOptions, build_generate
 from ..generation.beam import encode_and_beam_search
 from ..metrics import WordErrors, process_words
 from ..models import load_params
@@ -188,15 +188,21 @@ def main(argv=None):
         return_timestamps=args.return_timestamps,
         no_speech_token_id=tok.no_speech)
     bsz = max(args.per_device_batch_size, 1)
+    # the teacher's decode as CUDA graphs on the card: a short batch (a
+    # featurizer's tail) is padded to the full one with copies of its last
+    # row, as JAX pads it, so that every batch replays one program
+    generate_fn = build_generate(cfg, opts, dtype=dtype, device=device)
 
     def gen_fn(mel):
-        prompts = [prompt] * mel.shape[0]
+        n = mel.shape[0]
         if args.num_beams > 1:
-            return encode_and_beam_search(params, cfg, mel, prompts, opts,
-                                          num_beams=args.num_beams,
+            return encode_and_beam_search(params, cfg, mel, [prompt] * n,
+                                          opts, num_beams=args.num_beams,
                                           dtype=dtype, device=device)
-        return encode_and_generate(params, cfg, mel, prompts, opts,
-                                   dtype=dtype, device=device)
+        if n < bsz:
+            mel = torch.cat([mel, mel[-1:].expand(bsz - n, *mel.shape[1:])])
+        out = generate_fn(params, mel, [prompt] * bsz)
+        return GenerateOutput(*(t[:n] for t in out))
 
     out_dir = Path(args.output_dir)
     suffix = rank_suffix()

@@ -36,6 +36,7 @@ from ..tokenizer import WhisperTokenizer
 from .beam import encode_and_beam_search
 from .generate import (GenerationOptions, check_params_device,
                        encode_and_generate)
+from .graphs import GraphOwner
 from .speculative import (check_method, prepare_assistant,
                           speculate_windows)
 from ..models.whisper import cross_kv, encode
@@ -94,6 +95,9 @@ class SequentialTranscriber:
         self.gamma = int(gamma)
         self.max_ngram = int(max_ngram)
         self.spec_stats = {"drafted": 0, "accepted": 0, "rounds": 0}
+        # the CUDA graphs of the rungs' generate calls: one greedy and one
+        # sampling program a batch size (the temperature is their input)
+        self.graphs = GraphOwner("sequential")
         self.params = params
         self.cfg = cfg
         self.tok = tokenizer
@@ -153,7 +157,7 @@ class SequentialTranscriber:
                 self.params, self.cfg, mels, prompts_t,
                 self._gen_opts[temperature > 0], temperature=temperature,
                 generator=generator, pad_len=pads_t, sot_slot=self.sot_slot,
-                dtype=self.dtype, device=self.device)
+                dtype=self.dtype, device=self.device, graphs=self.graphs)
         return {
             "sequences": out.sequences.cpu().numpy(),
             "seq_len": out.seq_len.cpu().numpy(),

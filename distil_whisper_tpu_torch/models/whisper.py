@@ -429,7 +429,11 @@ def cross_kv(params: Params, cfg: WhisperConfig,
         amax = amax.repeat_interleave(d // h, dim=-1)[:, None]        # [B,1,d]
         return symmetric_int8(x32, amax, 1e-8)
 
-    parts = []
+    # each layer's K/V written into the stacked output as it is projected:
+    # never every layer's parts and their stack at once (twice the bytes,
+    # which a captured prefill would keep in its pool)
+    names = ("k_q", "k_scale", "v_q", "v_scale") if quantize else ("k", "v")
+    out: Params = {}
     for i in range(cfg.decoder_layers):
         lp = layer_slice(params["layers"], i)["cross_attn"]
         if gathered:    # the K/V projections only
@@ -437,9 +441,12 @@ def cross_kv(params: Params, cfg: WhisperConfig,
                                   "decoder.layers.cross_attn", cfg.d_model,
                                   sliced=True)
         k, v = dense(lp["k"], enc), dense(lp["v"], enc)
-        parts.append((*q8(k), *q8(v)) if quantize else (k, v))
-    names = ("k_q", "k_scale", "v_q", "v_scale") if quantize else ("k", "v")
-    return {n: torch.stack([p[j] for p in parts]) for j, n in enumerate(names)}
+        part = (*q8(k), *q8(v)) if quantize else (k, v)
+        for n, x in zip(names, part):
+            if n not in out:
+                out[n] = x.new_empty((cfg.decoder_layers, *x.shape))
+            out[n][i] = x
+    return out
 
 
 def _cross_read(cross: Params, i: int, dtype: torch.dtype):

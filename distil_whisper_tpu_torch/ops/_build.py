@@ -16,6 +16,7 @@ Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,6 +37,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# the kernel wrappers whose launches are counted (count_launch), by id
+_counted: Dict[int, object] = {}
+# a thread capturing a CUDA graph records its launches here
+_local = threading.local()
 # ptxas resource report (registers, shared memory, spills) of each build
 build_logs: Dict[str, str] = {}
 
@@ -117,6 +122,34 @@ def load(name: str) -> ctypes.CDLL:
 def count_launch(wrapper) -> None:
     """Add one to a kernel wrapper's ``launches`` count.  The serving
     threads launch kernels concurrently, and ``+=`` on an attribute is not
-    atomic."""
+    atomic.  While this thread captures a CUDA graph
+    (:func:`recording_launches`) the launch is recorded for the graph's
+    replays instead: a capture launches nothing."""
     with _count_lock:
-        wrapper.launches += 1
+        _counted[id(wrapper)] = wrapper
+        rec = getattr(_local, "recording", None)
+        if rec is None:
+            wrapper.launches += 1
+        else:
+            rec[id(wrapper)] = rec.get(id(wrapper), 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within it, this thread's kernel launches are recorded in the
+    yielded dict (wrapper id -> launches), not counted: what a CUDA graph
+    captured here launches at each replay (``generation/graphs.py``).
+    Other threads count as usual."""
+    rec: Dict[int, int] = {}
+    _local.recording = rec
+    try:
+        yield rec
+    finally:
+        _local.recording = None
+
+
+def add_launches(delta: Dict[int, int]) -> None:
+    """Add ``delta`` (wrapper id -> launches) to the wrappers' counts."""
+    with _count_lock:
+        for i, n in delta.items():
+            _counted[i].launches += n

@@ -45,6 +45,7 @@ from .audio.io import load_audio
 from .config import WhisperConfig
 from .device import resolve_device
 from .generation import GenerationOptions, beam_search, generate
+from .generation.graphs import GraphOwner
 from .generation.speculative import (check_method, prepare_assistant,
                                       speculate_windows)
 from .generation.word_timestamps import (default_alignment_heads,
@@ -116,6 +117,9 @@ class WhisperPipeline:
         self.gamma = int(gamma)
         self.max_ngram = int(max_ngram)
         self.spec_stats = {"drafted": 0, "accepted": 0}
+        # the CUDA graphs of this pipeline's generate calls (one program a
+        # batch size and setting; :mod:`.generation.graphs`)
+        self.graphs = GraphOwner("pipeline")
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -198,9 +202,10 @@ class WhisperPipeline:
                      opts: GenerationOptions, num_beams: int,
                      length_penalty: float,
                      num_frames: Optional[List[int]] = None):
-        """One batch of windows: encode, cross K/V, generate or beam search,
-        and with ``num_frames`` (word timestamps) the alignment pass over the
-        chosen tokens, sharing the cross K/V.  Returns host arrays
+        """One batch of windows: encode, then generate (CUDA graphs on the
+        card), beam search or speculation, and with ``num_frames`` (word
+        timestamps) the alignment pass over the chosen tokens.  Returns host
+        arrays
         ``(sequences, seq_len, token_times or None)``.
 
         Sampling (``opts.do_sample``) runs at temperature 0 with a generator
@@ -208,18 +213,22 @@ class WhisperPipeline:
         cfg, dec = self.cfg, self.params["decoder"]
         prompt_ids = torch.tensor(prompts, dtype=torch.long, device=self.device)
         enc = encode(self.params["encoder"], cfg, mels, dtype=self.dtype)
-        cross = cross_kv(dec, cfg, enc)
+        # generate projects the cross K/V itself (inside its graph on the
+        # card); beam search and speculation stay eager and take them here
+        cross = None
         if num_beams > 1:
+            cross = cross_kv(dec, cfg, enc)
             out = beam_search(dec, cfg, cross, prompt_ids, opts,
                               num_beams=num_beams,
                               length_penalty=length_penalty, dtype=self.dtype)
         elif (self.speculative_method and num_frames is None
               and not opts.do_sample):
             # token for token the greedy program's output
+            cross = cross_kv(dec, cfg, enc)
             out = self.speculate(mels, enc, cross, prompt_ids, opts)
         else:
-            out = generate(dec, cfg, cross, prompt_ids, opts, temperature=0.0,
-                           dtype=self.dtype)
+            out = generate(dec, cfg, enc, prompt_ids, opts, temperature=0.0,
+                           dtype=self.dtype, graphs=self.graphs)
         seqs = out.sequences.cpu().numpy()
         lens = out.seq_len.cpu().numpy()
         if num_frames is None:
@@ -228,8 +237,8 @@ class WhisperPipeline:
         # the DTW (num_frames // 2 inside): final tokens must not align into
         # the zero-padded tail past the audio
         sel = selected_cross_weights(dec, cfg, out.sequences[:, :-1],
-                                     self._alignment_heads(), cross=cross,
-                                     dtype=self.dtype)
+                                     self._alignment_heads(), enc=enc,
+                                     cross=cross, dtype=self.dtype)
         times = token_timestamps_from_weights(
             sel.float().cpu().numpy(), num_input_ids=len(prompts[0]),
             seq_lens=lens, num_frames=num_frames)

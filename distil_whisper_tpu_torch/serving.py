@@ -787,27 +787,30 @@ class BatchingTranscriber(_StatsMixin):
                 mesh): encode, then decode by the group's method."""
                 enc = encode(pipe.params["encoder"], cfg, mels[rows],
                              dtype=pipe.dtype)
-                cross = cross_kv(dec, cfg, enc)
                 counts = (None, None)
+                # generate projects the cross K/V inside its graph on the
+                # card; beam search and speculation stay eager
                 if num_beams > 1:
-                    out = beam_search(dec, cfg, cross, prompts[rows], opts,
+                    out = beam_search(dec, cfg, cross_kv(dec, cfg, enc),
+                                      prompts[rows], opts,
                                       num_beams=num_beams, length_penalty=1.0,
                                       dtype=pipe.dtype)
                 elif sample is not None:
                     gen = torch.Generator(device=pipe.device).manual_seed(seed)
-                    out = generate(dec, cfg, cross, prompts[rows], opts,
+                    out = generate(dec, cfg, enc, prompts[rows], opts,
                                    temperature=float(temp), generator=gen,
-                                   dtype=pipe.dtype)
+                                   dtype=pipe.dtype, graphs=pipe.graphs)
                 elif speculate:
                     # token-identical to the greedy path; faster whenever
                     # the acceptance earns back the draft's cost
-                    out = self._speculate(mels[rows], enc, cross,
+                    out = self._speculate(mels[rows], enc,
+                                          cross_kv(dec, cfg, enc),
                                           prompts[rows], opts, g)
                     counts = (out.drafted.cpu().numpy(),
                               out.accepted.cpu().numpy())
                 else:
-                    out = generate(dec, cfg, cross, prompts[rows], opts,
-                                   dtype=pipe.dtype)
+                    out = generate(dec, cfg, enc, prompts[rows], opts,
+                                   dtype=pipe.dtype, graphs=pipe.graphs)
                 return (out.sequences.cpu().numpy(),
                         out.seq_len.cpu().numpy(), *counts)
 

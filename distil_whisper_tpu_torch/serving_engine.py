@@ -13,10 +13,17 @@ between step blocks:
 * admission encodes and prefills only the admitted rows and writes them
   into the lane rows of every state tensor (self and cross K/V, their int8
   scales, the timestamp FSM, the counters);
-* the state lives on the pipeline's device and is updated in place; a
-  block is a Python loop of ``block_steps`` steps with no host sync, and
-  the host reads one packed vector ``[finished | pos | (drafted |
-  accepted |) tokens]`` a block (:meth:`ContinuousBatchingEngine.unpack`).
+* the state lives on the pipeline's device in fixed buffers, updated in
+  place (admission writes into the same storage); a block is
+  ``block_steps`` steps with no host sync, and the host reads one packed
+  vector ``[finished | pos | (drafted | accepted |) tokens]`` a block
+  (:meth:`ContinuousBatchingEngine.unpack`);
+* on the card the greedy and the sampling block are each one CUDA graph,
+  captured by :meth:`ContinuousBatchingEngine.init_state` (before the
+  transcriber's threads start) on the engine's own pool and stream
+  (``generation/graphs.py``), the counterpart of JAX's jitted blocks;
+  speculative rounds and an engine under a mesh (collectives) run their
+  steps eagerly.
 
 Per-lane options: language and task (prompt content), timestamps (a
 per-lane gate on the FSM), the token budget, and sampling — per-lane
@@ -51,12 +58,15 @@ thread never issue collectives in different orders on different ranks; a
 failed call ends the worker and later submissions are refused.
 
 What the JAX engine carries for XLA and the TPU is not ported: donated
-state buffers, a cache of compiled programs, power-of-two admission
-buckets (here every free lane is filled at once) and the two-deep dispatch
-that hid the fetch round trip of a remote TPU.  Three threads issue device
-work (the step loop, the featurizer, the fallback), all on the default
-stream: a tensor passes between threads only after the call that made it
-has returned.
+state buffers (the captured blocks rewrite fixed ones), power-of-two
+admission buckets (here every free lane is filled at once; the two graphs
+span every lane) and the two-deep dispatch that hid the fetch round trip
+of a remote TPU.  Three threads issue device work (the step loop, the
+featurizer, the fallback): eager work on the default stream, where a
+tensor passes between threads only after the call that made it has
+returned; the engine's blocks and the pipeline's generate graphs replay on
+their owners' streams, ordered after the caller's stream and before its
+next work.
 """
 
 from __future__ import annotations
@@ -75,6 +85,7 @@ from .audio.io import load_audio
 from .device import resolve_device
 from .generation import GenerationOptions, generate
 from .generation import logits as L
+from .generation.graphs import GraphOwner
 from .generation.speculative import (_bias_to, _oracle, _process,
                                      _propose_ngram, _teacher_choices,
                                      _ts_advance, _verify_accept,
@@ -267,9 +278,17 @@ class ContinuousBatchingEngine:
             self.cfg, max_new_tokens=self.max_new, return_timestamps=True,
             no_speech_token_id=self.tok.no_speech)
         self._state: Optional[Dict[str, Any]] = None
+        # the greedy and sampling blocks run as CUDA graphs on the card;
+        # speculative rounds and a meshed engine (collectives) stay eager
+        self.graphed = (self.device.type == "cuda" and not self.spec
+                        and mesh is None)
+        self.graphs = GraphOwner("engine")
+        self._blocks: Dict[bool, Any] = {}
 
     # ------------------------------------------------------------- state
     def init_state(self) -> Dict[str, Any]:
+        """Allocate the lanes' state (every lane finished) and, on the card,
+        capture the greedy and the sampling block over it."""
         b, cfg, dev = self.local, self.cfg, self.device
         width = kv_width(self.pipe.params["decoder"])
 
@@ -310,11 +329,36 @@ class ContinuousBatchingEngine:
                                topk=full(0, torch.long),
                                seed_lo=full(0, torch.long),
                                seed_hi=full(0, torch.long))
+        if self.graphed:
+            self._capture_blocks()
         return self._state
+
+    def _block(self, sampling: bool) -> torch.Tensor:
+        """``block_steps`` greedy steps; returns the packed vector."""
+        s = self._state
+        for _ in range(self.block_steps):
+            self._greedy_step(s, sampling)
+        return torch.cat([s["finished"].long(), s["pos"],
+                          s["tokens"].reshape(-1)])
+
+    def _capture_blocks(self) -> None:
+        """Capture the greedy and the sampling block over the state's
+        buffers, after a warm-up of each on the owner's stream.  Every lane
+        is finished here, so the warm-up changes no lane's content (frozen
+        lanes write a pad and K/V at their frozen slot, which admission
+        overwrites)."""
+        with self.graphs.side(self.device):
+            for sampling in (False, True):
+                self._block(sampling)
+        self._blocks = {sampling: self.graphs.capture(
+            lambda sampling=sampling: self._block(sampling), self.device)
+            for sampling in (False, True)}
 
     # ------------------------------------------------------------- step
     def _greedy_step(self, s: Dict[str, Any], sampling: bool) -> None:
-        """One token for every lane at its own cursor, in place."""
+        """One token for every lane at its own cursor, in place: every
+        state tensor keeps its storage (a captured block reads and writes
+        the same buffers at each replay)."""
         cfg, opts = self.cfg, self.opts
         gen_idx = s["pos"] - s["prompt_len"]
         scores = _process(s["last_logits"], gen_idx, cfg, opts,
@@ -328,26 +372,26 @@ class ContinuousBatchingEngine:
         tok_logp = torch.log_softmax(scores, dim=-1).gather(
             1, nxt[:, None])[:, 0]
 
-        frozen = s["finished"]
+        frozen = s["finished"].clone()
         nxt = torch.where(frozen, cfg.pad_token_id, nxt)
-        s["sum_logprobs"] = s["sum_logprobs"] + torch.where(frozen, 0.0,
-                                                            tok_logp)
-        s["finished"] = (frozen | (nxt == cfg.eos_token_id)
-                         | (gen_idx + 1 >= s["budget"]))
+        s["sum_logprobs"].add_(torch.where(frozen, 0.0, tok_logp))
+        s["finished"].copy_(frozen | (nxt == cfg.eos_token_id)
+                            | (gen_idx + 1 >= s["budget"]))
         # a frozen lane writes (a pad, its K/V) at its frozen cursor: a slot
         # past its content that nothing reads
         rows = torch.arange(self.local, device=self.device)
-        pos = s["pos"]
+        pos = s["pos"].clone()
         s["tokens"][rows, pos] = nxt
-        new_ts = s["ts"].update(nxt, cfg.timestamp_begin)
-        s["ts"] = L.TimestampState(*(torch.where(frozen, o, n)
-                                     for n, o in zip(new_ts, s["ts"])))
-        s["pos"] = torch.where(frozen, pos, pos + 1)
+        new_ts = [torch.where(frozen, o, n) for n, o in
+                  zip(s["ts"].update(nxt, cfg.timestamp_begin), s["ts"])]
+        for o, n in zip(s["ts"], new_ts):
+            o.copy_(n)
+        s["pos"].add_(torch.where(frozen, 0, 1))
         lg, _ = decode(self.pipe.params["decoder"], cfg, nxt[:, None],
                        cross=s["cross"], cache=s["cache"], pos_offset=pos,
                        dtype=self.dtype)
-        s["last_logits"] = torch.where(frozen[:, None], s["last_logits"],
-                                       lg[:, -1].float())
+        s["last_logits"].copy_(torch.where(frozen[:, None], s["last_logits"],
+                                           lg[:, -1].float()))
 
     def _draft(self, s: Dict[str, Any], gamma: int) -> torch.Tensor:
         """The draft's ``gamma`` proposals per lane, at the lane cursors,
@@ -462,18 +506,21 @@ class ContinuousBatchingEngine:
         if self._state is None:
             raise RuntimeError("call init_state() first")
         s = self._state
-        if self.spec:
-            g = int(gamma or self.gamma)
-            if not 1 <= g <= self.gamma_max:
-                raise ValueError(f"gamma {g} outside 1..{self.gamma_max}")
-            for _ in range(max(1, self.block_steps // (g + 1))):
-                self._spec_round(s, g)
-            head = [s["finished"].long(), s["pos"], s["drafted"],
-                    s["accepted"]]
-        else:
-            for _ in range(self.block_steps):
-                self._greedy_step(s, sampling)
-            head = [s["finished"].long(), s["pos"]]
+        if not self.spec:
+            if self._blocks:
+                graph, packed = self._blocks[bool(sampling)]
+                with self.graphs.side(self.device):
+                    graph.replay()
+                # the next replay rewrites the graph's vector
+                return packed.clone()
+            packed = self._block(sampling)
+            return self._gather_lanes(packed, 2) if self._gather else packed
+        g = int(gamma or self.gamma)
+        if not 1 <= g <= self.gamma_max:
+            raise ValueError(f"gamma {g} outside 1..{self.gamma_max}")
+        for _ in range(max(1, self.block_steps // (g + 1))):
+            self._spec_round(s, g)
+        head = [s["finished"].long(), s["pos"], s["drafted"], s["accepted"]]
         packed = torch.cat(head + [s["tokens"].reshape(-1)])
         return self._gather_lanes(packed, len(head)) if self._gather \
             else packed
@@ -1300,13 +1347,12 @@ class ContinuousTranscriber(_StatsMixin):
             return_timestamps=bool(return_timestamps),
             no_speech_token_id=tok.no_speech, do_sample=True, top_k=top_k)
         enc = encode(pipe.params["encoder"], cfg, mel, dtype=pipe.dtype)
-        out = generate(pipe.params["decoder"], cfg,
-                       cross_kv(pipe.params["decoder"], cfg, enc),
+        out = generate(pipe.params["decoder"], cfg, enc,
                        torch.tensor([prompt], device=pipe.device), opts,
                        temperature=float(temperature),
                        generator=torch.Generator(
                            device=pipe.device).manual_seed(seed),
-                       dtype=pipe.dtype)
+                       dtype=pipe.dtype, graphs=pipe.graphs)
         cut = int(out.seq_len[0])
         if max_new_tokens is not None:
             cut = min(cut, len(prompt) + max(int(max_new_tokens), 0))

@@ -160,7 +160,20 @@ def test_qat_forward_matches_int8_serving_forward(models):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_flash_encoder_qat_matches_jax_and_int8_fused_path():
+@pytest.fixture
+def one_thread():
+    """torch on one CPU thread for the test.  At two, MKL may split a
+    product otherwise from one call to the next (its dynamic threading):
+    the last bit of one element moves, and a fake-quant carries that into
+    a whole level (1/127 of its row's absmax), past 1e-5 of JAX's, in
+    about one process in six."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_flash_encoder_qat_matches_jax_and_int8_fused_path(one_thread):
     """fused_self_attention on a QAT (w8a8) tree: equal to JAX's (interpret
     mode) at 1e-5 in value and in the input gradient, and to the int8 fused
     path at 2e-3; gradients flow through the straight-through fake-quants."""
