@@ -67,14 +67,20 @@
    and distil-large-v3's 2-layer decoder as its draft (seed 1, on the
    teacher's encoder states): the teacher's plain greedy and draft
    speculation through ``WhisperPipeline`` on the 16 windows (launches
-   log-mel 1, encoder attention 32), then the decode loops alone: the
-   draft (rounds, acceptance, the share of tokens equal to greedy's in
-   bf16, the near-tie report of the rows that part), ``synthetic_acceptance`` 0.8 against the prefix law and n-gram
-   lookup with ``synthetic_period`` 16 (both synthetic tokens), and the
-   sequential t = 0 rung with the draft on 2 long files against the plain
-   rung; then the continuous engine serving large-v3 (16 requests, 64-token
-   budgets, 16 lanes): plain, the draft under ``synthetic_acceptance`` 0.8
-   and n-gram lookup with ``synthetic_period`` 16.
+   log-mel 1, encoder attention 32), then the decode loops alone, each
+   on CUDA graphs against the plain loop (``speculate_eager``) bit for
+   bit, with wall ms a round and a token (graph and plain), device ms and
+   idle share, host syncs, captures and pool bytes: the draft (rounds,
+   acceptance, the share of tokens equal to greedy's in bf16, the near-tie
+   report of the rows that part), ``synthetic_acceptance`` 0.8 against the
+   prefix law and n-gram lookup with ``synthetic_period`` 16 (both
+   synthetic tokens); the rounds a block swept over ``SPEC_ROUNDS_SWEEP``;
+   the sequential t = 0 rung with the draft on 2 long files against the
+   plain rung; the continuous engine's speculative blocks on graphs
+   against its eager rounds (packed vectors equal); then the engine
+   serving large-v3 (16 requests, 64-token budgets, 16 lanes): plain, the
+   draft under ``synthetic_acceptance`` 0.8 and n-gram lookup with
+   ``synthetic_period`` 16.
 9. A small model on the card agrees with the CPU: fp32 tokens identical,
    bf16 fused encoder close; the same model with the int8 flags (fp32 tokens
    and prefill logits against the CPU; the bf16 int8 encoder, through both
@@ -1506,8 +1512,10 @@ def sync_sites(fn):
 
     def record(message, category, filename, lineno, *a, **k):
         if "synchronizing CUDA operation" in str(message):
+            # the five frames above this one: extracting the whole stack
+            # at every sync would weigh on a call that is also timed
             where.append([f"{Path(f.filename).name}:{f.lineno}"
-                          for f in traceback.extract_stack()[-6:-1]])
+                          for f in traceback.extract_stack(limit=6)[:-1]])
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
@@ -1658,22 +1666,24 @@ def outputs_equal(a, b) -> bool:
 
 
 def decode_timing(run, repeats: int = 3, cold: bool = False,
-                  same=outputs_equal):
+                  same=outputs_equal, profile: bool = True):
     """``run()``'s result and its numbers: launches and synchronising calls
     counted around one call (after a first, cold call with ``cold``: a
     capture, whose result must be ``same`` as the warm one's), wall ms
-    (host clock to a synchronise, median of ``repeats``), device ms (the
-    profiler's sum over one more call) and the idle share (1 - device /
-    wall)."""
+    (host clock to a synchronise, median of ``repeats``; with none, that
+    counted call's), and with ``profile`` device ms (the profiler's sum
+    over one more call) and the idle share (1 - device / wall)."""
     import torch
     first = run() if cold else None
     reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     out, sites = sync_sites(run)
     torch.cuda.synchronize()
+    walls = [] if repeats else [(time.perf_counter() - t0) * 1e3]
     launches = read_counts()
     if cold and not same(first, out):
         raise AssertionError("the capturing call and a replay differ")
-    walls = []
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1681,9 +1691,10 @@ def decode_timing(run, repeats: int = 3, cold: bool = False,
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    _, busy = _device_ms(run)
+    busy = _device_ms(run)[1] if profile else None
     return out, {"wall_ms": wall, "device_ms": busy,
-                 "idle_share": idle_share(busy, wall),
+                 "idle_share": None if busy is None else idle_share(busy,
+                                                                    wall),
                  "host_syncs": len(sites), "launches": launches}
 
 
@@ -1697,13 +1708,15 @@ def graph_stats_since(before, owner=None):
 
 
 def compare_decode(name, plain_run, graph_run, owner, repeats=3,
-                   prompt_len=None, same=outputs_equal):
+                   prompt_len=None, same=outputs_equal, profile_plain=True):
     """One case: the plain loop, then the graphs (the first call captures),
     results ``same`` (bit for bit), launches equal; returns the report,
     with ``prompt_len`` a step's wall and device ms over the plain loop's
-    steps (the longest row's generated tokens)."""
+    steps (the longest row's generated tokens).  Without
+    ``profile_plain`` the plain loop's device ms are not measured."""
     from distil_whisper_tpu_torch.generation import graphs
-    plain_out, before = decode_timing(plain_run, repeats, same=same)
+    plain_out, before = decode_timing(plain_run, repeats, same=same,
+                                      profile=profile_plain)
     stats0 = graphs.read_stats()
     graph_out, after = decode_timing(graph_run, repeats, cold=True,
                                      same=same)
@@ -1724,7 +1737,8 @@ def compare_decode(name, plain_run, graph_run, owner, repeats=3,
         report["steps"] = steps
         for rep in (before, after):
             rep["wall_ms_per_step"] = rep["wall_ms"] / max(steps, 1)
-            rep["device_ms_per_step"] = rep["device_ms"] / max(steps, 1)
+            if rep["device_ms"] is not None:
+                rep["device_ms_per_step"] = rep["device_ms"] / max(steps, 1)
     return report, graph_out
 
 
@@ -1930,13 +1944,13 @@ def phase_compiled_decode_path(tok, bf16):
     ts_opts = GenerationOptions.from_config(
         pcfg, max_new_tokens=128, return_timestamps=True,
         no_speech_token_id=tok.no_speech)
-    case("timestamps", params, pcfg, enc, ts_prompt, ts_opts, repeats=1)
+    case("timestamps", params, pcfg, enc, ts_prompt, ts_opts, repeats=0)
     # 3. sampling under one seed (top-k 50, temperature 0.7)
     s_opts = GenerationOptions.from_config(
         pcfg, max_new_tokens=128, do_sample=True, top_k=50,
         no_speech_token_id=tok.no_speech)
     case("sampling", params, pcfg, enc, prompt, s_opts, temperature=0.7,
-         seed=0, repeats=1)
+         seed=0, repeats=0)
     # 4. the int8 lane: the same weights with the five flags
     qpipe = WhisperPipeline(None, dtype=dtype, batch_size=16,
                             max_new_tokens=128, params=bf16["params"],
@@ -1946,7 +1960,7 @@ def phase_compiled_decode_path(tok, bf16):
     q_opts = GenerationOptions.from_config(qpipe.cfg, max_new_tokens=128,
                                            no_speech_token_id=tok.no_speech)
     case("distil_int8", qpipe.params, qpipe.cfg, qenc, prompt, q_opts,
-         repeats=1)
+         repeats=0)
     del qenc, qpipe
 
     # 5. through the pipeline: launches of the kernels equal the plain
@@ -1982,7 +1996,7 @@ def phase_compiled_decode_path(tok, bf16):
             return ladder(tr)
 
     rep, seq_graph = compare_decode("sequential", plain_ladder,
-                                    lambda: ladder(tr), tr.graphs, repeats=1,
+                                    lambda: ladder(tr), tr.graphs, repeats=0,
                                     same=operator.eq)
     report["sequential"] = {"files": len(files),
                             "max_new_tokens": LADDER_TOKENS, **rep,
@@ -2208,13 +2222,65 @@ def speculative_engines(pipe, draft, clips, greedy_text, gamma, alpha):
             serving_launches = counts
         engines[name] = row
         del tr
+        gc.collect()            # the transcriber's threads hold cycles
         torch.cuda.empty_cache()
     return engines, serving_launches
+
+
+def speculative_engine_blocks(pipe, draft, mels, prompt, gamma, alpha):
+    """The continuous engine's speculative blocks on graphs against the
+    eager rounds, bit for bit over one admission sequence
+    (:func:`engine_blocks`, 4 blocks at draft length ``gamma``), for the
+    draft under ``synthetic_acceptance`` ``alpha`` and for n-gram lookup on
+    a period-16 stream (16 lanes, block 16, 64-token budgets), with each
+    one's block timing both ways, its captures at ``init_state`` (one
+    program a draft length of ``gamma_levels``) and its pool's bytes."""
+    import torch
+    from distil_whisper_tpu_torch.generation import graphs
+    from distil_whisper_tpu_torch.serving_engine import \
+        ContinuousBatchingEngine
+    report = {}
+    for name, kw in (("draft_synthetic_0.8",
+                      dict(assistant=draft, synthetic_acceptance=alpha)),
+                     ("ngram_synthetic_period_16",
+                      dict(ngram_speculative=True, synthetic_period=16))):
+        engines = {}
+        for graphed in (False, True):
+            eng = ContinuousBatchingEngine(pipe, lanes=16, block_steps=16,
+                                           max_new_tokens=64, gamma=gamma,
+                                           **kw)
+            eng.graphed = graphed
+            stats0 = graphs.read_stats()
+            t0 = time.perf_counter()
+            eng.init_state()
+            engines[graphed] = (eng, time.perf_counter() - t0,
+                                graph_stats_since(stats0, eng.graphs))
+        seqs = [engine_blocks(engines[g][0], mels, prompt, False, 4)
+                for g in (False, True)]
+        if not all(torch.equal(a, b) for a, b in zip(*seqs)):
+            raise AssertionError(f"engine {name} blocks: graphs differ from "
+                                 f"the eager rounds")
+        row = {g_name: engine_block_timing(engines[g][0], mels, prompt,
+                                           False, blocks=2)
+               for g, g_name in ((False, "plain"), (True, "graph"))}
+        eng = engines[True][0]
+        row.update(gamma_levels=list(eng.gamma_levels),
+                   init_state_s={"plain": engines[False][1],
+                                 "graph": engines[True][1]},
+                   captures=engines[True][2]["captures"],
+                   capture_s=engines[True][2]["capture_s"],
+                   pool_bytes=graphs.pool_bytes(eng.graphs), equal=True)
+        report[name] = row
+        emit({"phase": f"speculative_path.engine_blocks.{name}", **row})
+        del engines, eng
+        torch.cuda.empty_cache()
+    return report
 
 
 # new tokens of the speculative windows (128 until the multi-GPU phase
 # joined the smoke; cut to stay inside the smoke's time)
 SPEC_NEW_TOKENS = 64
+SPEC_ROUNDS_SWEEP = (1, 2, 4, 8)     # rounds a block timed on large-v3
 
 
 def phase_speculative_path(tok, bf16):
@@ -2224,12 +2290,16 @@ def phase_speculative_path(tok, bf16):
     teacher's encoder states.  On the main path's 16 windows, greedy,
     ``SPEC_NEW_TOKENS`` new tokens (the sequential rung's windows too),
     gamma 5: the teacher's plain greedy,
-    draft speculation through ``WhisperPipeline`` (launches counted from 0 around its first
-    call), then the decode loops on the same encoder states: draft,
-    ``synthetic_acceptance`` 0.8 and n-gram lookup with
-    ``synthetic_period`` 16 (both synthetic: their tokens are the oracle's,
-    not the model's); last the sequential t = 0 rung with the draft on 2
-    long files, against the plain t = 0 rung."""
+    draft speculation through ``WhisperPipeline`` (launches counted from 0
+    around its first call, which captures), then the decode loops on the
+    same encoder states: draft, ``synthetic_acceptance`` 0.8 and n-gram
+    lookup with ``synthetic_period`` 16 (both synthetic: their tokens are
+    the oracle's, not the model's), each on CUDA graphs against
+    ``speculate_eager`` bit for bit, and the synthetic 0.8 loop at each
+    of ``SPEC_ROUNDS_SWEEP`` rounds a block; the sequential t = 0 rung
+    with the draft on 2 long files, against the plain t = 0 rung; last
+    the continuous engine: its speculative blocks on graphs against the
+    eager rounds, then serving plain, draft and n-gram traffic."""
     import numpy as np
     import torch
     from distil_whisper_tpu_torch.audio import compute_mel
@@ -2295,8 +2365,9 @@ def phase_speculative_path(tok, bf16):
                                            dtype=dtype))
     if enc.shape != (n, 1500, cfg.d_model) or not torch.isfinite(enc).all():
         raise AssertionError(f"bad teacher encoder states {tuple(enc.shape)}")
+    # the teacher's K/V for the near-tie report (the loops project their
+    # own inside their graphs)
     t_cross = W.cross_kv(teacher["decoder"], pcfg, enc)
-    d_cross = W.cross_kv(draft["decoder"], dpcfg, enc)
     prompt = torch.tensor([tok.prompt_ids(language="en")] * n, device="cuda")
     opts = GenerationOptions.from_config(pcfg, max_new_tokens=max_new,
                                          no_speech_token_id=tok.no_speech)
@@ -2319,7 +2390,7 @@ def phase_speculative_path(tok, bf16):
                                dtype=dtype),
         lambda: generate(teacher["decoder"], pcfg, enc, prompt, opts,
                          dtype=dtype, graphs=plain.graphs),
-        plain.graphs, repeats=1, prompt_len=p)
+        plain.graphs, repeats=0, prompt_len=p)
     report["teacher_graphs"] = {**rep, "captured_at_warm_up": warm_graphs}
     emit({"phase": "compiled_decode_path.teacher_large_v3",
           **report["teacher_graphs"]})
@@ -2357,24 +2428,100 @@ def phase_speculative_path(tok, bf16):
         report[name] = row
         return row
 
-    out, sec = timed(lambda: S.speculative_generate_batched(
-        teacher["decoder"], pcfg, draft["decoder"], dpcfg, t_cross, d_cross,
-        prompt, opts, gamma=gamma, dtype=dtype))
-    loop_report("draft", out, sec, False)
     alpha = 0.8
-    out, sec = timed(lambda: S.speculative_generate_batched(
-        teacher["decoder"], pcfg, draft["decoder"], dpcfg, t_cross, d_cross,
-        prompt, opts, gamma=gamma, dtype=dtype, synthetic_acceptance=alpha))
-    row = loop_report("synthetic_acceptance_0.8", out, sec, True)
+    # each loop on graphs (an owner of its own, warmed by compare_decode's
+    # first call, which captures) against the plain loop, speculate_eager,
+    # bit for bit; numbers a round and a token against the greedy graph's
+    loops = {
+        "draft": (dict(draft=(draft["decoder"], dpcfg, enc)), {}),
+        "synthetic_acceptance_0.8": (
+            dict(draft=(draft["decoder"], dpcfg, enc),
+                 synthetic_acceptance=alpha),
+            dict(synthetic_acceptance=alpha)),
+        "ngram_synthetic_period_16": (
+            dict(max_ngram=3, synthetic_period=16),
+            dict(max_ngram=3, synthetic_period=16))}
+
+    def graph_loop(name, owner):
+        if name.startswith("ngram"):
+            return S.ngram_speculative_generate_batched(
+                teacher["decoder"], pcfg, enc, prompt, opts, gamma=gamma,
+                dtype=dtype, graphs=owner, **loops[name][1])
+        return S.speculative_generate_batched(
+            teacher["decoder"], pcfg, draft["decoder"], dpcfg, enc, enc,
+            prompt, opts, gamma=gamma, dtype=dtype, graphs=owner,
+            **loops[name][1])
+
+    eager_outs = {}
+    for name in loops:
+        owner = graphs.GraphOwner(f"smoke:{name}")
+        rep, out = compare_decode(
+            name, lambda: S.speculate_eager(teacher["decoder"], pcfg, enc,
+                                            prompt, opts, gamma=gamma,
+                                            dtype=dtype, **loops[name][0]),
+            lambda: graph_loop(name, owner), owner, repeats=0, prompt_len=p,
+            profile_plain=False)
+        eager_outs[name] = out
+        rounds_max = int(out.rounds.max())
+        rep["graph"]["device_ms_per_round"] = (rep["graph"]["device_ms"]
+                                               / rounds_max)
+        for side in ("plain", "graph"):
+            rep[side]["wall_ms_per_round"] = rep[side]["wall_ms"] / rounds_max
+            rep[side]["ms_per_token_over_greedy_graph"] = (
+                rep[side]["wall_ms_per_step"]
+                / report["teacher_graphs"]["graph"]["wall_ms_per_step"])
+        rep["rounds_per_block"] = S.ROUNDS_PER_BLOCK
+        row = loop_report(name, out, rep["graph"]["wall_ms"] / 1e3,
+                          name != "draft")
+        row["graphs"] = rep
+        emit({"phase": f"speculative_path.{name}", **row})
+        del owner
+    row = report["synthetic_acceptance_0.8"]
     row["prefix_law_accepted_per_round"] = (alpha * (1 - alpha ** gamma)
                                             / (1 - alpha))
     row["prefix_law_tokens_per_round"] = row[
         "prefix_law_accepted_per_round"] + 1
-    out, sec = timed(lambda: S.ngram_speculative_generate_batched(
-        teacher["decoder"], pcfg, t_cross, prompt, opts, gamma=gamma,
-        max_ngram=3, dtype=dtype, synthetic_period=16))
-    loop_report("ngram_synthetic_period_16", out, sec, True)
-    del t_cross, d_cross, enc
+    # rounds a block, on graphs at each R: the synthetic 0.8 draft loop,
+    # and n-gram lookup (period 16) with the main path's distil-large-v3 as
+    # the teacher, whose rounds cost a tenth of large-v3's
+    sweep_loops = {
+        "large_v3_draft_0.8": lambda owner: graph_loop(
+            "synthetic_acceptance_0.8", owner),
+        "distil_ngram_period_16": lambda owner: (
+            S.ngram_speculative_generate_batched(
+                bf16["params"]["decoder"], dpcfg, bf16["enc"], prompt, opts,
+                gamma=gamma, max_ngram=3, dtype=dtype, synthetic_period=16,
+                graphs=owner))}
+    sweep, rounds_default = {}, S.ROUNDS_PER_BLOCK
+    for loop_name, run in sweep_loops.items():
+        ref = eager_outs.get("synthetic_acceptance_0.8"
+                             if loop_name.startswith("large") else None)
+        sweep[loop_name] = {}
+        for r in SPEC_ROUNDS_SWEEP:
+            owner = graphs.GraphOwner(f"smoke:r{r}")
+            S.ROUNDS_PER_BLOCK = r
+            try:
+                run(owner)                                  # captures
+                walls = []
+                for _ in range(2):
+                    out, sec = timed(lambda: run(owner))
+                    walls.append(sec * 1e3)
+            finally:
+                S.ROUNDS_PER_BLOCK = rounds_default
+            ref = out if ref is None else ref
+            if not outputs_equal(out, ref):
+                raise AssertionError(f"{loop_name}, {r} rounds a block: "
+                                     f"the outputs differ")
+            wall = statistics.median(walls)
+            sweep[loop_name][r] = {
+                "wall_ms": wall, "wall_ms_all": walls,
+                "rounds_max": int(out.rounds.max()),
+                "ms_per_token": wall / (int(out.seq_len.max()) - p),
+                "pool_bytes": graphs.pool_bytes(owner)}
+            del owner
+    report["rounds_sweep"] = sweep
+    emit({"phase": "speculative_path.rounds_sweep", "sweep": sweep})
+    del t_cross, enc
 
     # -- 3. the sequential t = 0 rung with the draft, 2 long files ---------
     # (4 files of 40-75 s before, cut to keep the smoke in its time)
@@ -2426,6 +2573,9 @@ def phase_speculative_path(tok, bf16):
     # -- 4. the continuous engine serving large-v3 --------------------------
     greedy_text = [tok.decode(greedy.sequences[i, :p + 64].tolist())
                    for i in range(n)]
+    report["engine_blocks"] = speculative_engine_blocks(
+        plain, (draft, dcfg), mels, tok.prompt_ids(language="en"), gamma,
+        alpha)
     engines, serving_launches = speculative_engines(
         plain, (draft, dcfg), clips, greedy_text, gamma, alpha)
     report["serving_engine"] = engines
@@ -5025,6 +5175,17 @@ def small_reference_speculative(cfg, mel, tok):
     same = {k: bool(torch.equal(o.sequences.cpu(), golden.sequences)
                     and torch.equal(o.seq_len.cpu(), golden.seq_len))
             for k, o in outs.items()}
+    # the graphs against the plain loop, bit for bit (each call above
+    # captured into an owner of its own)
+    plain_loop = {
+        "draft": S.speculate_eager(
+            gpu["decoder"], tcfg, t_cross, prompt_t, opts, gamma=3,
+            draft=(dgpu["decoder"], dcfg,
+                   W.cross_kv(dgpu["decoder"], dcfg, enc))),
+        "ngram": S.speculate_eager(gpu["decoder"], tcfg, t_cross, prompt_t,
+                                   opts, gamma=3)}
+    graphs_equal = {k: outputs_equal(outs[k], o)
+                    for k, o in plain_loop.items()}
     # a draft equal to the teacher accepts every proposal: every round but
     # a lane's last emits gamma + 1 tokens
     sd = outs["self_draft"]
@@ -5046,6 +5207,7 @@ def small_reference_speculative(cfg, mel, tok):
     spec_gpu = _segment_keys(spec_tr.transcribe(feats))
     emit({"phase": "small_reference_speculative",
           "fp32_tokens_identical_to_cpu_greedy": same,
+          "graphs_equal_to_plain_loop": graphs_equal,
           "generated_tokens": int((golden.seq_len - len(prompt[0])).sum()),
           **{name: {k: getattr(o, k).tolist()
                     for k in ("rounds", "drafted", "accepted")}
@@ -5054,7 +5216,8 @@ def small_reference_speculative(cfg, mel, tok):
           "fp32_sequential_t0_segments_identical": spec_gpu == plain_cpu,
           "sequential_segments": sum(len(r) for r in plain_cpu),
           "sequential_spec_stats": spec_tr.spec_stats})
-    if not (all(same.values()) and self_draft_all and spec_gpu == plain_cpu
+    if not (all(same.values()) and all(graphs_equal.values())
+            and self_draft_all and spec_gpu == plain_cpu
             and spec_tr.spec_stats["rounds"] > 0):
         raise AssertionError("speculation on the card disagrees with the CPU "
                              "greedy on test-tiny")

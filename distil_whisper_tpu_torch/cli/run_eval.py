@@ -49,7 +49,7 @@ from ..generation import (GenerationOptions, SequentialOptions,
 from ..generation.graphs import GraphOwner
 from ..metrics import WordErrors, count_repeated_ngrams, process_words
 from ..models import load_params
-from ..models.whisper import cross_kv, encode
+from ..models.whisper import encode
 from ..parallel.multihost import rank, world_size
 from ..pipeline import WhisperPipeline
 from ..tokenizer import (BasicTextNormalizer, EnglishTextNormalizer,
@@ -227,11 +227,13 @@ def _short(args, pipe, audios, dtype, device):
                                          num_beams=args.num_beams,
                                          dtype=dtype, device=device)
         elif pipe.speculative_method:
+            # through the pipeline's graphs: a timed batch of a shape seen
+            # before replays its program
             with torch.no_grad():
                 enc = encode(params["encoder"], cfg, mels, dtype=dtype)
-                out = pipe.speculate(
-                    mels, enc, cross_kv(params["decoder"], cfg, enc),
-                    torch.tensor(prompts, device=device), opts)
+                out = pipe.speculate(mels, enc,
+                                     torch.tensor(prompts, device=device),
+                                     opts)
         else:
             out = encode_and_generate(params, cfg, mels, prompts, opts,
                                       dtype=dtype, device=device,

@@ -393,19 +393,23 @@ def _load(inputs, cross, prompt_ids, pad_len, temperature) -> None:
         inputs["temperature"].fill_(float(temperature))
 
 
+def _cross_layout(cross) -> Tuple:
+    """The cross-attention input's layout: encoder states or K/V, with
+    shapes and dtypes."""
+    if isinstance(cross, torch.Tensor):
+        return ("states", tuple(cross.shape), cross.dtype)
+    return ("kv",) + tuple((k, tuple(v.shape), v.dtype)
+                           for k, v in sorted(cross.items()))
+
+
 def _program_key(dec_params, cfg: WhisperConfig, opts: GenerationOptions,
                  cross, prompt_ids, pad_len, sot_slot, dtype, steps):
     """JAX's jit key: batch and prompt length, the frozen options (the
     budget, greedy or sampling), the config (the int8 flags), dtype,
     device, the cross-attention input's layout, the block length, and the
     weights' addresses."""
-    if isinstance(cross, torch.Tensor):
-        src = ("states", tuple(cross.shape), cross.dtype)
-    else:
-        src = ("kv",) + tuple((k, tuple(v.shape), v.dtype)
-                              for k, v in sorted(cross.items()))
     return (tuple(prompt_ids.shape), opts, cfg, dtype, prompt_ids.device,
-            src, pad_len is not None, sot_slot, steps,
+            _cross_layout(cross), pad_len is not None, sot_slot, steps,
             G.params_key(dec_params))
 
 

@@ -62,8 +62,9 @@ STATS: Dict[str, float] = {"captures": 0, "replays": 0, "capture_s": 0.0,
 # Programs an owner keeps.  Counted on an H100 by
 # scripts/torch_graph_cache_traffic.py: the micro-batch scheduler's mixed
 # traffic (greedy, sampled, segment and word timestamps at 1-16 rows) made 5
-# programs, 1.09 GB of pool between them; pseudo-labelling, whose short
-# batches are padded to the full one, makes 1.
+# programs, 1.09 GB of pool between them; the same traffic speculating with
+# large-v3 and its distil draft made 5 (2 speculative), 9.16 GB;
+# pseudo-labelling, whose short batches are padded to the full one, makes 1.
 MAX_PROGRAMS = 8
 
 
@@ -164,6 +165,11 @@ class GraphOwner:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
+        # a capture allocates from the owner's pool alone, and while one is
+        # under way the allocator hands no cached block back to the device:
+        # free the cache first, or the pool cannot grow where the cache
+        # holds the memory
+        torch.cuda.empty_cache()
         with self.side(device), _build.recording_launches() as launches:
             graph.capture_begin(pool=self.pool,
                                 capture_error_mode="thread_local")

@@ -39,7 +39,7 @@ from .generate import (GenerationOptions, check_params_device,
 from .graphs import GraphOwner
 from .speculative import (check_method, prepare_assistant,
                           speculate_windows)
-from ..models.whisper import cross_kv, encode
+from ..models.whisper import encode
 
 FRAMES_PER_SECOND = 100   # mel frames per second (hop 160 @ 16 kHz)
 INPUT_STRIDE = 2          # mel frames per 0.02 s timestamp unit
@@ -95,8 +95,9 @@ class SequentialTranscriber:
         self.gamma = int(gamma)
         self.max_ngram = int(max_ngram)
         self.spec_stats = {"drafted": 0, "accepted": 0, "rounds": 0}
-        # the CUDA graphs of the rungs' generate calls: one greedy and one
-        # sampling program a batch size (the temperature is their input)
+        # the CUDA graphs of the rungs' decodes: one greedy and one
+        # sampling program a batch size (the temperature is their input),
+        # or the speculative t = 0 rung's program in place of the greedy one
         self.graphs = GraphOwner("sequential")
         self.params = params
         self.cfg = cfg
@@ -172,12 +173,11 @@ class SequentialTranscriber:
         n-gram loop on the padded prompts; adds the rows' counters to
         ``spec_stats``."""
         enc = encode(self.params["encoder"], self.cfg, mels, dtype=self.dtype)
-        cross = cross_kv(self.params["decoder"], self.cfg, enc)
-        out = speculate_windows(self.params, self.cfg, mels, enc, cross,
-                                prompts, self._gen_opts[False],
-                                self.spec_method, self.assistant, self.gamma,
-                                self.max_ngram, self.dtype, pad_len=pads,
-                                sot_slot=self.sot_slot)
+        out = speculate_windows(self.params, self.cfg, mels, enc, prompts,
+                                self._gen_opts[False], self.spec_method,
+                                self.assistant, self.gamma, self.max_ngram,
+                                self.dtype, pad_len=pads,
+                                sot_slot=self.sot_slot, graphs=self.graphs)
         for key in self.spec_stats:
             self.spec_stats[key] += int(getattr(out, key).sum())
         return out

@@ -16,11 +16,19 @@ The JAX package runs one lane as a ``lax.while_loop`` and batches lanes with
 ``jax.vmap``.  Here the batch is native: every lane keeps its own cursor
 (``decode`` takes per-lane cursors, ``pad_len`` included), its own token
 window and its own counters, and a lane that has finished is frozen with
-``torch.where`` while the others go on, as the vmapped loop freezes it.  A
-round holds all its state as tensors and syncs with the host once, to ask
-whether any lane is still active.  The caches are written in place; a
-finished lane's decode rewrites the slots of its last window, whose values
-no emitted token reads any more.
+``torch.where`` while the others go on, as the vmapped loop freezes it.
+JAX's ``while_loop`` becomes a prefill and blocks of
+:data:`ROUNDS_PER_BLOCK` rounds over fixed state buffers, every round
+written in place, with one read of the device a block (JAX's ``cond``);
+a round after every lane has finished is fully masked and changes no
+output.  On the card the prefill (both models' cross K/V, the prompt's
+decodes, the first token) and the block replay as CUDA graphs
+(:mod:`.graphs`), the counterpart of JAX's one compiled loop; on the CPU
+the same bodies run eagerly.  The caches are written in place; a finished
+lane's decode rewrites the slots of its last window, whose values no
+emitted token reads any more.  :func:`speculate_eager` is the plain
+version (a read of the device every round), held bit for bit against the
+blocked loop, and the loop of a tree sharded over a process group.
 
 The draft's cache holds every accepted token, unlike the reference's: its
 first step of a round feeds the token before the window too, so the slot
@@ -42,15 +50,19 @@ synthetic.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from ..config import WhisperConfig
-from ..models.whisper import cross_kv, decode, encode, init_cache, kv_width
+from ..models.whisper import decode, encode, init_cache, kv_width
 from ..ops.quant import maybe_quantize_encoder
+from . import graphs as G
 from . import logits as L
-from .generate import GenerationOptions, check_params_device
+from .generate import (GenerationOptions, _cross, _cross_layout, _sharded,
+                       check_params_device)
+from .generate import _program_key as _decode_key
 
 
 class SpeculativeOutput(NamedTuple):
@@ -252,83 +264,266 @@ def _propose_ngram(tokens: torch.Tensor, cur, gamma: int, max_ngram: int,
     return torch.where(found[:, None], drafts, pad_id), found
 
 
-def _speculate(teacher_dec: Dict[str, Any], teacher_cfg: WhisperConfig,
-               teacher_cross: Dict[str, Any], prompt_ids: torch.Tensor,
-               opts: GenerationOptions, gamma: int, propose, bias_fn,
-               max_len_cfgs, pad_len, sot_slot, dtype,
-               draft_prefill=None) -> SpeculativeOutput:
-    """The accept/verify loop shared by both methods.
+#: rounds a block: the host reads the device once a block.  Chosen on the
+#: card: ``chip_smoke.py``'s ``speculative_path`` times 1, 2, 4 and 8 on
+#: large-v3 with the distil draft (2 is the continuous engine's rule at
+#: gamma 5) and on distil-large-v3's n-gram loop, and 1 is the fastest on
+#: both (PERF.md §6): a round run past the last lane's end costs a whole
+#: round, more than a host read.
+ROUNDS_PER_BLOCK = 1
 
-    ``propose(tokens, win, ts)`` returns ``(drafts [B, gamma],
-    found [B] or None)``: the draft model's or the n-gram lookup's
-    proposals for the lanes whose last accepted token sits at slot
-    ``win``.  ``bias_fn(scores, pos)`` is the synthetic-token override of
-    the teacher's choices (or None)."""
-    b, p = prompt_ids.shape
-    total = p + opts.max_new_tokens
-    if total > min(c.max_target_positions for c in max_len_cfgs):
-        raise ValueError(f"prompt({p}) + max_new({opts.max_new_tokens}) "
-                         "exceeds the models' max_target_positions")
-    if gamma < 1:
-        raise ValueError(f"gamma must be at least 1, got {gamma}")
-    dev = prompt_ids.device
-    eos, pad = teacher_cfg.eos_token_id, teacher_cfg.pad_token_id
-    prompt_ids = prompt_ids.long()
-    if pad_len is not None:
-        pad_len = pad_len.to(dev).long()
-    # gamma + 1 slots of slack: the verify window may overhang the budget
-    # near the end; the overhang is junk and sliced off below
-    slack = gamma + 1
-    t_cache = init_cache(teacher_cfg, b, dtype=dtype, max_len=total + slack,
-                         device=dev, width=kv_width(teacher_dec))
-    t_logits, _ = decode(teacher_dec, teacher_cfg, prompt_ids,
-                         cross=teacher_cross, cache=t_cache, pos_offset=0,
-                         pad_len=pad_len, dtype=dtype)
-    if draft_prefill is not None:
-        draft_prefill(prompt_ids, total + slack)
-    no_speech_prob = _no_speech(t_logits, opts, pad_len, sot_slot)
 
-    # the first token comes from the teacher's prefill (position p)
-    ts = L.TimestampState.init(b, dev)
-    first = _process(t_logits[:, -1].float(), 0, teacher_cfg, opts, p,
-                     ts_state=ts)
-    if bias_fn is not None:
-        first = bias_fn(first, torch.full((b,), p, device=dev))
-    first_tok = torch.argmax(first, dim=-1)
-    sum_logprobs = torch.log_softmax(first, dim=-1).gather(
-        1, first_tok[:, None])[:, 0]
-    del t_logits, first
+@dataclasses.dataclass(frozen=True)
+class _Method:
+    """What a loop proposes with, part of its program's key: the draft's
+    config (None: n-gram lookup), the draft length, the lookup's longest
+    n-gram and the benchmark knobs."""
+    gamma: int
+    draft_cfg: Optional[WhisperConfig] = None
+    max_ngram: int = 3
+    synthetic_acceptance: Optional[float] = None
+    synthetic_period: Optional[int] = None
+    synthetic_repeat_prob: Optional[float] = None
 
-    tokens = torch.full((b, total + slack), pad, dtype=torch.long, device=dev)
-    tokens[:, :p] = prompt_ids
-    tokens[:, p] = first_tok
-    ts = ts.update(first_tok, teacher_cfg.timestamp_begin)
-    cur = torch.full((b,), p + 1, dtype=torch.long, device=dev)
-    # a lane's window: the slot of its last accepted token while it runs,
-    # its last window's slot once it has finished (in bounds by
-    # construction: the cache never needs clamping)
-    win = cur - 1
-    finished = first_tok == eos
-    rounds = drafted = accepted = torch.zeros((b,), dtype=torch.long,
-                                              device=dev)
-    idx = torch.arange(gamma + 1, device=dev)[None, :]
-    rows = torch.arange(b, device=dev)[:, None]
+
+def _coins(m: _Method, b: int, length: int, device):
+    """The knobs' coins on ``device``, drawn on the host:
+    ``synthetic_acceptance``'s [b, length] (lane ``b`` from seed ``b``) and
+    ``synthetic_repeat_prob``'s [length] (seed 9), each None when its knob
+    is off.  A card gets them from pinned memory, without a sync."""
+    def to_device(x):
+        if torch.device(device).type != "cuda":
+            return x.to(device)
+        return x.pin_memory().to(device, non_blocking=True)
+
+    coins = repeat = None
+    if m.synthetic_acceptance is not None:
+        coins = to_device(torch.stack([
+            synthetic_coins(lane, length, m.synthetic_acceptance)
+            for lane in range(b)]))
+    if (m.synthetic_period is not None
+            and m.synthetic_repeat_prob is not None
+            and m.synthetic_repeat_prob < 1.0):
+        repeat = to_device(synthetic_coins(9, length,
+                                           m.synthetic_repeat_prob))
+    return coins, repeat
+
+
+class _Loop:
+    """One speculative decode's fixed parts (the weights, the method, the
+    options, the prompt length, the left-pad layout and the knobs' coins)
+    and the loop's pieces over a state dict: the prefill, the proposals,
+    the teacher's verify, one round in place, a block of rounds and the
+    output."""
+
+    def __init__(self, teacher_dec, cfg: WhisperConfig, draft_dec,
+                 m: _Method, opts: GenerationOptions, prompt_len: int,
+                 pad_len, sot_slot, coins, repeat, dtype):
+        self.teacher_dec, self.cfg, self.draft_dec, self.m = (
+            teacher_dec, cfg, draft_dec, m)
+        self.opts, self.p, self.dtype = opts, prompt_len, dtype
+        self.pad_len, self.sot_slot, self.coins = pad_len, sot_slot, coins
+        self.total = prompt_len + opts.max_new_tokens
+        self.bias_fn = None
+        if m.synthetic_acceptance is not None:
+            def bias_fn(scores, pos):
+                return _bias_to(scores, _oracle(pos))
+            self.bias_fn = bias_fn
+        elif m.synthetic_period is not None:
+            def bias_fn(scores, pos):
+                return _bias_to(scores, _periodic_oracle(
+                    pos, m.synthetic_period, cfg.vocab_size, repeat))
+            self.bias_fn = bias_fn
+
+    def prefill(self, t_cross, d_cross, prompt_ids) -> Dict[str, Any]:
+        """The state after the prompt: each model's cross K/V (projected
+        here from encoder states) and cache (the draft's holds the prompt
+        but its last token), the no-speech probability, the teacher's
+        first token, and each lane's cursor, window and counters."""
+        cfg, opts, p, dtype = self.cfg, self.opts, self.p, self.dtype
+        b = prompt_ids.shape[0]
+        dev = prompt_ids.device
+        prompt_ids = prompt_ids.long()
+        # gamma + 1 slots of slack: the verify window may overhang the
+        # budget near the end; the overhang is junk and sliced off
+        size = self.total + self.m.gamma + 1
+        s = {"t_cross": _cross(self.teacher_dec, cfg, t_cross),
+             "t_cache": init_cache(cfg, b, dtype=dtype, max_len=size,
+                                   device=dev,
+                                   width=kv_width(self.teacher_dec))}
+        t_logits, _ = decode(self.teacher_dec, cfg, prompt_ids,
+                             cross=s["t_cross"], cache=s["t_cache"],
+                             pos_offset=0, pad_len=self.pad_len, dtype=dtype)
+        d_cfg = self.m.draft_cfg
+        if d_cfg is not None:
+            s["d_cross"] = _cross(self.draft_dec, d_cfg, d_cross)
+            s["d_cache"] = init_cache(d_cfg, b, dtype=dtype, max_len=size,
+                                      device=dev,
+                                      width=kv_width(self.draft_dec))
+            if p > 1:
+                decode(self.draft_dec, d_cfg, prompt_ids[:, :-1],
+                       cross=s["d_cross"], cache=s["d_cache"], pos_offset=0,
+                       pad_len=self.pad_len, dtype=dtype)
+        s["no_speech_prob"] = _no_speech(t_logits, opts, self.pad_len,
+                                         self.sot_slot)
+
+        # the first token comes from the teacher's prefill (position p)
+        ts = L.TimestampState.init(b, dev)
+        first = _process(t_logits[:, -1].float(), 0, cfg, opts, p,
+                         ts_state=ts)
+        if self.bias_fn is not None:
+            first = self.bias_fn(first, torch.full((b,), p, device=dev))
+        first_tok = torch.argmax(first, dim=-1)
+        tokens = torch.full((b, size), cfg.pad_token_id, dtype=torch.long,
+                            device=dev)
+        tokens[:, :p] = prompt_ids
+        tokens[:, p] = first_tok
+
+        def lanes(value):
+            return torch.full((b,), value, dtype=torch.long, device=dev)
+        # a lane's window: the slot of its last accepted token while it
+        # runs, its last window's slot once it has finished (in bounds by
+        # construction: the cache never needs clamping)
+        s.update(tokens=tokens, ts=ts.update(first_tok, cfg.timestamp_begin),
+                 sum_logprobs=torch.log_softmax(first, dim=-1).gather(
+                     1, first_tok[:, None])[:, 0],
+                 cur=lanes(p + 1), win=lanes(p),
+                 finished=first_tok == cfg.eos_token_id,
+                 rounds=lanes(0), drafted=lanes(0), accepted=lanes(0))
+        return s
+
+    def propose(self, s: Dict[str, Any], win: torch.Tensor, ts):
+        """``(drafts [B, gamma], found [B] or None)``: the draft model's or
+        the n-gram lookup's proposals for lanes whose last accepted token
+        sits at slot ``win``."""
+        m, p = self.m, self.p
+        if m.draft_cfg is None:
+            return _propose_ngram(
+                s["tokens"], win + 1, m.gamma, m.max_ngram,
+                self.cfg.pad_token_id,
+                min_start=0 if self.pad_len is None else self.pad_len)
+        # the draft runs the same processor stack and timestamp FSM, from
+        # the accepted prefix's state, so that its proposals are legal.  Its
+        # first step feeds the slots win - 1 and win: slot win - 1 is the
+        # last prompt token in the first round (the prefill stops one
+        # short) and the last proposal after a fully accepted round, which
+        # no step has fed
+        d_cfg = m.draft_cfg
+        tok = s["tokens"].gather(1, torch.stack([win - 1, win], dim=1))
+        start, dts, out = win - 1, ts, []
+        for _ in range(m.gamma):
+            lg, _ = decode(self.draft_dec, d_cfg, tok, cross=s["d_cross"],
+                           cache=s["d_cache"], pos_offset=start,
+                           pad_len=self.pad_len, dtype=self.dtype)
+            pos = start + tok.shape[1]            # the proposal's position
+            scores = _process(lg[:, -1].float(), pos - p, d_cfg, self.opts,
+                              p, ts_state=dts)
+            if self.coins is not None:
+                agree = self.coins.gather(1, pos[:, None])[:, 0]
+                target = torch.where(agree, _oracle(pos), _oracle(pos) + 1)
+                scores = _bias_to(scores, target)
+            nxt = torch.argmax(scores, dim=-1)
+            out.append(nxt)
+            start, tok = pos, nxt[:, None]
+            dts = dts.update(nxt, d_cfg.timestamp_begin)
+        return torch.stack(out, dim=1), None
+
+    def verify(self, s: Dict[str, Any], win: torch.Tensor, ts, drafts):
+        """The teacher's ``gamma + 1``-wide decode of the last accepted
+        token and the proposals at slot ``win``, and the acceptance:
+        ``(window, n_eff, done, t_logp)`` (:func:`_verify_accept`, the
+        teacher's log-probability of each column's choice)."""
+        cfg, gamma = self.cfg, self.m.gamma
+        t_in = torch.cat([s["tokens"].gather(1, win[:, None]), drafts], dim=1)
+        t_logits, _ = decode(self.teacher_dec, cfg, t_in, cross=s["t_cross"],
+                             cache=s["t_cache"], pos_offset=win,
+                             pad_len=self.pad_len, dtype=self.dtype)
+        t_choice, t_logp = _teacher_choices(t_logits, win + 1, self.p, gamma,
+                                            cfg, self.opts, self.bias_fn,
+                                            ts_state=ts, drafts=drafts)
+        del t_logits
+        window, n_eff, done = _verify_accept(t_choice, drafts, win + 1,
+                                             self.total, cfg.eos_token_id,
+                                             gamma)
+        return window, n_eff, done, t_logp
+
+    def round(self, s: Dict[str, Any]) -> None:
+        """One accept/verify round of every lane, in place: every state
+        tensor keeps its storage (a captured block rewrites the same
+        buffers at each replay).  An inactive lane changes nothing but
+        the cache slots of its frozen window, whose values no emitted
+        token reads any more; a round past every lane's end changes no
+        output."""
+        cfg, gamma, total = self.cfg, self.m.gamma, self.total
+        tokens, win, cur = s["tokens"], s["win"], s["cur"]
+        finished, ts = s["finished"], s["ts"]
+        active = ~finished & (cur < total)
+        # the first slot of the verify window: a running lane's cursor
+        base = win + 1
+        drafts, found = self.propose(s, win, ts)
+        window, n_eff, done, t_logp = self.verify(s, win, ts, drafts)
+        idx = torch.arange(gamma + 1, device=tokens.device)[None, :]
+        rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+        at = base[:, None] + idx
+        tokens[rows, at] = torch.where(active[:, None], window,
+                                       tokens[rows, at])
+        emit = (idx <= n_eff[:, None]) & (base[:, None] + idx < total)
+        gained = torch.where(emit, t_logp, 0.0).sum(dim=1)
+        s["sum_logprobs"].copy_(torch.where(active, s["sum_logprobs"]
+                                            + gained, s["sum_logprobs"]))
+        g = gamma if found is None else torch.where(found, gamma, 0)
+        got = n_eff if found is None else torch.minimum(n_eff, g)
+        s["rounds"].add_(active.long())
+        s["drafted"].add_(torch.where(active, g, 0))
+        s["accepted"].add_(torch.where(active, got, 0))
+        new_ts = [torch.where(active, n, o) for n, o in zip(
+            _ts_advance(ts, window, n_eff, cfg.timestamp_begin), ts)]
+        for o, n in zip(ts, new_ts):
+            o.copy_(n)
+        new_cur = base + n_eff + 1
+        win.copy_(torch.where(active & ~done, new_cur - 1, win))
+        finished.copy_(finished | (active & done))
+        cur.copy_(torch.where(active, new_cur, cur))
+
+    def block(self, s: Dict[str, Any], rounds: int) -> torch.Tensor:
+        """``rounds`` rounds; returns whether a lane is still active (a
+        bool [] tensor), the one value the host reads a block."""
+        for _ in range(rounds):
+            self.round(s)
+        return (~s["finished"] & (s["cur"] < self.total)).any()
+
+    def output(self, s: Dict[str, Any]) -> SpeculativeOutput:
+        total = self.total
+        seq_len = torch.clamp(s["cur"], max=total)
+        keep = (torch.arange(total, device=seq_len.device)[None, :]
+                < seq_len[:, None])
+        sequences = torch.where(keep, s["tokens"][:, :total],
+                                self.cfg.pad_token_id)
+        return SpeculativeOutput(sequences=sequences, seq_len=seq_len,
+                                 rounds=s["rounds"], drafted=s["drafted"],
+                                 accepted=s["accepted"],
+                                 sum_logprobs=s["sum_logprobs"],
+                                 no_speech_prob=s["no_speech_prob"])
+
+
+def _run_eager(loop: _Loop, t_cross, d_cross,
+               prompt_ids: torch.Tensor) -> SpeculativeOutput:
+    """The plain loop: one round at a time, every state tensor bound anew
+    each round, and a read of the device a round that stops at the first
+    round where no lane is active."""
+    s = loop.prefill(t_cross, d_cross, prompt_ids)
+    cfg, gamma, total = loop.cfg, loop.m.gamma, loop.total
+    tokens, ts, cur, win = s["tokens"], s["ts"], s["cur"], s["win"]
+    finished, sum_logprobs = s["finished"], s["sum_logprobs"]
+    rounds, drafted, accepted = s["rounds"], s["drafted"], s["accepted"]
+    idx = torch.arange(gamma + 1, device=tokens.device)[None, :]
+    rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
 
     active = ~finished & (cur < total)
     while bool(active.any()):                     # the round's one sync
-        # the first slot of the verify window: a running lane's cursor
         base = win + 1
-        drafts, found = propose(tokens, win, ts)
-        t_in = torch.cat([tokens.gather(1, win[:, None]), drafts], dim=1)
-        t_logits, _ = decode(teacher_dec, teacher_cfg, t_in,
-                             cross=teacher_cross, cache=t_cache,
-                             pos_offset=win, pad_len=pad_len, dtype=dtype)
-        t_choice, t_logp = _teacher_choices(t_logits, base, p, gamma,
-                                            teacher_cfg, opts, bias_fn,
-                                            ts_state=ts, drafts=drafts)
-        del t_logits
-        accepted_vec, n_eff, done = _verify_accept(t_choice, drafts, base,
-                                                   total, eos, gamma)
+        drafts, found = loop.propose(s, win, ts)
+        accepted_vec, n_eff, done, t_logp = loop.verify(s, win, ts, drafts)
         # finished lanes keep their tokens: the write puts back the values
         # already there
         at = base[:, None] + idx
@@ -342,8 +537,7 @@ def _speculate(teacher_dec: Dict[str, Any], teacher_cfg: WhisperConfig,
         rounds = rounds + active.long()
         drafted = drafted + torch.where(active, g, 0)
         accepted = accepted + torch.where(active, got, 0)
-        new_ts = _ts_advance(ts, accepted_vec, n_eff,
-                             teacher_cfg.timestamp_begin)
+        new_ts = _ts_advance(ts, accepted_vec, n_eff, cfg.timestamp_begin)
         ts = L.TimestampState(*(torch.where(active, n, o)
                                 for n, o in zip(new_ts, ts)))
         new_cur = base + n_eff + 1
@@ -351,31 +545,186 @@ def _speculate(teacher_dec: Dict[str, Any], teacher_cfg: WhisperConfig,
         win = torch.where(active & ~done, new_cur - 1, win)
         cur = torch.where(active, new_cur, cur)
         active = ~finished & (cur < total)
+    s.update(cur=cur, sum_logprobs=sum_logprobs, rounds=rounds,
+             drafted=drafted, accepted=accepted)
+    return loop.output(s)
 
-    seq_len = torch.clamp(cur, max=total)
-    keep = torch.arange(total, device=dev)[None, :] < seq_len[:, None]
-    sequences = torch.where(keep, tokens[:, :total], pad)
-    return SpeculativeOutput(sequences=sequences, seq_len=seq_len,
-                             rounds=rounds, drafted=drafted,
-                             accepted=accepted, sum_logprobs=sum_logprobs,
-                             no_speech_prob=no_speech_prob)
+
+def _read_flags(flags: torch.Tensor) -> bool:
+    """The block's one host sync: True when no lane is active."""
+    G.bump("host_syncs")
+    return not bool(flags)
+
+
+class _Program(NamedTuple):
+    """A captured speculative decode: its loop over the static inputs, the
+    prefill and block graphs, and the state and flag they rewrite."""
+    loop: _Loop
+    inputs: Dict[str, Any]
+    prefill: G.Graph
+    block: G.Graph
+    state: Dict[str, Any]
+    flags: torch.Tensor
+
+
+def _static_like(x):
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: torch.empty_like(v) for k, v in x.items()}
+    return torch.empty_like(x)
+
+
+def _load(inputs: Dict[str, Any], values: Dict[str, Any]) -> None:
+    """Copy one call's inputs into a program's static inputs."""
+    for k, v in values.items():
+        if isinstance(v, dict):
+            for n, t in v.items():
+                inputs[k][n].copy_(t)
+        elif v is not None:
+            inputs[k].copy_(v)
+
+
+def _capture(owner: G.GraphOwner, make_loop, values: Dict[str, Any],
+             rounds: int) -> _Program:
+    """Warm the prefill and one round up on the owner's stream, then
+    capture the prefill and a block of ``rounds`` rounds."""
+    device = values["prompt"].device
+    inputs = {k: _static_like(v) for k, v in values.items()}
+    _load(inputs, values)
+    loop = make_loop(inputs["pad_len"], inputs["coins"], inputs["repeat"])
+
+    def prefill():
+        return loop.prefill(inputs["t_cross"], inputs["d_cross"],
+                            inputs["prompt"])
+
+    with owner.side(device):
+        loop.block(prefill(), 1)
+    prefill_graph, state = owner.capture(prefill, device)
+    block_graph, flags = owner.capture(lambda: loop.block(state, rounds),
+                                       device)
+    return _Program(loop, inputs, prefill_graph, block_graph, state, flags)
+
+
+def _program_key(teacher_dec, cfg: WhisperConfig, draft_dec, m: _Method,
+                 t_cross, d_cross, prompt_ids, opts: GenerationOptions,
+                 pad_len, sot_slot, dtype, rounds: int):
+    """The key of ``generate``'s program for the teacher's decode (rounds in
+    place of steps) with the method (draft length, lookup, knobs and the
+    draft's config), the draft's cross-attention layout and the draft's
+    weights."""
+    return ((m, None if d_cross is None else _cross_layout(d_cross),
+             () if draft_dec is None else G.params_key(draft_dec))
+            + _decode_key(teacher_dec, cfg, opts, t_cross, prompt_ids,
+                          pad_len, sot_slot, dtype, rounds))
+
+
+def _speculate(teacher_dec: Dict[str, Any], cfg: WhisperConfig, draft_dec,
+               m: _Method, t_cross, d_cross, prompt_ids: torch.Tensor,
+               opts: GenerationOptions, pad_len, sot_slot, dtype,
+               graphs: Optional[G.GraphOwner],
+               eager: bool = False) -> SpeculativeOutput:
+    """Both methods' loop: checks, the knobs' coins, then the plain loop
+    (``eager``, or a tree sharded over a process group), the blocked loop
+    run eagerly (CPU tensors) or its captured program (CUDA tensors)."""
+    b, p = prompt_ids.shape
+    limit = min(c.max_target_positions
+                for c in (cfg, m.draft_cfg) if c is not None)
+    if p + opts.max_new_tokens > limit:
+        raise ValueError(f"prompt({p}) + max_new({opts.max_new_tokens}) "
+                         "exceeds the models' max_target_positions")
+    if m.gamma < 1:
+        raise ValueError(f"gamma must be at least 1, got {m.gamma}")
+    dev = prompt_ids.device
+    if pad_len is not None:
+        pad_len = pad_len.to(dev).long()
+    coins, repeat = _coins(m, b, p + opts.max_new_tokens + m.gamma + 1, dev)
+
+    def make_loop(pad_len, coins, repeat):
+        return _Loop(teacher_dec, cfg, draft_dec, m, opts, p, pad_len,
+                     sot_slot, coins, repeat, dtype)
+
+    if eager or _sharded(teacher_dec, cfg):
+        # collectives inside a round cannot be captured (gloo) and every
+        # rank must stop where the others stop: the plain loop
+        return _run_eager(make_loop(pad_len, coins, repeat), t_cross,
+                          d_cross, prompt_ids)
+    rounds = ROUNDS_PER_BLOCK
+    if dev.type != "cuda":
+        loop = make_loop(pad_len, coins, repeat)
+        s = loop.prefill(t_cross, d_cross, prompt_ids)
+        while not _read_flags(loop.block(s, rounds)):
+            pass
+        return loop.output(s)
+
+    owner = graphs if graphs is not None else G.GraphOwner("speculate")
+    values = dict(t_cross=t_cross, d_cross=d_cross, prompt=prompt_ids.long(),
+                  pad_len=pad_len, coins=coins, repeat=repeat)
+    key = _program_key(teacher_dec, cfg, draft_dec, m, t_cross, d_cross,
+                       prompt_ids, opts, pad_len, sot_slot, dtype, rounds)
+    with owner.lock:
+        prog = owner.entry(key, lambda: _capture(owner, make_loop, values,
+                                                 rounds))
+        _load(prog.inputs, values)
+        with owner.side(dev):
+            prog.prefill.replay()
+            while True:
+                prog.block.replay()
+                if _read_flags(prog.flags):
+                    break
+            # the state is rewritten by the next call: hand out copies
+            return SpeculativeOutput(*(t.clone() for t in
+                                       prog.loop.output(prog.state)))
+
+
+@torch.no_grad()
+def speculate_eager(teacher_dec: Dict[str, Any], teacher_cfg: WhisperConfig,
+                    teacher_cross, prompt_ids: torch.Tensor,
+                    opts: GenerationOptions, gamma: int = 5, draft=None,
+                    max_ngram: int = 3, dtype: torch.dtype = torch.float32,
+                    synthetic_acceptance: Optional[float] = None,
+                    synthetic_period: Optional[int] = None,
+                    synthetic_repeat_prob: Optional[float] = None,
+                    pad_len: Optional[torch.Tensor] = None,
+                    sot_slot: Optional[int] = None) -> SpeculativeOutput:
+    """The plain version of both methods: the accept/verify loop one
+    round at a time, reading the device every round and stopping at the
+    first round where no lane is active.  ``draft=(draft_dec, draft_cfg,
+    draft_cross)`` speculates with a draft model, None by n-gram lookup;
+    the other arguments are those of :func:`speculative_generate_batched`
+    and :func:`ngram_speculative_generate_batched`.  Tests and the smoke
+    hold the blocked loops against it bit for bit, and a tree sharded over
+    a process group speculates through it."""
+    d_dec, d_cfg, d_cross = draft if draft is not None else (None,) * 3
+    m = _Method(int(gamma), d_cfg, int(max_ngram), synthetic_acceptance,
+                synthetic_period, synthetic_repeat_prob)
+    return _speculate(teacher_dec, teacher_cfg, d_dec, m, teacher_cross,
+                      d_cross, prompt_ids, opts, pad_len, sot_slot, dtype,
+                      None, eager=True)
 
 
 @torch.no_grad()
 def speculative_generate_batched(
         teacher_dec: Dict[str, Any], teacher_cfg: WhisperConfig,
         draft_dec: Dict[str, Any], draft_cfg: WhisperConfig,
-        teacher_cross: Dict[str, Any], draft_cross: Dict[str, Any],
+        teacher_cross, draft_cross,
         prompt_ids: torch.Tensor, opts: GenerationOptions,
         gamma: int = 5, dtype: torch.dtype = torch.float32,
         synthetic_acceptance: Optional[float] = None,
         pad_len: Optional[torch.Tensor] = None,
-        sot_slot: Optional[int] = None) -> SpeculativeOutput:
+        sot_slot: Optional[int] = None,
+        graphs: Optional[G.GraphOwner] = None) -> SpeculativeOutput:
     """Greedy speculative decoding of a batch of lanes: the draft
     (``draft_dec`` on its own ``draft_cross``, often the teacher's encoder
-    states projected by the draft) proposes ``gamma`` tokens a round, the
-    teacher verifies them in one decode.  Token for token the teacher's
-    greedy ``generate``, with ``opts.return_timestamps`` too.
+    states) proposes ``gamma`` tokens a round, the teacher verifies them in
+    one decode.  Token for token the teacher's greedy ``generate``, with
+    ``opts.return_timestamps`` too.
+
+    ``teacher_cross`` and ``draft_cross`` are encoder states [B, T, d]
+    (each model's cross K/V are then projected inside the prefill: on the
+    card inside its graph, never copied) or precomputed K/V
+    (:func:`...models.cross_kv`, copied once a call into the graph's
+    buffers on the card).
 
     ``pad_len`` [B] and ``sot_slot`` take the left-padded prompt layout of
     :mod:`.sequential`; with ``sum_logprobs`` and ``no_speech_prob`` this is
@@ -387,78 +736,38 @@ def speculative_generate_batched(
     draws its coins from seed ``b``), so a round accepts the prefix law's
     share.  The output tokens are then synthetic.
 
+    The rounds run in blocks of :data:`ROUNDS_PER_BLOCK` with one read of
+    the device a block.  On a CUDA tensor the prefill and the block replay
+    as CUDA graphs, captured at the first call of each shape and setting
+    into ``graphs`` (an owner's pool, stream and cache; without one the
+    call captures into an owner of its own, freed when it returns).  A
+    failed capture raises.  A tree sharded over a process group decodes
+    through :func:`speculate_eager`.
+
     Returns per-lane ``rounds``, ``drafted`` and ``accepted`` [B]."""
-    b, p = prompt_ids.shape
-    dev = prompt_ids.device
-    slack = gamma + 1
-    total_len = p + opts.max_new_tokens + slack
-    bias_fn = None
-    coins = None
-    if synthetic_acceptance is not None:
-        coins = torch.stack([synthetic_coins(lane, total_len,
-                                             synthetic_acceptance, dev)
-                             for lane in range(b)])
-
-        def bias_fn(scores, pos):
-            return _bias_to(scores, _oracle(pos))
-
-    state = {}
-
-    def prefill(prompt, max_len):
-        state["cache"] = init_cache(draft_cfg, b, dtype=dtype,
-                                    max_len=max_len, device=dev,
-                                    width=kv_width(draft_dec))
-        if p > 1:
-            decode(draft_dec, draft_cfg, prompt[:, :-1], cross=draft_cross,
-                   cache=state["cache"], pos_offset=0, pad_len=pad_len,
-                   dtype=dtype)
-
-    def propose(tokens, win, ts):
-        # the draft runs the same processor stack and timestamp FSM, from
-        # the accepted prefix's state, so that its proposals are legal.  Its
-        # first step feeds the slots win - 1 and win: slot win - 1 is the
-        # last prompt token in the first round (the prefill stops one
-        # short) and the last proposal after a fully accepted round, which
-        # no step has fed
-        tok = tokens.gather(1, torch.stack([win - 1, win], dim=1))
-        start, dts, out = win - 1, ts, []
-        for _ in range(gamma):
-            lg, _ = decode(draft_dec, draft_cfg, tok, cross=draft_cross,
-                           cache=state["cache"], pos_offset=start,
-                           pad_len=pad_len, dtype=dtype)
-            pos = start + tok.shape[1]            # the proposal's position
-            scores = _process(lg[:, -1].float(), pos - p, draft_cfg, opts, p,
-                              ts_state=dts)
-            if coins is not None:
-                agree = coins.gather(1, pos[:, None])[:, 0]
-                target = torch.where(agree, _oracle(pos), _oracle(pos) + 1)
-                scores = _bias_to(scores, target)
-            nxt = torch.argmax(scores, dim=-1)
-            out.append(nxt)
-            start, tok = pos, nxt[:, None]
-            dts = dts.update(nxt, draft_cfg.timestamp_begin)
-        return torch.stack(out, dim=1), None
-
-    return _speculate(teacher_dec, teacher_cfg, teacher_cross, prompt_ids,
-                      opts, gamma, propose, bias_fn, (teacher_cfg, draft_cfg),
-                      pad_len, sot_slot, dtype, draft_prefill=prefill)
+    m = _Method(int(gamma), draft_cfg,
+                synthetic_acceptance=synthetic_acceptance)
+    return _speculate(teacher_dec, teacher_cfg, draft_dec, m, teacher_cross,
+                      draft_cross, prompt_ids, opts, pad_len, sot_slot, dtype,
+                      graphs)
 
 
 @torch.no_grad()
 def ngram_speculative_generate_batched(
         teacher_dec: Dict[str, Any], teacher_cfg: WhisperConfig,
-        teacher_cross: Dict[str, Any],
-        prompt_ids: torch.Tensor, opts: GenerationOptions,
+        teacher_cross, prompt_ids: torch.Tensor, opts: GenerationOptions,
         gamma: int = 5, max_ngram: int = 3,
         dtype: torch.dtype = torch.float32,
         synthetic_period: Optional[int] = None,
         synthetic_repeat_prob: Optional[float] = None,
         pad_len: Optional[torch.Tensor] = None,
-        sot_slot: Optional[int] = None) -> SpeculativeOutput:
+        sot_slot: Optional[int] = None,
+        graphs: Optional[G.GraphOwner] = None) -> SpeculativeOutput:
     """Prompt-lookup decoding: speculation with no draft model.  Proposals
     are copied from the continuation of the most recent repeat of each
     lane's last n-gram (:func:`_propose_ngram`); the teacher verifies as in
-    :func:`speculative_generate_batched`, so the output is its greedy
+    :func:`speculative_generate_batched` (``teacher_cross``, the blocks,
+    the graphs and ``graphs`` as there), so the output is its greedy
     output.  ``drafted`` and ``accepted`` count rounds whose lookup found a
     match.
 
@@ -467,28 +776,11 @@ def ngram_speculative_generate_batched(
     ``synthetic_repeat_prob`` q dilutes it (each position repeats with
     probability q, else takes a unique filler token).  Output tokens are
     then synthetic."""
-    b, p = prompt_ids.shape
-    dev = prompt_ids.device
-    total_len = p + opts.max_new_tokens + gamma + 1
-    bias_fn = None
-    if synthetic_period is not None:
-        repeat = None
-        if synthetic_repeat_prob is not None and synthetic_repeat_prob < 1.0:
-            repeat = synthetic_coins(9, total_len, synthetic_repeat_prob, dev)
-
-        def bias_fn(scores, pos):
-            return _bias_to(scores, _periodic_oracle(
-                pos, synthetic_period, teacher_cfg.vocab_size, repeat))
-
-    min_start = 0 if pad_len is None else pad_len.to(dev).long()
-
-    def propose(tokens, win, ts):
-        return _propose_ngram(tokens, win + 1, gamma, max_ngram,
-                              teacher_cfg.pad_token_id, min_start=min_start)
-
-    return _speculate(teacher_dec, teacher_cfg, teacher_cross, prompt_ids,
-                      opts, gamma, propose, bias_fn, (teacher_cfg,), pad_len,
-                      sot_slot, dtype)
+    m = _Method(int(gamma), None, int(max_ngram),
+                synthetic_period=synthetic_period,
+                synthetic_repeat_prob=synthetic_repeat_prob)
+    return _speculate(teacher_dec, teacher_cfg, None, m, teacher_cross, None,
+                      prompt_ids, opts, pad_len, sot_slot, dtype, graphs)
 
 
 def check_method(method: Optional[str], assistant) -> None:
@@ -528,27 +820,29 @@ def prepare_assistant(assistant, dtype: torch.dtype, device, mesh=None):
 
 def speculate_windows(params: Dict[str, Any], cfg: WhisperConfig,
                       mels: torch.Tensor, enc: torch.Tensor,
-                      cross: Dict[str, Any], prompt_ids: torch.Tensor,
-                      opts: GenerationOptions, method: str, assistant=None,
-                      gamma: int = 5, max_ngram: int = 3,
-                      dtype: torch.dtype = torch.float32,
+                      prompt_ids: torch.Tensor, opts: GenerationOptions,
+                      method: str, assistant=None, gamma: int = 5,
+                      max_ngram: int = 3, dtype: torch.dtype = torch.float32,
                       pad_len: Optional[torch.Tensor] = None,
-                      sot_slot: Optional[int] = None) -> SpeculativeOutput:
+                      sot_slot: Optional[int] = None,
+                      graphs: Optional[G.GraphOwner] = None
+                      ) -> SpeculativeOutput:
     """Speculative greedy decode of a batch of windows whose teacher
-    encoder states and cross K/V are ``enc`` and ``cross``: ``method``
-    "ngram", or "draft" with ``assistant=(draft_params, draft_cfg)``.  A
-    draft of the teacher's width shares the teacher's encoder states (a
-    distil draft keeps the teacher's encoder); another encodes ``mels``
-    with its own encoder."""
+    encoder states are ``enc``: ``method`` "ngram", or "draft" with
+    ``assistant=(draft_params, draft_cfg)``, in ``graphs``' programs on the
+    card.  A draft of the teacher's width shares the teacher's encoder
+    states (a distil draft keeps the teacher's encoder); another encodes
+    ``mels`` with its own encoder.  Each model's cross K/V are projected
+    inside the loop's prefill."""
     if method == "ngram":
         return ngram_speculative_generate_batched(
-            params["decoder"], cfg, cross, prompt_ids, opts, gamma=gamma,
+            params["decoder"], cfg, enc, prompt_ids, opts, gamma=gamma,
             max_ngram=max_ngram, dtype=dtype, pad_len=pad_len,
-            sot_slot=sot_slot)
+            sot_slot=sot_slot, graphs=graphs)
     d_params, d_cfg = assistant
     d_enc = (enc if d_cfg.d_model == cfg.d_model
              else encode(d_params["encoder"], d_cfg, mels, dtype=dtype))
     return speculative_generate_batched(
-        params["decoder"], cfg, d_params["decoder"], d_cfg, cross,
-        cross_kv(d_params["decoder"], d_cfg, d_enc), prompt_ids, opts,
-        gamma=gamma, dtype=dtype, pad_len=pad_len, sot_slot=sot_slot)
+        params["decoder"], cfg, d_params["decoder"], d_cfg, enc, d_enc,
+        prompt_ids, opts, gamma=gamma, dtype=dtype, pad_len=pad_len,
+        sot_slot=sot_slot, graphs=graphs)

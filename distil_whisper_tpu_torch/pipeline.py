@@ -117,8 +117,8 @@ class WhisperPipeline:
         self.gamma = int(gamma)
         self.max_ngram = int(max_ngram)
         self.spec_stats = {"drafted": 0, "accepted": 0}
-        # the CUDA graphs of this pipeline's generate calls (one program a
-        # batch size and setting; :mod:`.generation.graphs`)
+        # the CUDA graphs of this pipeline's generate and speculative calls
+        # (one program a batch size and setting; :mod:`.generation.graphs`)
         self.graphs = GraphOwner("pipeline")
 
     # ------------------------------------------------------------------
@@ -213,8 +213,9 @@ class WhisperPipeline:
         cfg, dec = self.cfg, self.params["decoder"]
         prompt_ids = torch.tensor(prompts, dtype=torch.long, device=self.device)
         enc = encode(self.params["encoder"], cfg, mels, dtype=self.dtype)
-        # generate projects the cross K/V itself (inside its graph on the
-        # card); beam search and speculation stay eager and take them here
+        # generate and speculation project the cross K/V themselves
+        # (inside their graphs on the card); beam search stays eager and
+        # takes them here
         cross = None
         if num_beams > 1:
             cross = cross_kv(dec, cfg, enc)
@@ -224,8 +225,7 @@ class WhisperPipeline:
         elif (self.speculative_method and num_frames is None
               and not opts.do_sample):
             # token for token the greedy program's output
-            cross = cross_kv(dec, cfg, enc)
-            out = self.speculate(mels, enc, cross, prompt_ids, opts)
+            out = self.speculate(mels, enc, prompt_ids, opts)
         else:
             out = generate(dec, cfg, enc, prompt_ids, opts, temperature=0.0,
                            dtype=self.dtype, graphs=self.graphs)
@@ -244,15 +244,16 @@ class WhisperPipeline:
             seq_lens=lens, num_frames=num_frames)
         return seqs, lens, times
 
-    def speculate(self, mels: torch.Tensor, enc: torch.Tensor, cross,
+    def speculate(self, mels: torch.Tensor, enc: torch.Tensor,
                   prompt_ids: torch.Tensor, opts: GenerationOptions):
         """Speculative greedy decode of one batch of windows (encoder states
-        ``enc``, cross K/V ``cross``) by the pipeline's method; adds the
-        batch's drafted and accepted counts to ``spec_stats``."""
-        out = speculate_windows(self.params, self.cfg, mels, enc, cross,
-                                prompt_ids, opts, self.speculative_method,
-                                self.assistant, self.gamma, self.max_ngram,
-                                self.dtype)
+        ``enc``) by the pipeline's method, in the pipeline's graphs on the
+        card; adds the batch's drafted and accepted counts to
+        ``spec_stats``."""
+        out = speculate_windows(self.params, self.cfg, mels, enc, prompt_ids,
+                                opts, self.speculative_method, self.assistant,
+                                self.gamma, self.max_ngram, self.dtype,
+                                graphs=self.graphs)
         self.spec_stats["drafted"] += int(out.drafted.sum())
         self.spec_stats["accepted"] += int(out.accepted.sum())
         return out

@@ -725,24 +725,27 @@ class BatchingTranscriber(_StatsMixin):
         finally:
             r.done.set()
 
-    def _speculate(self, mels, enc, cross, prompts, opts, gamma: int):
-        """Speculative greedy decode of one group (draft or n-gram); the
-        draft shares the teacher's encoder states when the widths match."""
+    def _speculate(self, mels, enc, prompts, opts, gamma: int):
+        """Speculative greedy decode of one group (draft or n-gram) in the
+        pipeline's graphs on the card; the draft shares the teacher's
+        encoder states when the widths match, and each model's cross K/V
+        are projected inside the loop's prefill."""
         pipe, cfg = self.pipe, self.pipe.cfg
         dec = pipe.params["decoder"]
         if self.ngram:
             return ngram_speculative_generate_batched(
-                dec, cfg, cross, prompts, opts, gamma=gamma,
-                max_ngram=self.max_ngram, dtype=pipe.dtype)
+                dec, cfg, enc, prompts, opts, gamma=gamma,
+                max_ngram=self.max_ngram, dtype=pipe.dtype,
+                graphs=pipe.graphs)
         d_params, d_cfg = self.assistant
         d_enc = (enc if d_cfg.d_model == cfg.d_model
                  else encode(d_params["encoder"], d_cfg, mels,
                              dtype=pipe.dtype))
         return speculative_generate_batched(
-            dec, cfg, d_params["decoder"], d_cfg, cross,
-            cross_kv(d_params["decoder"], d_cfg, d_enc), prompts, opts,
+            dec, cfg, d_params["decoder"], d_cfg, enc, d_enc, prompts, opts,
             gamma=gamma, dtype=pipe.dtype,
-            synthetic_acceptance=self.synthetic_acceptance)
+            synthetic_acceptance=self.synthetic_acceptance,
+            graphs=pipe.graphs)
 
     @torch.no_grad()
     def _run_short_group(self, reqs: List[_Request], language, task: str,
@@ -788,8 +791,8 @@ class BatchingTranscriber(_StatsMixin):
                 enc = encode(pipe.params["encoder"], cfg, mels[rows],
                              dtype=pipe.dtype)
                 counts = (None, None)
-                # generate projects the cross K/V inside its graph on the
-                # card; beam search and speculation stay eager
+                # generate and speculation project the cross K/V inside
+                # their graphs on the card; beam search stays eager
                 if num_beams > 1:
                     out = beam_search(dec, cfg, cross_kv(dec, cfg, enc),
                                       prompts[rows], opts,
@@ -803,9 +806,8 @@ class BatchingTranscriber(_StatsMixin):
                 elif speculate:
                     # token-identical to the greedy path; faster whenever
                     # the acceptance earns back the draft's cost
-                    out = self._speculate(mels[rows], enc,
-                                          cross_kv(dec, cfg, enc),
-                                          prompts[rows], opts, g)
+                    out = self._speculate(mels[rows], enc, prompts[rows],
+                                          opts, g)
                     counts = (out.drafted.cpu().numpy(),
                               out.accepted.cpu().numpy())
                 else:

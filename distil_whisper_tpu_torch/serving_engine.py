@@ -155,13 +155,17 @@ def sample_lanes(scores: torch.Tensor, temp: torch.Tensor,
 
 
 def synthetic_agree(tok_pos: torch.Tensor, lane: torch.Tensor,
-                    prob: float) -> torch.Tensor:
+                    prob) -> torch.Tensor:
     """The engine's ``synthetic_acceptance`` coins, JAX's hash exactly: a
     uint32 ``pos * 2654435761 + lane * 97423``, its top 24 bits over 2**24
-    as fp32, below ``prob``.  Lanes accept and reject independently."""
+    as fp32, below ``prob`` (a number, or an fp32 0-dim tensor on the
+    coins' device, which a captured block reads without a copy from the
+    host).  Lanes accept and reject independently."""
     h = (_mul32(tok_pos & _M32, 2654435761) + _mul32(lane, 97423)) & _M32
     u = (h >> 8).float() / 2 ** 24
-    return u < torch.tensor(prob, dtype=torch.float32, device=u.device)
+    if not isinstance(prob, torch.Tensor):
+        prob = torch.tensor(prob, dtype=torch.float32, device=u.device)
+    return u < prob
 
 
 def periodic_oracle(tok_pos: torch.Tensor, lane: torch.Tensor,
@@ -255,6 +259,11 @@ class ContinuousBatchingEngine:
                 "synthetic_acceptance pins a DRAFT's agreement; for ngram "
                 "use synthetic_period (repeating-text oracle)")
         self.synthetic_acceptance = synthetic_acceptance
+        # its fp32 threshold, made once on the card (a fill, no copy)
+        self._agree_below = (
+            None if synthetic_acceptance is None
+            else torch.full((), float(synthetic_acceptance),
+                            dtype=torch.float32, device=self.device))
         # longest possible prompt: [sot, lang?, task?, notimestamps]
         langs = sorted(self.tok.lang_to_id) or [None]
         self.p_max = len(self.tok.prompt_ids(
@@ -268,8 +277,12 @@ class ContinuousBatchingEngine:
             raise ValueError("draft max_target_positions too small for the "
                              "serve budget")
         # adaptive-gamma headroom: buffers are sized once for the largest
-        # rung the transcriber's controller may pick
+        # rung the transcriber's controller may pick, among its levels
+        # {gamma/2, gamma, 2 gamma}
         self.gamma_max = 2 * self.gamma if self.spec else 0
+        self.gamma_levels = (
+            tuple(sorted({max(1, self.gamma // 2), self.gamma,
+                          self.gamma_max})) if self.spec else ())
         # scratch slack: a frozen lane keeps writing (token, K/V) at its
         # frozen cursor, which may equal t_store; a speculative round writes
         # a gamma + 1 wide window at the cursor
@@ -278,17 +291,18 @@ class ContinuousBatchingEngine:
             self.cfg, max_new_tokens=self.max_new, return_timestamps=True,
             no_speech_token_id=self.tok.no_speech)
         self._state: Optional[Dict[str, Any]] = None
-        # the greedy and sampling blocks run as CUDA graphs on the card;
-        # speculative rounds and a meshed engine (collectives) stay eager
-        self.graphed = (self.device.type == "cuda" and not self.spec
-                        and mesh is None)
+        # the greedy and sampling blocks, or the speculative blocks at each
+        # draft length, run as CUDA graphs on the card; a meshed engine
+        # (collectives) stays eager
+        self.graphed = self.device.type == "cuda" and mesh is None
         self.graphs = GraphOwner("engine")
-        self._blocks: Dict[bool, Any] = {}
+        self._blocks: Dict[Any, Any] = {}
 
     # ------------------------------------------------------------- state
     def init_state(self) -> Dict[str, Any]:
         """Allocate the lanes' state (every lane finished) and, on the card,
-        capture the greedy and the sampling block over it."""
+        capture the greedy and the sampling block over it, or the
+        speculative block at each of :attr:`gamma_levels`."""
         b, cfg, dev = self.local, self.cfg, self.device
         width = kv_width(self.pipe.params["decoder"])
 
@@ -333,26 +347,36 @@ class ContinuousBatchingEngine:
             self._capture_blocks()
         return self._state
 
-    def _block(self, sampling: bool) -> torch.Tensor:
-        """``block_steps`` greedy steps; returns the packed vector."""
+    def _block(self, variant) -> torch.Tensor:
+        """One block, in place; returns the packed vector.  ``variant`` is
+        the sampling flag of ``block_steps`` greedy steps or, on a
+        speculative engine, the draft length of
+        ``max(1, block_steps // (variant + 1))`` rounds."""
         s = self._state
-        for _ in range(self.block_steps):
-            self._greedy_step(s, sampling)
-        return torch.cat([s["finished"].long(), s["pos"],
-                          s["tokens"].reshape(-1)])
+        if self.spec:
+            for _ in range(max(1, self.block_steps // (variant + 1))):
+                self._spec_round(s, variant)
+            head = [s["finished"].long(), s["pos"], s["drafted"],
+                    s["accepted"]]
+        else:
+            for _ in range(self.block_steps):
+                self._greedy_step(s, variant)
+            head = [s["finished"].long(), s["pos"]]
+        return torch.cat(head + [s["tokens"].reshape(-1)])
 
     def _capture_blocks(self) -> None:
-        """Capture the greedy and the sampling block over the state's
+        """Capture the greedy and the sampling block (a speculative
+        engine: the block at each of :attr:`gamma_levels`) over the state's
         buffers, after a warm-up of each on the owner's stream.  Every lane
         is finished here, so the warm-up changes no lane's content (frozen
-        lanes write a pad and K/V at their frozen slot, which admission
+        lanes write pads and K/V at their frozen slots, which admission
         overwrites)."""
+        variants = self.gamma_levels if self.spec else (False, True)
         with self.graphs.side(self.device):
-            for sampling in (False, True):
-                self._block(sampling)
-        self._blocks = {sampling: self.graphs.capture(
-            lambda sampling=sampling: self._block(sampling), self.device)
-            for sampling in (False, True)}
+            for v in variants:
+                self._block(v)
+        self._blocks = {v: self.graphs.capture(
+            lambda v=v: self._block(v), self.device) for v in variants}
 
     # ------------------------------------------------------------- step
     def _greedy_step(self, s: Dict[str, Any], sampling: bool) -> None:
@@ -423,7 +447,7 @@ class ContinuousBatchingEngine:
                               plen, ts_state=dts, use_ts=s["use_ts"])
             if self.synthetic_acceptance is not None:
                 agree = synthetic_agree(tok_pos, rows + self.lane0,
-                                        self.synthetic_acceptance)
+                                        self._agree_below)
                 oracle = _oracle(tok_pos)
                 scores = _bias_to(scores, torch.where(agree, oracle,
                                                       oracle + 1))
@@ -437,10 +461,13 @@ class ContinuousBatchingEngine:
         (gamma + 1)-wide teacher decode, and the emitted window — the
         accepted prefix and the teacher's token after it, cut by EOS and
         the lane's budget.  Built from :mod:`.generation.speculative`'s
-        primitives; frozen lanes emit nothing."""
+        primitives; frozen lanes emit nothing.  Every state tensor keeps its
+        storage (a captured block reads and writes the same buffers at each
+        replay)."""
         cfg, b, dev = self.cfg, self.local, self.device
         pad, eos = cfg.pad_token_id, cfg.eos_token_id
-        frozen, pos, plen = s["finished"], s["pos"], s["prompt_len"]
+        frozen, pos = s["finished"].clone(), s["pos"].clone()
+        plen = s["prompt_len"]
         last_tok = s["tokens"].gather(1, (pos - 1)[:, None])[:, 0]
         if self.ngram:
             drafts, found = _propose_ngram(s["tokens"], pos, gamma,
@@ -456,8 +483,8 @@ class ContinuousBatchingEngine:
             def bias_fn(scores, p):
                 return _bias_to(scores, _oracle(p))
         elif self.synthetic_period is not None:
-            lane = (torch.arange(b, device=dev) + self.lane0
-                    ).repeat_interleave(gamma + 1)
+            lane = (torch.arange(b, device=dev) + self.lane0)[:, None] \
+                .expand(b, gamma + 1).reshape(-1)
 
             def bias_fn(scores, p):
                 return _bias_to(scores, periodic_oracle(
@@ -477,20 +504,19 @@ class ContinuousBatchingEngine:
         # a frozen lane writes pads over its scratch window
         s["tokens"][rows, pos[:, None] + idx] = torch.where(emitted, window,
                                                             pad)
-        s["sum_logprobs"] = s["sum_logprobs"] + torch.where(
-            emitted, t_logp, 0.0).sum(dim=1)
-        new_ts = _ts_advance(s["ts"], window, (emit - 1).clamp(min=0),
-                             cfg.timestamp_begin)
-        s["ts"] = L.TimestampState(*(torch.where(emit > 0, n, o)
-                                     for n, o in zip(new_ts, s["ts"])))
-        s["finished"] = frozen | done
+        s["sum_logprobs"].add_(torch.where(emitted, t_logp, 0.0).sum(dim=1))
+        new_ts = [torch.where(emit > 0, n, o) for n, o in zip(
+            _ts_advance(s["ts"], window, (emit - 1).clamp(min=0),
+                        cfg.timestamp_begin), s["ts"])]
+        for o, n in zip(s["ts"], new_ts):
+            o.copy_(n)
+        s["finished"].copy_(frozen | done)
         # drafted and accepted move together: a round whose lookup found no
         # match credits neither
         dead = frozen if found is None else frozen | ~found
-        s["drafted"] = s["drafted"] + torch.where(dead, 0, gamma)
-        s["accepted"] = s["accepted"] + torch.where(
-            dead, 0, (emit - 1).clamp(min=0))
-        s["pos"] = pos + emit
+        s["drafted"].add_(torch.where(dead, 0, gamma))
+        s["accepted"].add_(torch.where(dead, 0, (emit - 1).clamp(min=0)))
+        s["pos"].add_(emit)
 
     @torch.no_grad()
     def step(self, sampling: bool = False,
@@ -505,25 +531,26 @@ class ContinuousBatchingEngine:
         vector holds every lane, gathered over the ranks."""
         if self._state is None:
             raise RuntimeError("call init_state() first")
-        s = self._state
-        if not self.spec:
-            if self._blocks:
-                graph, packed = self._blocks[bool(sampling)]
-                with self.graphs.side(self.device):
-                    graph.replay()
-                # the next replay rewrites the graph's vector
-                return packed.clone()
-            packed = self._block(sampling)
-            return self._gather_lanes(packed, 2) if self._gather else packed
-        g = int(gamma or self.gamma)
-        if not 1 <= g <= self.gamma_max:
-            raise ValueError(f"gamma {g} outside 1..{self.gamma_max}")
-        for _ in range(max(1, self.block_steps // (g + 1))):
-            self._spec_round(s, g)
-        head = [s["finished"].long(), s["pos"], s["drafted"], s["accepted"]]
-        packed = torch.cat(head + [s["tokens"].reshape(-1)])
-        return self._gather_lanes(packed, len(head)) if self._gather \
-            else packed
+        variant = bool(sampling)
+        if self.spec:
+            variant = int(gamma or self.gamma)
+            if not 1 <= variant <= self.gamma_max:
+                raise ValueError(f"gamma {variant} outside "
+                                 f"1..{self.gamma_max}")
+        if self.graphed:
+            if variant not in self._blocks:
+                # a draft length outside gamma_levels: captured at its first
+                # block (the levels' warm-ups built what a capture needs)
+                self._blocks[variant] = self.graphs.capture(
+                    lambda: self._block(variant), self.device)
+            graph, packed = self._blocks[variant]
+            with self.graphs.side(self.device):
+                graph.replay()
+            # the next replay rewrites the graph's vector
+            return packed.clone()
+        packed = self._block(variant)
+        return (self._gather_lanes(packed, 4 if self.spec else 2)
+                if self._gather else packed)
 
     def _gather_lanes(self, packed: torch.Tensor, heads: int) -> torch.Tensor:
         """Every data rank's packed vector (from the first rank of each
@@ -759,8 +786,7 @@ class ContinuousTranscriber(_StatsMixin):
             # adaptive draft length over {gamma/2, gamma, 2*gamma}
             self.adaptive_gamma = bool(adaptive_gamma)
             g0 = self.engine.gamma
-            self._gamma_levels = sorted({max(1, g0 // 2), g0,
-                                         min(self.engine.gamma_max, 2 * g0)})
+            self._gamma_levels = list(self.engine.gamma_levels)
             self._gamma_idx = self._gamma_levels.index(g0)
             self._ctrl_d = 0
             self._ctrl_a = 0

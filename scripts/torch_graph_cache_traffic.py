@@ -3,9 +3,11 @@
 
     python3 scripts/torch_graph_cache_traffic.py --root DIR --work DIR
                                                  [--out FILE] [--label NAME]
+                                                 [--paths P[,P...]]
 
 Runs the PyTorch port found in ``--root`` (a checkout; the repository
-itself when left out) on one GPU, through two of its users' paths:
+itself when left out) on one GPU, through three of its users' paths
+(``--paths``, all by default):
 
 micro-batch  distil-large-v3 at full width, random bf16 weights (seed 0),
              ``BatchingTranscriber`` with 16 rows and a 50 ms window at a
@@ -15,6 +17,13 @@ micro-batch  distil-large-v3 at full width, random bf16 weights (seed 0),
              word-timestamp requests) all at once: a cold pass (the
              captures happen on the requests' path), then two warm passes.
              Each pass reports audio s/s and the p50 and p95 latency.
+spec_microbatch
+             the same scheduler and traffic speculating: large-v3 at full
+             width (seed 0) as the teacher, distil-large-v3's decoder
+             (seed 1) as its draft, ``synthetic_acceptance`` 0.8, gamma 5
+             with the adaptive controller walking {2, 5, 10}; its passes
+             also report the speculative batches, drafted and accepted
+             tokens and the controller's moves.
 pseudo-label large-v3 at full width, random bf16 weights (seed 0), saved
              once under ``--work``, labelling ``chip_smoke.py``'s recipe
              manifest (32 clips of 5-30 s, two speakers, concatenated) with
@@ -103,7 +112,11 @@ class Owners:
 
 def describe(key):
     """(rows, prompt length, budget, sampling, top_k, timestamps) of a
-    ``generate`` program's key; the engine's keys as they are."""
+    ``generate`` program's key, led by ("speculative", gamma, draft or
+    n-gram) for a speculative loop's; the engine's keys as they are."""
+    if isinstance(key, tuple) and key and hasattr(key[0], "gamma"):
+        method = "draft" if key[0].draft_cfg is not None else "ngram"
+        return ("speculative", key[0].gamma, method) + describe(key[3:])
     if (isinstance(key, tuple) and len(key) > 2
             and hasattr(key[1], "max_new_tokens")):
         shape, opts = key[0], key[1]
@@ -112,7 +125,7 @@ def describe(key):
     return str(key)
 
 
-def microbatch(smoke, owners, tok):
+def microbatch(smoke, owners, tok, speculative=False):
     import numpy as np
     import torch
     from distil_whisper_tpu_torch.config import PRESETS
@@ -120,18 +133,25 @@ def microbatch(smoke, owners, tok):
     from distil_whisper_tpu_torch.pipeline import WhisperPipeline
     from distil_whisper_tpu_torch.serving import BatchingTranscriber
 
-    cfg = PRESETS["distil-large-v3"]
+    cfg = PRESETS["large-v3" if speculative else "distil-large-v3"]
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     pipe = WhisperPipeline(None, dtype=torch.bfloat16, batch_size=16,
                            max_new_tokens=96, params=params, cfg=cfg,
                            tokenizer=tok, device="cuda")
+    spec = {}
+    if speculative:
+        dcfg = PRESETS["distil-large-v3"]
+        spec = dict(assistant=(init_params(dcfg, seed=1, device="cuda",
+                                           dtype=torch.bfloat16), dcfg),
+                    gamma=5, synthetic_acceptance=0.8, adaptive_gamma=True)
     clips = (smoke.synthetic_audio(16, 30.0, seed=1)
              + smoke.synthetic_audio(16, 30.0, seed=4))
     reqs, audio_s = smoke.serving_traffic(
         clips, smoke.synthetic_audio(2, 70.0, seed=5))
     since = owners.stats()
+    torch.cuda.reset_peak_memory_stats()
     tr = BatchingTranscriber(pipe, batch_size=16, max_wait_ms=50.0,
-                             max_new_tokens=96).start()
+                             max_new_tokens=96, **spec).start()
     passes = []
     try:
         for name in ("cold", "warm1", "warm2"):
@@ -142,10 +162,15 @@ def microbatch(smoke, owners, tok):
                            "latency_p50_s": float(np.percentile(lat, 50)),
                            "latency_p95_s": float(np.percentile(lat, 95)),
                            "latency_max_s": max(lat)})
+            if speculative:
+                passes[-1].update({k: tr.stats.get(k) for k in (
+                    "speculative_batches", "drafted", "accepted",
+                    "gamma_current", "gamma_raises", "gamma_drops")})
         stats = dict(tr.stats)
     finally:
         tr.stop()
-    out = {"path": "microbatch", "audio_s": audio_s, "requests": len(reqs),
+    out = {"path": "spec_microbatch" if speculative else "microbatch",
+           "audio_s": audio_s, "requests": len(reqs),
            "passes": passes, "batches": stats["batches"],
            "max_batch": stats["max_batch"],
            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
@@ -202,7 +227,13 @@ def main() -> int:
                     help="directory for the teacher checkpoint and data")
     ap.add_argument("--label", default=None)
     ap.add_argument("--out", default=None, help="append the result here")
+    ap.add_argument("--paths", default="microbatch,spec_microbatch,"
+                    "pseudo_label", help="the paths to run, in order")
     args = ap.parse_args()
+    unknown = set(args.paths.split(",")) - {"microbatch", "spec_microbatch",
+                                            "pseudo_label"}
+    if unknown:
+        ap.error(f"unknown paths {sorted(unknown)}")
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -220,11 +251,14 @@ def main() -> int:
     smoke.phase_build()          # the kernels built before the first pass
     with tempfile.TemporaryDirectory() as tmp:
         tok = smoke.synthetic_tokenizer(Path(tmp))
-    with torch.no_grad():
-        result["microbatch"] = microbatch(smoke, owners, tok)
-    print(json.dumps(result["microbatch"]), flush=True)
-    result["pseudo_label"] = pseudo_label(smoke, owners, work)
-    print(json.dumps(result["pseudo_label"]), flush=True)
+    for path in args.paths.split(","):
+        if path == "pseudo_label":
+            result[path] = pseudo_label(smoke, owners, work)
+        else:
+            with torch.no_grad():
+                result[path] = microbatch(smoke, owners, tok,
+                                          speculative=path != "microbatch")
+        print(json.dumps(result[path]), flush=True)
     print(smi, flush=True)
     print(json.dumps(result), flush=True)
     if args.out:

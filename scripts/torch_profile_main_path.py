@@ -19,11 +19,20 @@ one, each warm and then once under ``torch.profiler`` (CPU + CUDA):
     encode    models.whisper.encode (the CUDA encoder-attention kernel; with
               --int8 also the int8 MLP kernel)
     cross_kv  models.whisper.cross_kv (with --speculative: the teacher's and
-              the draft's)
-    generate  generation.generate (prefill + cached greedy steps)
-    speculate_draft, speculate_synthetic_0.8 (--speculative only)
-              generation.speculative.speculative_generate_batched with the
-              draft, and with synthetic_acceptance 0.8 (synthetic tokens)
+              the draft's), alone: the decode loops project their own
+    generate  generation.generate on the encoder states (the prefill with
+              its cross K/V and the greedy step blocks, CUDA graphs)
+    speculate_draft, speculate_synthetic_0.8, speculate_ngram_period_16
+              (--speculative only) generation.speculative's loops on the
+              encoder states, CUDA graphs: the draft, the draft under
+              synthetic_acceptance 0.8 and n-gram lookup under
+              synthetic_period 16 (synthetic tokens)
+    speculate_synthetic_0.8_eager
+              (--speculative only) the same loop as the plain version,
+              speculate_eager, a read of the device every round
+
+The decode stages replay the programs of one graph owner, captured by
+their warm call, so that a profiled call does not capture.
 
 For each stage it prints one JSON line: host wall time (ends in a
 synchronize), the summed device time of its kernels, the device's idle share
@@ -47,6 +56,18 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def _power_limit() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    import subprocess
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "not read"
 
 
 def profile_stage(name, fn, out_dir: Path, top: int = 12):
@@ -95,6 +116,7 @@ def main() -> int:
     from distil_whisper_tpu_torch.audio import compute_mel
     from distil_whisper_tpu_torch.config import PRESETS
     from distil_whisper_tpu_torch.generation import GenerationOptions, generate
+    from distil_whisper_tpu_torch.generation.graphs import GraphOwner
     from distil_whisper_tpu_torch.generation import speculative as S
     from distil_whisper_tpu_torch.models import init_params
     from distil_whisper_tpu_torch.models import whisper as W
@@ -127,6 +149,7 @@ def main() -> int:
     opts = GenerationOptions.from_config(cfg, max_new_tokens=args.max_new,
                                          no_speech_token_id=50363)
     state = {}
+    owner = GraphOwner("profile")
 
     def mel():
         state["mel"] = compute_mel(wavs, cfg, device="cuda").to(dtype)
@@ -142,27 +165,41 @@ def main() -> int:
                                           state["enc"])
 
     def gen():
-        state["out"] = generate(params["decoder"], cfg, state["cross"],
-                                prompt, opts, dtype=dtype)
+        state["out"] = generate(params["decoder"], cfg, state["enc"], prompt,
+                                opts, dtype=dtype, graphs=owner)
 
     def speculate(alpha):
         def run():
             state["out"] = S.speculative_generate_batched(
-                params["decoder"], cfg, draft["decoder"], dcfg,
-                state["cross"], state["d_cross"], prompt, opts, gamma=5,
-                dtype=dtype, synthetic_acceptance=alpha)
+                params["decoder"], cfg, draft["decoder"], dcfg, state["enc"],
+                state["enc"], prompt, opts, gamma=5, dtype=dtype,
+                synthetic_acceptance=alpha, graphs=owner)
         return run
+
+    def ngram():
+        state["out"] = S.ngram_speculative_generate_batched(
+            params["decoder"], cfg, state["enc"], prompt, opts, gamma=5,
+            max_ngram=3, dtype=dtype, synthetic_period=16, graphs=owner)
+
+    def eager():
+        state["out"] = S.speculate_eager(
+            params["decoder"], cfg, state["enc"], prompt, opts, gamma=5,
+            draft=(draft["decoder"], dcfg, state["enc"]), dtype=dtype,
+            synthetic_acceptance=0.8)
 
     stages = [("mel", mel), ("encode", encode), ("cross_kv", cross),
               ("generate", gen)]
     if args.speculative:
         stages += [("speculate_draft", speculate(None)),
-                   ("speculate_synthetic_0.8", speculate(0.8))]
+                   ("speculate_synthetic_0.8", speculate(0.8)),
+                   ("speculate_ngram_period_16", ngram),
+                   ("speculate_synthetic_0.8_eager", eager)]
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "torch": torch.__version__, "model": model,
                       "batch": args.batch, "int8": args.int8,
                       "speculative": args.speculative,
-                      "max_new_tokens": args.max_new}), flush=True)
+                      "max_new_tokens": args.max_new,
+                      "power_limit": _power_limit()}), flush=True)
     with torch.no_grad():
         for name, fn in stages:
             row = profile_stage(name, fn, out_dir)
@@ -171,10 +208,13 @@ def main() -> int:
                 row["decode_steps"] = steps
                 row["wall_ms_per_step"] = row["wall_ms"] / max(steps, 1)
             elif name.startswith("speculate"):
-                rounds = int(state["out"].rounds.max())
-                row["rounds"] = rounds
-                row["accepted"] = int(state["out"].accepted.sum())
-                row["wall_ms_per_round"] = row["wall_ms"] / max(rounds, 1)
+                out = state["out"]
+                rounds = int(out.rounds.max())
+                tokens = int(out.seq_len.max()) - prompt.shape[1]
+                row.update(rounds=rounds, tokens=tokens,
+                           accepted=int(out.accepted.sum()),
+                           wall_ms_per_round=row["wall_ms"] / max(rounds, 1),
+                           wall_ms_per_token=row["wall_ms"] / max(tokens, 1))
             print(json.dumps(row), flush=True)
     return 0
 
