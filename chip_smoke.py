@@ -40,7 +40,10 @@
    replaying CUDA graphs against the plain step loop (``generate_eager``),
    bit for bit, on distil-large-v3 (16 windows, 128 new tokens) in bf16,
    with the five int8 flags, with segment timestamps and sampled under one
-   seed, the block length swept over ``GRAPH_BLOCK_SWEEP``; the pipeline
+   seed, the block length swept over ``GRAPH_BLOCK_SWEEP``; beam search
+   on graphs against ``beam_search_eager`` at 16 windows x 5 beams (plain,
+   timestamps, the ladder's padded prompts, the int8 lane, an early stop,
+   one beam against ``generate``, the same block sweep); the pipeline
    and the sequential ladder (2 files) with the plain loop patched in
    against their graphs (texts and segments equal, kernel launches equal);
    the continuous engine's greedy and sampling blocks, captured against
@@ -1172,15 +1175,18 @@ def phase_longform_path(tok, bf16):
         raise AssertionError("two beam runs of the same batch gave other "
                              "tokens")
     beam_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # the decode loop alone, on the main path's encoder states
+    # the decode loop alone, on the main path's cross K/V, in the
+    # pipeline's graphs: a warm call timed after the capturing one
     cross = W.cross_kv(params["decoder"], pcfg, bf16["enc"])
     prompt = torch.tensor([tok.prompt_ids(language="en")] * 16, device="cuda")
     opts = GenerationOptions.from_config(pcfg, max_new_tokens=128,
                                          no_speech_token_id=tok.no_speech)
+    beam_search(params["decoder"], pcfg, cross, prompt, opts, num_beams=k,
+                dtype=dtype, graphs=pipe.graphs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = beam_search(params["decoder"], pcfg, cross, prompt, opts,
-                      num_beams=k, dtype=dtype)
+                      num_beams=k, dtype=dtype, graphs=pipe.graphs)
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     total = prompt.shape[1] + opts.max_new_tokens
@@ -1320,20 +1326,33 @@ def phase_longform_path(tok, bf16):
     qfirst = beam_run(qpipe)
     torch.cuda.synchronize()
     qbeam_s = time.perf_counter() - t0
+    int8_first = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    qsecond = beam_run(qpipe)
+    torch.cuda.synchronize()
+    qbeam_warm_s = time.perf_counter() - t0
     launches["int8_beam"] = read_counts()
-    # the encoder's 32 layers, and the decoder's prefill: 80 rows x 4 prompt
-    # tokens pass the kernel's 256-row gate (one launch a decoder layer)
+    # the encoder's 32 layers, and the decoder's prefill, replayed from its
+    # graph: 80 rows x 4 prompt tokens pass the kernel's 256-row gate (one
+    # launch a decoder layer); the first call also warms the prefill up
+    # before its capture (one more launch a decoder layer)
     expected = {**bf16_path,
                 "int8_mlp": cfg.encoder_layers + cfg.decoder_layers}
     if launches["int8_beam"] != expected:
         raise AssertionError(f"int8 beam launches {launches['int8_beam']}")
-    if beam_run(qpipe) != qfirst:
+    if int8_first != {**expected, "int8_mlp": expected["int8_mlp"]
+                      + cfg.decoder_layers}:
+        raise AssertionError(f"int8 beam first-call launches {int8_first}")
+    if qsecond != qfirst:
         raise AssertionError("two int8 beam runs gave other tokens")
     del qpipe
     torch.cuda.empty_cache()
     emit({"phase": "longform_path", "model": "distil-large-v3",
-          "dtype": "bf16", "launches": launches, "int8_beam_first_call_s":
-          qbeam_s})
+          "dtype": "bf16", "launches": launches,
+          "int8_beam_first_call_launches": int8_first,
+          "int8_beam_first_call_s": qbeam_s,
+          "int8_beam_warm_call_s": qbeam_warm_s})
     return launches
 
 
@@ -1809,12 +1828,167 @@ def engine_block_timing(eng, mels, prompt, sampling: bool, blocks: int = 4):
             "host_syncs_in_unpack": len(in_unpack)}
 
 
+BEAM_EARLY_EOS_SCALE = -20.0  # the early-stop tree's EOS row factor
+
+
+def beam_ladder_prompts(tok, n: int, seed: int):
+    """``n`` condition-on-prev prompts of the sequential ladder's layout
+    ([pad | <|startofprev|> ctx | SOT ...]) with a context of 4 + 3j text
+    tokens in row j (seed ``seed``): ``(prompts, pad_len, sot_slot)`` on
+    the card."""
+    import numpy as np
+    import torch
+    base = tok.prompt_ids(language="en")
+    rng = np.random.default_rng(seed)
+    plen = 1 + 4 + 3 * (n - 1) + len(base)
+    rows, pads = [], []
+    for j in range(n):
+        ctx = rng.integers(0, tok.eos, size=4 + 3 * j)
+        pad = plen - 1 - len(ctx) - len(base)
+        rows.append([0] * pad + [tok.sot_prev] + ctx.tolist() + base)
+        pads.append(pad)
+    return (torch.tensor(rows, device="cuda"),
+            torch.tensor(pads, device="cuda"), plen - len(base))
+
+
+def compiled_beam_cases(tok, pipe, enc, qpipe, qenc):
+    """Beam search on CUDA graphs against ``beam_search_eager``, bit for
+    bit with equal launches, on distil-large-v3 at 16 windows x 5 beams x
+    128 tokens (80 decode rows): plain, segment timestamps, the ladder's
+    left-padded prompts, the int8 lane (the int8 MLP kernel inside the
+    captured prefill), every hypothesis finishing early (a copy of the tree
+    with the EOS row scaled), and one beam against ``generate``; then the
+    block length swept over ``GRAPH_BLOCK_SWEEP``.  Each case reports wall
+    and device ms a step (the loop's steps, read from the program's
+    cursor), the idle share, host syncs, captures, capture seconds and the
+    pool's bytes."""
+    import importlib
+    import torch
+    from distil_whisper_tpu_torch.generation import (
+        GenerationOptions, beam_search, generate, graphs)
+    from distil_whisper_tpu_torch.generation.beam import beam_search_eager
+    B = importlib.import_module("distil_whisper_tpu_torch.generation.beam")
+
+    t0 = time.perf_counter()
+    dtype, k, pcfg, params = torch.bfloat16, 5, pipe.cfg, pipe.params
+    prompt = torch.tensor([tok.prompt_ids(language="en")] * 16, device="cuda")
+    report = {}
+
+    def opts_of(cfg, **kw):
+        return GenerationOptions.from_config(
+            cfg, max_new_tokens=128, no_speech_token_id=tok.no_speech, **kw)
+
+    def case(name, dec, cfg, states, prompt_ids, opts, beams=k, repeats=0,
+             profile_plain=False, **kw):
+        owner = graphs.GraphOwner(f"smoke:{name}")
+
+        def plain():
+            return beam_search_eager(dec, cfg, states, prompt_ids, opts,
+                                     num_beams=beams, dtype=dtype, **kw)
+
+        def graphed():
+            return beam_search(dec, cfg, states, prompt_ids, opts,
+                               num_beams=beams, dtype=dtype, graphs=owner,
+                               **kw)
+
+        rep, out = compare_decode(name, plain, graphed, owner, repeats,
+                                  profile_plain=profile_plain)
+        (prog,) = owner.entries.values()
+        steps = int(prog.state["cur"][0]) - prompt_ids.shape[1]
+        rep.update(steps=steps, rows=prompt_ids.shape[0] * beams,
+                   num_beams=beams)
+        for side in (rep["plain"], rep["graph"]):
+            side["wall_ms_per_step"] = side["wall_ms"] / steps
+            if side["device_ms"] is not None:
+                side["device_ms_per_step"] = side["device_ms"] / steps
+        report[name] = rep
+        emit({"phase": f"compiled_decode_path.{name}", **rep})
+        del owner, prog
+        return out, steps
+
+    # the device cursor's length penalty is the plain loop's, bit for bit
+    for lp in (0.5, 1.0, 1.3, 2.0):
+        for cur in (5, 37, 132, 448):
+            if not torch.equal(
+                    B._device_penalty(torch.tensor(cur, device="cuda"), lp),
+                    B._penalty(cur, lp, "cuda")):
+                raise AssertionError(f"penalty {cur} ** {lp} differs")
+    dec = params["decoder"]
+    plain_out, steps = case("beam_bf16", dec, pcfg, enc, prompt,
+                            opts_of(pcfg), repeats=3, profile_plain=True)
+    if steps != 128:
+        raise AssertionError(f"the random model's beams stopped after "
+                             f"{steps} steps")
+    ts_prompt = torch.tensor([tok.prompt_ids(language="en",
+                                             no_timestamps=False)] * 16,
+                             device="cuda")
+    case("beam_timestamps", dec, pcfg, enc, ts_prompt,
+         opts_of(pcfg, return_timestamps=True))
+    ladder, pads, sot_slot = beam_ladder_prompts(tok, 16, seed=11)
+    case("beam_ladder_prompts", dec, pcfg, enc, ladder, opts_of(pcfg),
+         pad_len=pads, sot_slot=sot_slot)
+    case("beam_int8", qpipe.params["decoder"], qpipe.cfg, qenc, prompt,
+         opts_of(qpipe.cfg))
+    if report["beam_int8"]["graph"]["launches"]["int8_mlp"] != (
+            pcfg.decoder_layers):
+        raise AssertionError("the captured int8 beam prefill launched "
+                             f"{report['beam_int8']['graph']['launches']}")
+    # every hypothesis finishes early: the EOS row of the tied embedding
+    # scaled (the graph runs masked steps to the end of its block)
+    emb = dec["tok_emb"].clone()
+    emb[pcfg.eos_token_id] *= BEAM_EARLY_EOS_SCALE
+    _, early = case("beam_early_stop", {**dec, "tok_emb": emb}, pcfg, enc,
+                    prompt, opts_of(pcfg))
+    del emb
+    if not early < 128 - B.BLOCK_STEPS:
+        raise AssertionError(f"the early-stop tree ran {early} steps")
+    one, _ = case("beam_k1", dec, pcfg, enc, prompt, opts_of(pcfg), beams=1)
+    greedy = generate(dec, pcfg, enc, prompt, opts_of(pcfg), dtype=dtype)
+    # one beam follows the argmax path while no row emits EOS
+    if (greedy.sequences == pcfg.eos_token_id).any() or not torch.equal(
+            one.sequences, greedy.sequences):
+        raise AssertionError("beam_search(num_beams=1) on graphs differs "
+                             "from generate()")
+    del one, greedy
+
+    sweep, saved = {}, B.BLOCK_STEPS
+    for steps_a_block in GRAPH_BLOCK_SWEEP:
+        owner = graphs.GraphOwner(f"smoke:beam_k{steps_a_block}")
+        B.BLOCK_STEPS = steps_a_block
+        try:
+            def run(owner=owner):
+                return beam_search(dec, pcfg, enc, prompt, opts_of(pcfg),
+                                   num_beams=k, dtype=dtype, graphs=owner)
+            ref = run()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            B.BLOCK_STEPS = saved
+        if not (outputs_equal(ref, out) and outputs_equal(out, plain_out)):
+            raise AssertionError(f"beam block length {steps_a_block}: "
+                                 "calls differ")
+        sweep[steps_a_block] = {"wall_ms": statistics.median(walls),
+                                "wall_ms_all": walls}
+        del owner
+    report["beam_block_sweep"] = sweep
+    seconds = time.perf_counter() - t0
+    emit({"phase": "compiled_decode_path.beam_block_sweep", "sweep": sweep,
+          "beam_cases_s": seconds})
+    return report
+
+
 def phase_compiled_decode_path(tok, bf16):
-    """``generate``, the sequential ladder and the continuous engine's
-    blocks as CUDA graphs against the plain step loop, bit for bit, at full
-    width (random bf16 weights, seed 0): distil-large-v3 at 16 windows and
-    128 new tokens in bf16 and with the five int8 flags, with segment
-    timestamps, sampled under one seed; the sequential ladder on 2 files;
+    """``generate``, beam search, the sequential ladder and the continuous
+    engine's blocks as CUDA graphs against the plain step loops, bit for
+    bit, at full width (random bf16 weights, seed 0): distil-large-v3 at 16
+    windows and 128 new tokens in bf16 and with the five int8 flags, with
+    segment timestamps, sampled under one seed; beam search at 5 beams
+    (``compiled_beam_cases``); the sequential ladder on 2 files;
     the engine's greedy and sampling blocks over one admission sequence
     (the large-v3 teacher's case runs in ``phase_speculative_path``, on its
     teacher).  Each case reports
@@ -1961,6 +2135,8 @@ def phase_compiled_decode_path(tok, bf16):
                                            no_speech_token_id=tok.no_speech)
     case("distil_int8", qpipe.params, qpipe.cfg, qenc, prompt, q_opts,
          repeats=0)
+    # 4b. beam search, 16 windows x 5 beams, bf16 and the int8 lane
+    report.update(compiled_beam_cases(tok, pipe, enc, qpipe, qenc))
     del qenc, qpipe
 
     # 5. through the pipeline: launches of the kernels equal the plain

@@ -225,7 +225,8 @@ def _short(args, pipe, audios, dtype, device):
         if args.num_beams > 1:
             out = encode_and_beam_search(params, cfg, mels, prompts, opts,
                                          num_beams=args.num_beams,
-                                         dtype=dtype, device=device)
+                                         dtype=dtype, device=device,
+                                         graphs=pipe.graphs)
         elif pipe.speculative_method:
             # through the pipeline's graphs: a timed batch of a shape seen
             # before replays its program

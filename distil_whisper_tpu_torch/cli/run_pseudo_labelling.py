@@ -55,7 +55,8 @@ from ..audio import compute_mel
 from ..audio.io import load_audio, write_wav
 from ..device import resolve_device
 from ..generation import GenerateOutput, GenerationOptions, build_generate
-from ..generation.beam import encode_and_beam_search
+from ..generation.beam import BeamOutput, encode_and_beam_search
+from ..generation.graphs import GraphOwner
 from ..metrics import WordErrors, process_words
 from ..models import load_params
 from ..ops.quant import maybe_quantize_encoder
@@ -188,19 +189,23 @@ def main(argv=None):
         return_timestamps=args.return_timestamps,
         no_speech_token_id=tok.no_speech)
     bsz = max(args.per_device_batch_size, 1)
-    # the teacher's decode as CUDA graphs on the card: a short batch (a
-    # featurizer's tail) is padded to the full one with copies of its last
-    # row, as JAX pads it, so that every batch replays one program
+    # the teacher's decode (greedy or beams) as CUDA graphs on the card: a
+    # short batch (a featurizer's tail) is padded to the full one with
+    # copies of its last row, as JAX pads it, so that every batch replays
+    # one program
     generate_fn = build_generate(cfg, opts, dtype=dtype, device=device)
+    beam_graphs = GraphOwner("pseudo_labelling_beam")
 
     def gen_fn(mel):
         n = mel.shape[0]
-        if args.num_beams > 1:
-            return encode_and_beam_search(params, cfg, mel, [prompt] * n,
-                                          opts, num_beams=args.num_beams,
-                                          dtype=dtype, device=device)
         if n < bsz:
             mel = torch.cat([mel, mel[-1:].expand(bsz - n, *mel.shape[1:])])
+        if args.num_beams > 1:
+            out = encode_and_beam_search(params, cfg, mel, [prompt] * bsz,
+                                         opts, num_beams=args.num_beams,
+                                         dtype=dtype, device=device,
+                                         graphs=beam_graphs)
+            return BeamOutput(*(t[:n] for t in out))
         out = generate_fn(params, mel, [prompt] * bsz)
         return GenerateOutput(*(t[:n] for t in out))
 

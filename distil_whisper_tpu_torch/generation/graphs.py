@@ -185,6 +185,30 @@ class GraphOwner:
         return Graph(graph, launches), out
 
 
+def static_like(values: Dict[str, Any]) -> Dict[str, Any]:
+    """A program's static inputs: buffers shaped like one call's inputs
+    (each a tensor, a dict of tensors or None), which every call copies
+    its own into (:func:`load`): a graph reads its inputs where they were
+    at capture."""
+    def like(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: torch.empty_like(v) for k, v in x.items()}
+        return torch.empty_like(x)
+    return {k: like(v) for k, v in values.items()}
+
+
+def load(inputs: Dict[str, Any], values: Dict[str, Any]) -> None:
+    """Copy one call's inputs into a program's static inputs."""
+    for k, v in values.items():
+        if isinstance(v, dict):
+            for n, t in v.items():
+                inputs[k][n].copy_(t)
+        elif v is not None:
+            inputs[k].copy_(v)
+
+
 def pool_bytes(owner: GraphOwner) -> Optional[int]:
     """Bytes of the segments of ``owner``'s private pool (None before its
     first capture, or where the allocator's snapshot names no pools)."""

@@ -97,7 +97,8 @@ class SequentialTranscriber:
         self.spec_stats = {"drafted": 0, "accepted": 0, "rounds": 0}
         # the CUDA graphs of the rungs' decodes: one greedy and one
         # sampling program a batch size (the temperature is their input),
-        # or the speculative t = 0 rung's program in place of the greedy one
+        # or the beam or speculative t = 0 rung's program in place of the
+        # greedy one
         self.graphs = GraphOwner("sequential")
         self.params = params
         self.cfg = cfg
@@ -150,7 +151,7 @@ class SequentialTranscriber:
                 num_beams=self.opts.num_beams,
                 length_penalty=self.opts.length_penalty,
                 sot_slot=self.sot_slot, pad_len=pads_t, dtype=self.dtype,
-                device=self.device)
+                device=self.device, graphs=self.graphs)
         elif temperature == 0 and self.spec_method:
             out = self._speculate(mels, prompts_t, pads_t)
         else:

@@ -567,31 +567,13 @@ class _Program(NamedTuple):
     flags: torch.Tensor
 
 
-def _static_like(x):
-    if x is None:
-        return None
-    if isinstance(x, dict):
-        return {k: torch.empty_like(v) for k, v in x.items()}
-    return torch.empty_like(x)
-
-
-def _load(inputs: Dict[str, Any], values: Dict[str, Any]) -> None:
-    """Copy one call's inputs into a program's static inputs."""
-    for k, v in values.items():
-        if isinstance(v, dict):
-            for n, t in v.items():
-                inputs[k][n].copy_(t)
-        elif v is not None:
-            inputs[k].copy_(v)
-
-
 def _capture(owner: G.GraphOwner, make_loop, values: Dict[str, Any],
              rounds: int) -> _Program:
     """Warm the prefill and one round up on the owner's stream, then
     capture the prefill and a block of ``rounds`` rounds."""
     device = values["prompt"].device
-    inputs = {k: _static_like(v) for k, v in values.items()}
-    _load(inputs, values)
+    inputs = G.static_like(values)
+    G.load(inputs, values)
     loop = make_loop(inputs["pad_len"], inputs["coins"], inputs["repeat"])
 
     def prefill():
@@ -665,7 +647,7 @@ def _speculate(teacher_dec: Dict[str, Any], cfg: WhisperConfig, draft_dec,
     with owner.lock:
         prog = owner.entry(key, lambda: _capture(owner, make_loop, values,
                                                  rounds))
-        _load(prog.inputs, values)
+        G.load(prog.inputs, values)
         with owner.side(dev):
             prog.prefill.replay()
             while True:

@@ -117,7 +117,8 @@ class WhisperPipeline:
         self.gamma = int(gamma)
         self.max_ngram = int(max_ngram)
         self.spec_stats = {"drafted": 0, "accepted": 0}
-        # the CUDA graphs of this pipeline's generate and speculative calls
+        # the CUDA graphs of this pipeline's generate, beam and speculative
+        # calls
         # (one program a batch size and setting; :mod:`.generation.graphs`)
         self.graphs = GraphOwner("pipeline")
 
@@ -213,15 +214,13 @@ class WhisperPipeline:
         cfg, dec = self.cfg, self.params["decoder"]
         prompt_ids = torch.tensor(prompts, dtype=torch.long, device=self.device)
         enc = encode(self.params["encoder"], cfg, mels, dtype=self.dtype)
-        # generate and speculation project the cross K/V themselves
-        # (inside their graphs on the card); beam search stays eager and
-        # takes them here
-        cross = None
+        # every decode projects the cross K/V itself (inside its graphs on
+        # the card)
         if num_beams > 1:
-            cross = cross_kv(dec, cfg, enc)
-            out = beam_search(dec, cfg, cross, prompt_ids, opts,
+            out = beam_search(dec, cfg, enc, prompt_ids, opts,
                               num_beams=num_beams,
-                              length_penalty=length_penalty, dtype=self.dtype)
+                              length_penalty=length_penalty, dtype=self.dtype,
+                              graphs=self.graphs)
         elif (self.speculative_method and num_frames is None
               and not opts.do_sample):
             # token for token the greedy program's output
@@ -238,7 +237,7 @@ class WhisperPipeline:
         # the zero-padded tail past the audio
         sel = selected_cross_weights(dec, cfg, out.sequences[:, :-1],
                                      self._alignment_heads(), enc=enc,
-                                     cross=cross, dtype=self.dtype)
+                                     dtype=self.dtype)
         times = token_timestamps_from_weights(
             sel.float().cpu().numpy(), num_input_ids=len(prompts[0]),
             seq_lens=lens, num_frames=num_frames)

@@ -57,7 +57,7 @@ from .generation import GenerationOptions, beam_search, generate
 from .generation.speculative import (ngram_speculative_generate_batched,
                                      prepare_assistant,
                                      speculative_generate_batched)
-from .models.whisper import cross_kv, encode
+from .models.whisper import encode
 from .parallel.lockstep import REQUEST_ERRORS, Lockstep
 from .pipeline import decode_over_data
 
@@ -791,13 +791,12 @@ class BatchingTranscriber(_StatsMixin):
                 enc = encode(pipe.params["encoder"], cfg, mels[rows],
                              dtype=pipe.dtype)
                 counts = (None, None)
-                # generate and speculation project the cross K/V inside
-                # their graphs on the card; beam search stays eager
+                # every decode projects the cross K/V inside its graphs on
+                # the card
                 if num_beams > 1:
-                    out = beam_search(dec, cfg, cross_kv(dec, cfg, enc),
-                                      prompts[rows], opts,
+                    out = beam_search(dec, cfg, enc, prompts[rows], opts,
                                       num_beams=num_beams, length_penalty=1.0,
-                                      dtype=pipe.dtype)
+                                      dtype=pipe.dtype, graphs=pipe.graphs)
                 elif sample is not None:
                     gen = torch.Generator(device=pipe.device).manual_seed(seed)
                     out = generate(dec, cfg, enc, prompts[rows], opts,

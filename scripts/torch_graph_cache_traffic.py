@@ -4,9 +4,10 @@
     python3 scripts/torch_graph_cache_traffic.py --root DIR --work DIR
                                                  [--out FILE] [--label NAME]
                                                  [--paths P[,P...]]
+                                                 [--num_beams K]
 
 Runs the PyTorch port found in ``--root`` (a checkout; the repository
-itself when left out) on one GPU, through three of its users' paths
+itself when left out) on one GPU, through four of its users' paths
 (``--paths``, all by default):
 
 micro-batch  distil-large-v3 at full width, random bf16 weights (seed 0),
@@ -24,11 +25,17 @@ spec_microbatch
              with the adaptive controller walking {2, 5, 10}; its passes
              also report the speculative batches, drafted and accepted
              tokens and the controller's moves.
+beam_microbatch
+             distil-large-v3 as in micro-batch, sent beam groups: for 2 and
+             5 beams, groups of 1, 4 and 16 single 30 s windows (and of 8
+             at 5 beams) at a 96-token budget, each group submitted at once
+             and waited for; a cold pass, then two warm passes.
 pseudo-label large-v3 at full width, random bf16 weights (seed 0), saved
              once under ``--work``, labelling ``chip_smoke.py``'s recipe
              manifest (32 clips of 5-30 s, two speakers, concatenated) with
              ``run_pseudo_labelling`` at batch 16 and 64 new tokens, two
-             featurizer workers: its steady and wall audio s/s.
+             featurizer workers (``--num_beams`` beams, greedy by default):
+             its steady and wall audio s/s.
 
 Where the port captures its decode loops as CUDA graphs it also reports,
 for each path, the programs its graph owners keep, built and evicted, the
@@ -113,7 +120,10 @@ class Owners:
 def describe(key):
     """(rows, prompt length, budget, sampling, top_k, timestamps) of a
     ``generate`` program's key, led by ("speculative", gamma, draft or
-    n-gram) for a speculative loop's; the engine's keys as they are."""
+    n-gram) for a speculative loop's and by ("beam", beams, length
+    penalty) for a beam search's; the engine's keys as they are."""
+    if isinstance(key, tuple) and key and key[0] == "beam":
+        return key[:3] + describe(key[3:])
     if isinstance(key, tuple) and key and hasattr(key[0], "gamma"):
         method = "draft" if key[0].draft_cfg is not None else "ngram"
         return ("speculative", key[0].gamma, method) + describe(key[3:])
@@ -180,7 +190,59 @@ def microbatch(smoke, owners, tok, speculative=False):
     return out
 
 
-def pseudo_label(smoke, owners, work: Path):
+BEAM_GROUPS = ((2, 1), (2, 4), (2, 16), (5, 1), (5, 4), (5, 8), (5, 16))
+
+
+def beam_microbatch(smoke, owners, tok):
+    """The micro-batch scheduler fed beam groups (``BEAM_GROUPS``: beams,
+    rows), one group at a time; a cold pass and two warm passes."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.config import PRESETS
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+    from distil_whisper_tpu_torch.serving import BatchingTranscriber
+
+    cfg = PRESETS["distil-large-v3"]
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    pipe = WhisperPipeline(None, dtype=torch.bfloat16, batch_size=16,
+                           max_new_tokens=96, params=params, cfg=cfg,
+                           tokenizer=tok, device="cuda")
+    clips = smoke.synthetic_audio(16, 30.0, seed=1)
+    since = owners.stats()
+    torch.cuda.reset_peak_memory_stats()
+    tr = BatchingTranscriber(pipe, batch_size=16, max_wait_ms=50.0,
+                             max_new_tokens=96).start()
+    passes = []
+    try:
+        for name in ("cold", "warm1", "warm2"):
+            lat, wall, audio_s = [], 0.0, 0.0
+            for beams, rows in BEAM_GROUPS:
+                reqs = [(c, dict(language="en", num_beams=beams))
+                        for c in clips[:rows]]
+                torch.cuda.synchronize()
+                _, group_lat, group_wall = smoke.serve_all(tr, reqs)
+                lat += group_lat
+                wall += group_wall
+                audio_s += rows * 30.0
+            passes.append({"pass": name, "wall_s": wall,
+                           "audio_s_per_s": audio_s / wall,
+                           "latency_p50_s": float(np.percentile(lat, 50)),
+                           "latency_p95_s": float(np.percentile(lat, 95))})
+        stats = dict(tr.stats)
+    finally:
+        tr.stop()
+    out = {"path": "beam_microbatch", "groups": BEAM_GROUPS,
+           "audio_s": audio_s, "passes": passes, "batches": stats["batches"],
+           "max_batch": stats["max_batch"],
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+           **owners.report(since)}
+    del tr, pipe, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def pseudo_label(smoke, owners, work: Path, num_beams: int = 1):
     import torch
     from distil_whisper_tpu_torch.cli import run_pseudo_labelling
     from distil_whisper_tpu_torch.config import PRESETS
@@ -205,11 +267,12 @@ def pseudo_label(smoke, owners, work: Path):
         "--output_dir", str(root / "out"), "--language", "en",
         "--per_device_batch_size", "16", "--max_new_tokens", "64",
         "--logging_steps", "1", "--speaker_id_column_name", "speaker_id",
-        "--featurizer_workers", "2"])
+        "--featurizer_workers", "2", "--num_beams", str(num_beams)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = json.loads((root / "out" / "pl_stats.json").read_text())
-    out = {"path": "pseudo_label", "rows": stats["rows"],
+    out = {"path": "pseudo_label", "num_beams": num_beams,
+           "rows": stats["rows"],
            "batches": stats["batches"], "audio_s": stats["audio_s"],
            "audio_s_per_s_steady": stats["rtfx_steady_state"],
            "audio_s_per_s_wall": stats["audio_s"] / wall, "wall_s": wall,
@@ -228,10 +291,13 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--out", default=None, help="append the result here")
     ap.add_argument("--paths", default="microbatch,spec_microbatch,"
-                    "pseudo_label", help="the paths to run, in order")
+                    "beam_microbatch,pseudo_label",
+                    help="the paths to run, in order")
+    ap.add_argument("--num_beams", type=int, default=1,
+                    help="beams of the pseudo-label path")
     args = ap.parse_args()
-    unknown = set(args.paths.split(",")) - {"microbatch", "spec_microbatch",
-                                            "pseudo_label"}
+    unknown = set(args.paths.split(",")) - {
+        "microbatch", "spec_microbatch", "beam_microbatch", "pseudo_label"}
     if unknown:
         ap.error(f"unknown paths {sorted(unknown)}")
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -253,7 +319,10 @@ def main() -> int:
         tok = smoke.synthetic_tokenizer(Path(tmp))
     for path in args.paths.split(","):
         if path == "pseudo_label":
-            result[path] = pseudo_label(smoke, owners, work)
+            result[path] = pseudo_label(smoke, owners, work, args.num_beams)
+        elif path == "beam_microbatch":
+            with torch.no_grad():
+                result[path] = beam_microbatch(smoke, owners, tok)
         else:
             with torch.no_grad():
                 result[path] = microbatch(smoke, owners, tok,

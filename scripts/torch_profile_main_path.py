@@ -4,6 +4,7 @@
     python3 scripts/torch_profile_main_path.py [--batch 16] [--max-new 128]
                                                [--trace-dir profile_traces]
                                                [--int8 | --speculative]
+                                               [--beams K]
 
 distil-large-v3 at full width, random weights from a seed, bf16, a batch of
 30 s synthetic windows, greedy with a fixed token budget.  ``--int8`` sets
@@ -30,6 +31,11 @@ one, each warm and then once under ``torch.profiler`` (CPU + CUDA):
     speculate_synthetic_0.8_eager
               (--speculative only) the same loop as the plain version,
               speculate_eager, a read of the device every round
+    beam      (--beams K only) generation.beam_search with K beams on the
+              encoder states (the prefill and the step blocks, CUDA graphs)
+    beam_eager
+              (--beams K only) the same search as the plain version,
+              beam_search_eager, a read of the device every step
 
 The decode stages replay the programs of one graph owner, captured by
 their warm call, so that a profiled call does not capture.
@@ -104,6 +110,9 @@ def main() -> int:
     ap.add_argument("--speculative", action="store_true",
                     help="large-v3 as the teacher, distil-large-v3's "
                          "decoder as the draft: adds the speculative loops")
+    ap.add_argument("--beams", type=int, default=0,
+                    help="adds beam search with this many beams, on graphs "
+                         "and as the plain loop")
     args = ap.parse_args()
     if args.int8 and args.speculative:
         ap.error("--int8 and --speculative profile different models")
@@ -115,7 +124,9 @@ def main() -> int:
         return 1
     from distil_whisper_tpu_torch.audio import compute_mel
     from distil_whisper_tpu_torch.config import PRESETS
-    from distil_whisper_tpu_torch.generation import GenerationOptions, generate
+    from distil_whisper_tpu_torch.generation import (GenerationOptions,
+                                                      beam_search, generate)
+    from distil_whisper_tpu_torch.generation.beam import beam_search_eager
     from distil_whisper_tpu_torch.generation.graphs import GraphOwner
     from distil_whisper_tpu_torch.generation import speculative as S
     from distil_whisper_tpu_torch.models import init_params
@@ -187,8 +198,20 @@ def main() -> int:
             draft=(draft["decoder"], dcfg, state["enc"]), dtype=dtype,
             synthetic_acceptance=0.8)
 
+    def beams(plain):
+        def run():
+            kw = dict(num_beams=args.beams, dtype=dtype)
+            state["out"] = (beam_search_eager(
+                params["decoder"], cfg, state["enc"], prompt, opts, **kw)
+                if plain else beam_search(params["decoder"], cfg,
+                                          state["enc"], prompt, opts,
+                                          graphs=owner, **kw))
+        return run
+
     stages = [("mel", mel), ("encode", encode), ("cross_kv", cross),
               ("generate", gen)]
+    if args.beams:
+        stages += [("beam", beams(False)), ("beam_eager", beams(True))]
     if args.speculative:
         stages += [("speculate_draft", speculate(None)),
                    ("speculate_synthetic_0.8", speculate(0.8)),
@@ -198,6 +221,7 @@ def main() -> int:
                       "torch": torch.__version__, "model": model,
                       "batch": args.batch, "int8": args.int8,
                       "speculative": args.speculative,
+                      "beams": args.beams,
                       "max_new_tokens": args.max_new,
                       "power_limit": _power_limit()}), flush=True)
     with torch.no_grad():
@@ -207,6 +231,14 @@ def main() -> int:
                 steps = int(state["out"].seq_len.max()) - prompt.shape[1]
                 row["decode_steps"] = steps
                 row["wall_ms_per_step"] = row["wall_ms"] / max(steps, 1)
+            elif name.startswith("beam"):
+                # the loop's steps, from the beam program's device cursor
+                (prog,) = [v for k, v in owner.entries.items()
+                           if k[0] == "beam"]
+                steps = int(prog.state["cur"][0]) - prompt.shape[1]
+                row["decode_steps"] = steps
+                row["wall_ms_per_step"] = row["wall_ms"] / steps
+                row["device_ms_per_step"] = row["device_ms"] / steps
             elif name.startswith("speculate"):
                 out = state["out"]
                 rounds = int(out.rounds.max())

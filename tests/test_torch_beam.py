@@ -1,7 +1,9 @@
 """Port beam search vs the JAX package (CPU, fp32): token-identical
 sequences and seq_len for K 2 and 4, with and without timestamps, with
-left-padded prompts and with an int8 self-KV cache; scores, sum_logprobs
-and no_speech_prob to 1e-5.  K = 1 gives the greedy tokens."""
+left-padded prompts and with an int8 self-KV cache, through the blocked
+loop (``encode_and_beam_search``) and the plain one
+(``beam_search_eager``); scores, sum_logprobs and no_speech_prob to 1e-5.
+K = 1 gives the greedy tokens."""
 
 import numpy as np
 import jax
@@ -18,6 +20,8 @@ from distil_whisper_tpu_torch.config import WhisperConfig
 from distil_whisper_tpu_torch.generation import (GenerationOptions,
                                                   encode_and_beam_search,
                                                   encode_and_generate)
+from distil_whisper_tpu_torch.generation.beam import beam_search_eager
+from distil_whisper_tpu_torch.models import whisper as TW
 
 # small vocabulary with the real tail layout: text < eos (300) < specials <
 # <|notimestamps|> (400) < 1501 timestamps (401..)
@@ -41,7 +45,15 @@ CASES = {
 }
 
 
-def _run(case, jp, tp, mel, jax_side):
+def _eager_route(tp, cfg, mel, prompt, opts, **kw):
+    """The plain loop on the port's encoder states."""
+    enc = TW.encode(tp["encoder"], cfg, torch.from_numpy(mel))
+    return beam_search_eager(tp["decoder"], cfg, enc, torch.tensor(prompt),
+                             opts, **{k: torch.tensor(v) if k == "pad_len"
+                                      else v for k, v in kw.items()})
+
+
+def _run(case, jp, tp, mel, jax_side, route="blocked"):
     k, timestamps, padded, int8 = CASES[case]
     arch = dict(ARCH, quantize_self_kv=int8)
     kw = dict(max_new_tokens=20, return_timestamps=timestamps,
@@ -56,9 +68,12 @@ def _run(case, jp, tp, mel, jax_side):
                      JOpts.from_config(cfg, **kw), num_beams=k, **extra)
         return {f: np.asarray(getattr(out, f)) for f in out._fields}
     cfg = WhisperConfig(**arch)
-    out = encode_and_beam_search(tp, cfg, mel, prompt,
-                                 GenerationOptions.from_config(cfg, **kw),
-                                 num_beams=k, device="cpu", **extra)
+    opts = GenerationOptions.from_config(cfg, **kw)
+    if route == "eager":
+        out = _eager_route(tp, cfg, mel, prompt, opts, num_beams=k, **extra)
+    else:
+        out = encode_and_beam_search(tp, cfg, mel, prompt, opts,
+                                     num_beams=k, device="cpu", **extra)
     return {f: getattr(out, f).numpy() for f in out._fields}
 
 
@@ -78,10 +93,13 @@ def setup():
     return torch_params(jp), (jp_eos, tp_eos), mel, golden
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_beam_search_matches_jax(setup, case):
+@pytest.mark.parametrize(
+    "case,route", [(c, "blocked") for c in sorted(CASES)]
+    + [(c, "eager") for c in sorted(CASES)],
+    ids=sorted(CASES) + [f"{c}-eager" for c in sorted(CASES)])
+def test_beam_search_matches_jax(setup, case, route):
     _, (jp, tp), mel, golden = setup
-    ours, ref = _run(case, jp, tp, mel, False), golden[case]
+    ours, ref = _run(case, jp, tp, mel, False, route), golden[case]
     np.testing.assert_array_equal(ours["sequences"], ref["sequences"])
     np.testing.assert_array_equal(ours["seq_len"], ref["seq_len"])
     for field in ("scores", "sum_logprobs", "no_speech_prob"):
