@@ -4334,12 +4334,409 @@ def phase_multigpu_path(teacher_cfg, root):
             for run in report["launches"] for r in range(world)}
 
 
+# -- the device collective (csrc/mesh_collective.cu) ----------------------
+MC_DECODE_ROWS = (16, 1280)   # a decode step's row-parallel fp32 partials
+MC_LAYER_PARAMS = 26_224_640  # a distil-large-v3 decoder layer, gathered
+NVLINK_BW = 450e9             # bytes/s each way a card (H100 SXM)
+MC_SEEDS = {"sum": 1, "sum_int": 2, "max": 3, "gather": 4}
+MC_REPLACES = ("distil_whisper_tpu/pipeline.py:49 (XLA's collectives in "
+               "JAX's meshed program; no Pallas kernel)")
+
+
+def _mc_input(mode: str, numel: int, rank: int):
+    """Rank ``rank``'s input of ``mode`` (any rank regenerates any
+    rank's): fp32 over six decades, int32 over its range, bf16 to gather."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(
+        1000 * MC_SEEDS[mode] + rank)
+    if mode == "sum_int":
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (numel,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    x = torch.randn(numel, generator=gen, device="cuda")
+    if mode == "gather":
+        return x.to(torch.bfloat16)
+    scale = 10.0 ** (6 * torch.rand(numel, generator=gen, device="cuda") - 3)
+    return x * scale
+
+
+def _mc_digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().view(-1).view(
+        __import__("torch").uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def _mc_library_ms(mode: str, x, group, calls: int = 5) -> float:
+    """torch.distributed's call for the same collective (gloo on one card,
+    NCCL a card each): host clock around ``calls`` calls, synchronised."""
+    import torch
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if mode == "gather":
+        x = x.view(torch.uint8)     # the same bytes (gloo takes no bf16)
+
+    def call():
+        if mode == "gather":
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=group)
+        else:
+            op = dist.ReduceOp.MAX if mode == "max" else dist.ReduceOp.SUM
+            dist.all_reduce(x.clone(), op=op, group=group)
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def mesh_collective_rows(group) -> list:
+    """The device collective over ``group`` (every rank of it calls this
+    alike), a row a mode: at decode size (``MC_DECODE_ROWS`` fp32 or int32;
+    bf16 rows of the same bytes to gather) and at one gathered layer
+    (``MC_LAYER_PARAMS`` bf16, the reductions over as many bytes), against
+    its plain version (the rank-ordered combine of every rank's input,
+    regenerated here from their seeds) with identical bits on every rank
+    (sha256 of the result, gathered over the host group); its ms in a CUDA
+    graph of 20 calls (bit for bit again after them) and launched back to
+    back; the plain combine's ms; the bound (the bytes the function moves:
+    a rank reads the n inputs and writes its result, over HBM on one card,
+    the remote part over NVLink a card each); torch.distributed's call.
+    The group's comm holds a layer in one slot (reserved here, if it is
+    not made yet)."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.parallel import device_comm as DC
+    from distil_whisper_tpu_torch.parallel.multihost import gather_rows
+    DC.reserve(group, 2 * MC_LAYER_PARAMS)
+    comm = DC.comm_of(group)
+    n = comm.n
+    one_card = torch.cuda.device_count() < n
+    rows = []
+    for mode in ("sum", "sum_int", "max", "gather"):
+        row = {"name": f"mesh_collective_{mode}", "route": "cuda",
+               "source": "distil_whisper_tpu_torch/csrc/mesh_collective.cu",
+               "replaces": MC_REPLACES, "ranks": n, "one_card": one_card}
+        sizes = {"decode": MC_DECODE_ROWS[0] * MC_DECODE_ROWS[1],
+                 "layer": MC_LAYER_PARAMS // 2}
+        for size, numel in sizes.items():
+            if mode == "gather":
+                numel = 2 * numel // n          # bf16: the same bytes in all
+            x = _mc_input(mode, numel, comm.me)
+            parts = [_mc_input(mode, numel, r) for r in range(n)]
+            plain = DC.combine_plain(parts, mode)
+
+            def run():
+                return (DC.all_gather(x, group) if mode == "gather"
+                        else DC.all_reduce(x, mode, group))
+            got = run()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, plain))
+            err = float((got.double() - plain.double()).abs().max())
+            digests = gather_rows(np.frombuffer(bytes.fromhex(_mc_digest(
+                got)), dtype=np.uint8)[None])
+            rec = {"numel": numel, "bytes": x.numel() * x.element_size(),
+                   "bit_equal_to_plain": same, "max_abs_err": err,
+                   "identical_on_every_rank": bool(
+                       (digests == digests[0]).all())}
+            rec["pieces"] = len(DC.pieces(rec["bytes"], comm.slot))
+            rec["ms"] = cuda_graph_ms(run)
+            again = run()
+            torch.cuda.synchronize()
+            rec["graph_bit_equal"] = bool(torch.equal(again, plain))
+            rec["launched_ms"] = cuda_ms(run)
+            rec["plain_ms"] = cuda_ms(lambda: DC.combine_plain(parts, mode))
+            # what the function must move: each rank reads the n inputs of
+            # b bytes and writes its result (b, or n b gathered), (n - 1) b
+            # of the reads a peer's; the copy into the slot is the design's
+            b = rec["bytes"]
+            moved = 2 * n * b if mode == "gather" else (n + 1) * b
+            remote = (n - 1) * b
+            rec["bound_ms"] = (n * moved / MEM_BW * 1e3 if one_card else
+                               max(moved / MEM_BW, remote / NVLINK_BW) * 1e3)
+            rec["bound_by"] = "bytes"
+            rec["library_ms"] = _mc_library_ms(mode, x, group)
+            rec["library"] = ("gloo" if one_card else "nccl") + (
+                " all_gather" if mode == "gather" else " all_reduce")
+            row[size] = rec
+            del x, parts, plain, got
+        dec = row["decode"]
+        row.update({k: dec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")})
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_mesh_collective_rows(rows) -> list:
+    """What fails the phase in ``mesh_collective_rows``' rows."""
+    bad = []
+    for row in rows:
+        for size in ("decode", "layer"):
+            rec = row[size]
+            if not (rec["bit_equal_to_plain"]
+                    and rec["identical_on_every_rank"]
+                    and rec["graph_bit_equal"] and rec["pieces"] == 1):
+                bad.append(f"{row['name']} at {size}: {rec}")
+    return bad
+
+
+# the device collective's kernel rows (tensor_parallel_path) and its
+# launches by mode on each meshed path, rank 0's, for the kernels line
+_MESH: dict = {}
+
+# -- meshed decodes on CUDA graphs (tensor_parallel_path, param_sharding_path)
+MESH_WINDOWS = 16       # windows of the meshed graph cases (over the data axis)
+MESH_NEW_TOKENS = 128   # their budget (generate, timestamps, beam)
+MESH_BEAMS = 5
+MESH_SPEC_TOKENS = 64   # the draft speculation's budget
+MESH_2D_NEW_TOKENS = 64  # the 2-D case's budget: on one card its two ranks
+#                         gather every layer each step, time-sliced
+MESH_EOS_SCALE = 3000.0  # the EOS-bound encoder states' norm
+
+
+def mesh_counts():
+    from distil_whisper_tpu_torch.parallel import device_comm
+    return {m: f.launches for m, f in device_comm.COUNTERS.items()}
+
+
+def reset_mesh_counts():
+    from distil_whisper_tpu_torch.parallel import device_comm
+    for f in device_comm.COUNTERS.values():
+        f.launches = 0
+
+
+def eos_states(dec, cfg, scale: float):
+    """Encoder states [1500, d] that drive ``dec`` to EOS within its first
+    steps: one direction through every layer's cross-attention V and
+    out-projections, solved (fp64) so that the residual stream it adds lies
+    along the EOS row of the tied embedding over the final LayerNorm's
+    scale, times ``scale`` (tests/torch_mp_worker.py's ``eos_states``)."""
+    import torch
+    lay = dec["layers"]["cross_attn"]
+    m = sum(lay["v"]["kernel"][i].double() @ lay["out"]["kernel"][i].double()
+            for i in range(cfg.decoder_layers))
+    target = (dec["tok_emb"][cfg.eos_token_id].double()
+              / dec["ln"]["scale"].double())
+    u = torch.linalg.solve(m.T, target - target.mean())
+    return (scale * u / u.norm()).float().expand(1500, -1).contiguous()
+
+
+def meshed_graph_cases(full, cfg, mesh, tok, rules=None, eos_rank=None,
+                       new_tokens=MESH_NEW_TOKENS, full_set=True):
+    """Meshed decodes of ``full`` (bf16, sharded here over ``mesh`` by
+    ``rules``) on CUDA graphs against their plain loops on the same ranks
+    (every rank of the mesh calls it alike), on ``MESH_WINDOWS`` windows
+    split over the data axis: ``generate`` with and without timestamps,
+    and with ``full_set`` beam search (``MESH_BEAMS``), draft
+    speculation (a 1-layer draft from the same weights, sharded alike) and
+    an engine block (16 lanes, block 16, graphed against eager).  Every
+    output equal bit for bit (``compare_decode``: wall and device ms, idle
+    share, host syncs, captures, pool bytes); greedy texts against one
+    rank's with the near-tie report.  With ``eos_rank``, that data rank's
+    encoder states are ``eos_states``: its rows end steps before the
+    others', and the stop is agreed over the data group.  Returns the
+    report; the device collective's launches by mode around the cases."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.generation import (
+        GenerationOptions, generate, generate_eager)
+    from distil_whisper_tpu_torch.generation import beam as B
+    from distil_whisper_tpu_torch.generation import graphs as G
+    from distil_whisper_tpu_torch.generation import speculative as S
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.parallel.mesh import (DEFAULT_RULES,
+                                                        coordinates,
+                                                        shard_params)
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+    from distil_whisper_tpu_torch.serving_engine import \
+        ContinuousBatchingEngine
+    from distil_whisper_tpu_torch.training import init_student_from_teacher
+    dtype = torch.bfloat16
+    cfgb = cfg.replace(fast_bf16_attention=True, use_flash_encoder=True)
+    tree = shard_params(full, mesh, rules or DEFAULT_RULES, cfg=cfg)
+    dec, one_dec = tree["decoder"], full["decoder"]
+    d, n_data, _, n_model = coordinates(mesh)
+    per = MESH_WINDOWS // n_data
+    clips = synthetic_audio(MESH_WINDOWS, 30.0, seed=21)
+    mels = compute_mel(np.stack(clips), cfgb, device="cuda").to(dtype)
+    mels = mels[d * per:(d + 1) * per].contiguous()
+    report = {"mesh": [n_data, n_model], "rows": per,
+              "new_tokens": new_tokens}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = W.encode(tree["encoder"], cfgb, mels, dtype=dtype)
+    torch.cuda.synchronize()
+    report["encode_s"] = time.perf_counter() - t0
+    one_enc = W.encode(full["encoder"], cfgb, mels, dtype=dtype)
+    if eos_rank is not None and d == eos_rank:
+        enc = one_enc = eos_states(one_dec, cfgb, MESH_EOS_SCALE).to(
+            dtype).expand(per, -1, -1).contiguous()
+    prompt_ids = tok.prompt_ids(language="en")
+    ts_ids = tok.prompt_ids(language="en", task="transcribe",
+                            no_timestamps=False)
+    owner, one_owner = G.GraphOwner("meshed"), G.GraphOwner("one_rank")
+    one_cross = W.cross_kv(one_dec, cfgb, one_enc)
+    reset_mesh_counts()
+    t_cases = time.perf_counter()
+
+    def greedy_case(name, ids, opts, profile_plain):
+        prompt = torch.tensor([ids] * per, device="cuda")
+        rep, out = compare_decode(
+            name, lambda: generate_eager(dec, cfgb, enc, prompt, opts,
+                                         dtype=dtype),
+            lambda: generate(dec, cfgb, enc, prompt, opts, dtype=dtype,
+                             graphs=owner), owner, repeats=0,
+            prompt_len=len(ids), profile_plain=profile_plain)
+        one = generate(one_dec, cfgb, one_enc, prompt, opts, dtype=dtype,
+                       graphs=one_owner)
+        rows = [[s[j][:int(n[j])].tolist() for j in range(per)]
+                for s, n in ((out.sequences, out.seq_len),
+                             (one.sequences, one.seq_len))]
+        texts = [[tok.decode(r[len(ids):]) for r in rs] for rs in rows]
+        rep["seq_len"] = out.seq_len.tolist()
+        rep["tokens_equal_to_one_rank"] = rows[0] == rows[1]
+        rep["text_equal_to_one_rank"] = sum(
+            a == b for a, b in zip(*texts)) / per
+        rep["near_ties"] = near_tie_report(one_dec, cfgb, one_cross, rows[1],
+                                           rows[0], len(ids), dtype)
+        report[name] = rep
+
+    opts = GenerationOptions.from_config(cfgb, max_new_tokens=new_tokens,
+                                         no_speech_token_id=tok.no_speech)
+    greedy_case("generate", prompt_ids, opts, True)
+    greedy_case("generate_timestamps", ts_ids, GenerationOptions.from_config(
+        cfgb, max_new_tokens=new_tokens, return_timestamps=True,
+        no_speech_token_id=tok.no_speech), False)
+    if full_set:
+        prompt = torch.tensor([prompt_ids] * per, device="cuda")
+        rep, out = compare_decode(
+            "beam", lambda: B.beam_search_eager(
+                dec, cfgb, enc, prompt, opts, num_beams=MESH_BEAMS,
+                dtype=dtype),
+            lambda: B.beam_search(dec, cfgb, enc, prompt, opts,
+                                  num_beams=MESH_BEAMS, dtype=dtype,
+                                  graphs=owner),
+            owner, repeats=0, prompt_len=len(prompt_ids),
+            profile_plain=False)
+        one = B.beam_search(one_dec, cfgb, one_enc, prompt, opts,
+                            num_beams=MESH_BEAMS, dtype=dtype,
+                            graphs=one_owner)
+        rep["tokens_equal_to_one_rank"] = sum(
+            torch.equal(a[:int(n)], b[:int(m)]) for a, n, b, m in zip(
+                out.sequences, out.seq_len, one.sequences, one.seq_len)) / per
+        report["beam"] = rep
+        del out, one
+
+        student, scfg = init_student_from_teacher(full, cfg, decoder_layers=1)
+        d_dec, dcfg = S.prepare_assistant(
+            ({"decoder": student["decoder"],
+              "encoder": student["encoder"]}, scfg), dtype,
+            torch.device("cuda", torch.cuda.current_device()), mesh)
+        d_dec = d_dec["decoder"]
+        sopts = GenerationOptions.from_config(
+            cfgb, max_new_tokens=MESH_SPEC_TOKENS,
+            no_speech_token_id=tok.no_speech)
+        rep, out = compare_decode(
+            "draft", lambda: S.speculate_eager(
+                dec, cfgb, enc, prompt, sopts, gamma=5,
+                draft=(d_dec, dcfg, enc), dtype=dtype),
+            lambda: S.speculative_generate_batched(
+                dec, cfgb, d_dec, dcfg, enc, enc, prompt, sopts, gamma=5,
+                dtype=dtype, graphs=owner),
+            owner, repeats=0, profile_plain=False)
+        rep["rounds"] = int(out.rounds.max())
+        rep["accepted"] = int(out.accepted.sum())
+        report["draft"] = rep
+        del student, d_dec, out
+
+        # an engine block: the graphed engine against the same engine run
+        # eagerly, over one admission sequence (packed vectors equal)
+        pipe = WhisperPipeline(None, dtype=dtype, batch_size=MESH_WINDOWS,
+                               max_new_tokens=96, params=full, cfg=cfg,
+                               tokenizer=tok, device="cuda", mesh=mesh)
+        engines = []
+        for graphed in (True, False):
+            eng = ContinuousBatchingEngine(pipe, lanes=MESH_WINDOWS,
+                                           block_steps=16, max_new_tokens=96)
+            eng.graphed = graphed
+            stats0 = G.read_stats()
+            eng.init_state()
+            engines.append((eng, graph_stats_since(stats0, eng.graphs)))
+        all_mels = mels if n_data == 1 else torch.cat([mels] * n_data)
+        packed = [engine_blocks(eng, all_mels, prompt_ids, False, 4)
+                  for eng, _ in engines]
+        same = all(torch.equal(a, b) for a, b in zip(*packed))
+        timing = [engine_block_timing(eng, all_mels, prompt_ids, False)
+                  for eng, _ in engines]
+        report["engine_block"] = {
+            "equal": same, "graph": timing[0], "eager": timing[1],
+            "captures": engines[0][1]["captures"],
+            "capture_s": engines[0][1]["capture_s"],
+            "pool_bytes": G.pool_bytes(engines[0][0].graphs)}
+        if not same:
+            raise AssertionError("meshed engine: graphed blocks part from "
+                                 "the eager blocks")
+        del pipe, engines, packed
+    report["cases_s"] = time.perf_counter() - t_cases
+    report["collective_launches"] = mesh_counts()
+    report["owner"] = owner.report()
+    del owner, one_owner, tree
+    torch.cuda.empty_cache()
+    return report
+
+
+def large_tp_encode(full, cfg, mesh) -> dict:
+    """A tensor-parallel encode of ``TP_LARGE_WINDOWS`` windows (bf16,
+    ``full`` sharded over ``mesh``'s model axis): its fp32 row-parallel
+    partials (7.68 MB a window at d_model 1280) run past the comm's slot,
+    a slot at a time; finite, within ``TP_ENCODE_REL_L2`` of one rank's
+    encode of the same windows; the pieces counted."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.models import whisper as W
+    from distil_whisper_tpu_torch.parallel import device_comm, groups
+    from distil_whisper_tpu_torch.parallel.mesh import (model_group,
+                                                        shard_params)
+    dtype = torch.bfloat16
+    cfgb = cfg.replace(fast_bf16_attention=True, use_flash_encoder=True)
+    tree = shard_params(full, mesh, cfg=cfg)
+    clips = synthetic_audio(TP_LARGE_WINDOWS, 30.0, seed=31)
+    mels = compute_mel(np.stack(clips), cfgb, device="cuda").to(dtype)
+    before = mesh_counts()["sum"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with groups.timed() as rec:
+        enc = W.encode(tree["encoder"], cfgb, mels, dtype=dtype)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    one = W.encode(full["encoder"], cfgb, mels, dtype=dtype)
+    slot = device_comm.comm_of(model_group(mesh)).slot
+    partial = TP_LARGE_WINDOWS * 1500 * cfg.d_model * 4
+    out = {"windows": TP_LARGE_WINDOWS, "partial_bytes": partial,
+           "slot_bytes": slot, "all_reduces": rec.counts["all_reduce"],
+           "sum_launches": mesh_counts()["sum"] - before,
+           "pieces_a_partial": len(device_comm.pieces(partial, slot)),
+           "s": wall, "finite": bool(enc.isfinite().all()),
+           "shape": list(enc.shape),
+           "rel_l2_vs_one_rank": float((enc.double() - one.double()).norm()
+                                       / one.double().norm())}
+    del tree, enc, one, mels
+    torch.cuda.empty_cache()
+    return out
+
+
 TP_DEGREE = 2         # the model axis of tensor_parallel_path
 TP_WINDOWS = 4        # windows of its pipeline runs
 TP_ENCODER_LAYERS = 8  # encoder layers of their distil-large-v3 (each
 #                        layer's sharded encode all-reduces over gloo on
 #                        one card: most of the phase at 32)
 TP_NEW_TOKENS = 32    # their budget
+TP_LARGE_WINDOWS = 32  # large_tp_encode: run_eval --model_parallel 2
+#                        --batch_size 32's encode
 TP_BATCH = 4          # distillation rows a data rank a step (each row's
 #                       activations cross the model group at every layer)
 TP_STEPS = 1          # tensor-parallel distillation steps
@@ -4414,6 +4811,16 @@ def tp_rank(rank: int, world: int, port: int, spec: dict) -> None:
     d, n_data, m, tp = coordinates(mesh)
     report = {"rank": rank, "world": world, "backend": dist.get_backend(),
               "mesh": [n_data, tp], "coordinate": [d, m]}
+    # the model group's comm sized as WhisperPipeline(batch_size=
+    # MESH_WINDOWS, mesh=mesh) sizes it: a data rank's windows' fp32
+    # row-parallel partial (mesh.reserve_comms)
+    from distil_whisper_tpu_torch.parallel import device_comm
+    device_comm.reserve(model_group(mesh), MESH_WINDOWS // n_data * 1500
+                        * PRESETS["distil-large-v3"].d_model * 4)
+    # the device collective, each mode, against its plain version; then its
+    # launches counted from 0 around the meshed pipelines and graph cases
+    report["mesh_collective"] = mesh_collective_rows(model_group(mesh))
+    reset_mesh_counts()
     encodes = {}    # one rank's encode of this data rank's windows, a lane
     dtype = torch.bfloat16
     tp_cfg = PRESETS["distil-large-v3"].replace(
@@ -4580,6 +4987,10 @@ def tp_rank(rank: int, world: int, port: int, spec: dict) -> None:
                 lp1["fc1"], lp1["fc2"], xl)))
         del xl
     del pipe8, one8, lp, lp1, x, part, plain, summed, whole
+    report["drive_collective_launches"] = mesh_counts()
+    # every decode of the sharded tree on CUDA graphs against its plain loop
+    report["graphs"] = meshed_graph_cases(full, tp_cfg, mesh, tok)
+    report["large_encode"] = large_tp_encode(full, tp_cfg, mesh)
     if world >= 4:
         # every card on the model axis: tp = world, bf16
         drive(f"bf16_tp{world}", {}, make_mesh((1, world)))
@@ -4700,6 +5111,16 @@ def phase_tensor_parallel_path(teacher_cfg, root):
                 report[key] = [r[key] for r in ranks]
         report["int8_mlp_partial"] = [r["int8_mlp_partial"] for r in ranks]
         report["encode_yardsticks"] = [r["encode_yardsticks"] for r in ranks]
+        report["graphs"] = [r["graphs"] for r in ranks]
+        report["large_encode"] = [r["large_encode"] for r in ranks]
+        report["drive_collective_launches"] = [
+            r["drive_collective_launches"] for r in ranks]
+        report["mesh_collective"] = ranks[0]["mesh_collective"]
+        _MESH["rows"] = ranks[0]["mesh_collective"]
+        _MESH["tensor_parallel_rank0"] = {
+            m: ranks[0]["drive_collective_launches"][m]
+            + ranks[0]["graphs"]["collective_launches"][m]
+            for m in ranks[0]["drive_collective_launches"]}
         report["small"] = [r["small"] for r in ranks]
         metrics = _train_rows(_metrics(out / "distill"))
         report["distill"] = {
@@ -4732,9 +5153,21 @@ def phase_tensor_parallel_path(teacher_cfg, root):
     report["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "tensor_parallel_path", **report})
 
-    bad = []
+    bad = check_mesh_collective_rows(report["mesh_collective"])
     layers = TP_ENCODER_LAYERS
     for r in range(world):
+        g = report["graphs"][r]
+        if not g["collective_launches"]["sum"]:
+            bad.append(f"rank {r}: the meshed graph cases launched no "
+                       f"device all-reduce: {g['collective_launches']}")
+        big = report["large_encode"][r]
+        if not (big["finite"] and big["sum_launches"] > big["all_reduces"]
+                and big["rel_l2_vs_one_rank"] <= TP_ENCODE_REL_L2["bf16"]):
+            bad.append(f"rank {r}: the {TP_LARGE_WINDOWS}-window encode "
+                       f"past the comm's slot: {big}")
+        if not report["drive_collective_launches"][r]["max"]:
+            bad.append(f"rank {r}: the int8 pipeline launched no device "
+                       f"max: {report['drive_collective_launches'][r]}")
         for key, limit in TP_ENCODE_REL_L2.items():
             got = report[key][r]["encode_rel_l2_vs_one_rank"]
             if not got <= limit:
@@ -4852,6 +5285,60 @@ def _state_bytes(state):
     return out
 
 
+PS_FP32_WINDOWS = 2     # fp32_2d_eval: windows a data rank
+PS_FP32_NEW_TOKENS = 16  # and their budget
+
+
+def fp32_2d_eval(cfg, mesh, tok) -> dict:
+    """``encode_and_generate`` of an fp32 tree of ``cfg`` (random weights)
+    sharded under ``RULES_2D`` over ``mesh``, as ``run_distillation``'s
+    eval runs on fp32 parameters: every layer and the fp32 token embedding
+    (132.8 MB a rank at two data ranks and d_model 1280) gathered through
+    the device comm, the decode on CUDA graphs; ``PS_FP32_WINDOWS``
+    windows a data rank against one rank's ``encode_and_generate`` of the
+    whole tree on them: tokens equal (a 2-D gather is exact)."""
+    import numpy as np
+    import torch
+    from distil_whisper_tpu_torch.audio import compute_mel
+    from distil_whisper_tpu_torch.generation import (GenerationOptions,
+                                                     encode_and_generate)
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.parallel import RULES_2D, device_comm, fsdp
+    from distil_whisper_tpu_torch.parallel.mesh import (coordinates,
+                                                        data_group,
+                                                        shard_params)
+    full = init_params(cfg, seed=3, device="cuda", dtype=torch.float32)
+    tree = shard_params(full, mesh, RULES_2D, cfg=cfg)
+    d, n_data, _, _ = coordinates(mesh)
+    w = PS_FP32_WINDOWS
+    clips = synthetic_audio(w * n_data, 20.0, seed=41)
+    mels = compute_mel(np.stack(clips), cfg, device="cuda")[d * w:(d + 1) * w]
+    prompt = torch.tensor([tok.prompt_ids(language="en")] * w, device="cuda")
+    opts = GenerationOptions.from_config(cfg, max_new_tokens=PS_FP32_NEW_TOKENS,
+                                         no_speech_token_id=tok.no_speech)
+    before = mesh_counts()["gather"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = encode_and_generate(tree, cfg, mels, prompt, opts, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gathers = mesh_counts()["gather"] - before
+    one = encode_and_generate(full, cfg, mels, prompt, opts, device="cuda")
+    largest = fsdp.largest_gather(tree)
+    slot = device_comm.comm_of(data_group(mesh)).slot
+    rep_ = {"windows": w, "new_tokens": PS_FP32_NEW_TOKENS, "s": wall,
+            "gather_launches": gathers, "largest_gather_bytes": largest,
+            "slot_bytes": slot,
+            "pieces_largest": len(device_comm.pieces(largest, slot)),
+            "seq_len": out.seq_len.tolist(),
+            "tokens_equal_to_one_rank": bool(
+                torch.equal(out.sequences, one.sequences)
+                and torch.equal(out.seq_len, one.seq_len))}
+    del full, tree, out, one
+    torch.cuda.empty_cache()
+    return rep_
+
+
 def ps_rank(rank: int, world: int, port: int, spec: dict) -> None:
     """One rank of ``param_sharding_path``: ``run_distillation
     --distributed --param_sharding 2d`` with the bf16 and the int8 teacher
@@ -4882,7 +5369,7 @@ def ps_rank(rank: int, world: int, port: int, spec: dict) -> None:
     from distil_whisper_tpu_torch.generation import GenerationOptions
     from distil_whisper_tpu_torch.models import init_params
     from distil_whisper_tpu_torch.parallel import (
-        groups, make_mesh, maybe_initialize_distributed)
+        RULES_2D, groups, make_mesh, maybe_initialize_distributed)
     from distil_whisper_tpu_torch.parallel.mesh import coordinates
     from distil_whisper_tpu_torch.pipeline import WhisperPipeline
     from distil_whisper_tpu_torch.serving import BatchingTranscriber
@@ -5000,6 +5487,14 @@ def ps_rank(rank: int, world: int, port: int, spec: dict) -> None:
         pipe, batch_size=PS_LANES, max_new_tokens=PS_NEW_TOKENS,
         max_wait_ms=200))
     del pipe
+    # a 2-D decode on CUDA graphs against the plain loop, data rank 0's rows
+    # ending first: (2, 1) on one card, the serving mesh on four
+    reset_mesh_counts()
+    mesh_2d = make_mesh((2, 1)) if world == 2 else mesh
+    report["graphs_2d"] = meshed_graph_cases(
+        full, cfg, mesh_2d, tok, rules=RULES_2D, eos_rank=0,
+        new_tokens=MESH_2D_NEW_TOKENS, full_set=False)
+    report["fp32_2d_eval"] = fp32_2d_eval(cfg, mesh_2d, tok)
     if rank == 0:
         # one rank's engine on the same weights, and the near-tie report of
         # any request whose text parts from it
@@ -5143,6 +5638,10 @@ def phase_param_sharding_path(teacher_cfg, root):
         for name in ("engine", "microbatch"):
             report[name] = [r[name] for r in ranks]
         report["serving_mesh"] = ranks[0]["serving_mesh"]
+        report["graphs_2d"] = [r["graphs_2d"] for r in ranks]
+        report["fp32_2d_eval"] = [r["fp32_2d_eval"] for r in ranks]
+        _MESH["param_sharding_2d_rank0"] = ranks[0]["graphs_2d"][
+            "collective_launches"]
         report["engine_one_rank_texts"] = ranks[0]["engine_one_rank_texts"]
         report["http"] = ranks[0]["http"]
         report["http_launches"] = [r["http_launches"] for r in ranks]
@@ -5179,6 +5678,21 @@ def phase_param_sharding_path(teacher_cfg, root):
             state = row["state"][r]
             if not state["params"]["bytes"] < state["params"]["bytes_1d"]:
                 bad.append(f"rank {r} {name}: 2-D holds {state}")
+    g2 = report["graphs_2d"]
+    first = range(world // 2)       # data rank 0 (the model axis inner)
+    ended = {r: max(g2[r]["generate"]["seq_len"]) for r in range(world)}
+    if not max(ended[r] for r in first) < min(ended[r] for r in range(
+            world) if r not in first):
+        bad.append(f"2-D decode: data rank 0's rows did not end first: "
+                   f"{ended}")
+    for r in range(world):
+        got = g2[r]["collective_launches"]
+        if not (got["gather"] and got["sum_int"]):
+            bad.append(f"rank {r}: the 2-D graph cases launched no device "
+                       f"gather or stop agreement: {got}")
+        ev = report["fp32_2d_eval"][r]
+        if not (ev["tokens_equal_to_one_rank"] and ev["gather_launches"]):
+            bad.append(f"rank {r}: the fp32 2-D eval: {ev}")
     lead = {name: report[name][0] for name in ("engine", "microbatch")}
     for name, row in lead.items():
         if len(row["texts"]) != PS_LANES or not all(row["texts"]):
@@ -5619,6 +6133,17 @@ def main() -> int:
         row["launches"] = counts[row["name"]]
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in longform.items()}
+    # the device collective: its main path is the meshed decodes (rank 0's
+    # launches of each mode on the tensor-parallel and 2-D paths)
+    paths = ("tensor_parallel_rank0", "param_sharding_2d_rank0")
+    for row in _MESH["rows"]:
+        mode = row["name"][len("mesh_collective_"):]
+        row["launches_by_path"] = {p: _MESH[p][mode] for p in paths}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on the meshed "
+                                 f"paths {row['launches_by_path']}")
+        rows.append(row)
     emit({"kernels": rows})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

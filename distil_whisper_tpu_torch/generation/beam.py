@@ -25,8 +25,12 @@ first at its end.
 :func:`beam_search_eager` is the plain version: the step loop with an int
 cursor, a read of the device at every step for the stop rule, and the
 reorder into new buffers.  Tests and the smoke hold the blocked loop
-against it bit for bit, and a tree sharded over a process group decodes
-through it (its collectives cannot be captured).
+against it bit for bit.  A tree sharded over a mesh searches through the
+same loops as an unsharded one, its collectives on the groups' device
+comms inside the graphs; under 2-D sharding the stop rule is agreed over
+the data group (``generate._agree``), and a rank whose own rows have
+stopped steps on with them masked (the plain loop: decodes whose results
+it drops), so that every rank gathers the same layers.
 """
 
 from __future__ import annotations
@@ -38,11 +42,12 @@ import torch
 from ..config import WhisperConfig
 from ..device import resolve_device
 from ..models.whisper import decode, encode, init_cache, kv_width
+from ..parallel import device_comm
 from . import graphs as G
 from . import logits as L
-from .generate import (BLOCK_STEPS, GenerationOptions, _check_budget, _cross,
-                       _process_scores, _program_key, _read_flags, _sharded,
-                       check_params_device)
+from .generate import (BLOCK_STEPS, GenerationOptions, _agree,
+                       _check_budget, _cross, _process_scores, _program_key,
+                       _read_flags, _stop_group, check_params_device)
 
 NEG_INF = float("-inf")
 
@@ -181,9 +186,23 @@ def beam_search_eager(dec_params: Dict[str, Any], cfg: WhisperConfig,
                                                       device)
         return bool((max_live > fin_scores.amin(dim=1)).any())
 
+    group = _stop_group(dec_params, cfg)
     cur = p
-    go_on = cur < total
-    while go_on:
+    searching = cur < total      # this rank's rows: its own stop rule
+    if not searching:
+        return _finish(cfg, tokens, live_scores, fin_tokens, fin_scores,
+                       fin_sum, fin_len, cur,
+                       _penalty(cur, length_penalty, device), no_speech_prob)
+    while True:
+        if not searching:
+            # another data rank searches on: the same decode, dropped
+            decode(dec_params, cfg, live_tok.reshape(-1, 1), cross=cross_bk,
+                   cache=cache, pos_offset=cur - 1, pad_len=pad_bk,
+                   dtype=dtype)
+            if not device_comm.host_read(_agree(torch.zeros(
+                    (), dtype=torch.int32, device=device), group)):
+                break
+            continue
         gen_idx = cur - p
         # HF beam order: log_softmax first, processors applied to log-probs
         # without renormalisation
@@ -231,9 +250,13 @@ def beam_search_eager(dec_params: Dict[str, Any], cfg: WhisperConfig,
         ts = L.TimestampState(*(f.index_select(0, flat_src) for f in ts))
         ts = ts.update(live_tok.reshape(-1), cfg.timestamp_begin)
         cur += 1
-        go_on = cur < total and improvable(cur, live_scores, fin_scores)
-        if not go_on:
+        searching = cur < total and improvable(cur, live_scores, fin_scores)
+        if not device_comm.host_read(_agree(torch.full(
+                (), int(searching), dtype=torch.int32, device=device),
+                group)):
             break
+        if not searching:
+            continue
         lg, cache = decode(dec_params, cfg, live_tok.reshape(-1, 1),
                            cross=cross_bk, cache=cache, pos_offset=cur - 1,
                            pad_len=pad_bk, dtype=dtype)
@@ -376,7 +399,8 @@ def _beam_block(dec_params, cfg: WhisperConfig, opts: GenerationOptions,
     if steps % 2:
         for name, x in caches[1].items():
             caches[0][name].copy_(x)
-    return torch.stack([s["done"].long(), s["cur"][0]])
+    left = _agree((~s["done"]).long(), _stop_group(dec_params, cfg))
+    return torch.stack([(left == 0).long(), s["cur"][0]])
 
 
 def _beam_output(cfg: WhisperConfig, s: Dict[str, Any],
@@ -469,15 +493,9 @@ def beam_search(dec_params: Dict[str, Any], cfg: WhisperConfig,
     first call of each shape and setting into ``graphs`` (an owner's pool,
     stream and cache; without one the call captures into an owner of its
     own, freed when it returns).  A failed capture raises.  A tree sharded
-    over a process group decodes through :func:`beam_search_eager`."""
+    over a mesh searches alike (every rank of its groups calls it alike)."""
     p = prompt_ids.shape[1]
     total = _check_budget(cfg, p, opts)
-    if _sharded(dec_params, cfg):
-        # collectives inside a step cannot be captured (gloo) and every
-        # rank must stop where the others stop: the plain loop
-        return beam_search_eager(dec_params, cfg, cross, prompt_ids, opts,
-                                 num_beams, length_penalty, sot_slot,
-                                 pad_len, dtype)
     device = prompt_ids.device
     k = num_beams
     steps = max(1, min(BLOCK_STEPS, opts.max_new_tokens))

@@ -18,8 +18,19 @@ whose logits are never read).
 :func:`generate_eager` is the plain version: the step loop with an int
 cursor that stops at the first step where every row has finished, reading
 the device at every step.  Tests and the smoke hold the blocked loop
-against it bit for bit.  A tree sharded over a process group (a mesh)
-decodes through it too: its collectives cannot be captured.
+against it bit for bit.
+
+A tree sharded over a mesh (tensor parallel over 'model', 2-D over
+'data') decodes through the same blocked loop and, on the card, the same
+graphs: its collectives run on the groups' device comms
+(``parallel/device_comm.py``), which a graph captures, and every rank of a
+group replays the same programs in the same order.  Under 2-D sharding
+the data ranks hold other rows but gather every layer together, so they
+must run the same steps: the stop flag a block (or a step, in the plain
+loop) is agreed over the data group, the sum of the rows still running
+(:func:`_agree`); a rank whose rows have all ended steps on with them
+masked, as past an early stop.  The ranks of a model group hold the same
+rows and, the device comm combining in rank order, the same bits.
 
 Sampling draws from an explicit ``torch.Generator``, by the exponential
 race ``argmax(p / q)`` with ``q ~ Exp(1)`` (``torch.multinomial``'s own
@@ -42,7 +53,7 @@ import torch
 from ..config import WhisperConfig
 from ..device import resolve_device
 from ..models.whisper import cross_kv, decode, encode, init_cache, kv_width
-from ..parallel import fsdp
+from ..parallel import device_comm, fsdp, groups
 from ..parallel import tensor_parallel as tp
 from . import graphs as G
 from . import logits as L
@@ -158,11 +169,37 @@ def _check_budget(cfg: WhisperConfig, p: int, opts: GenerationOptions) -> int:
     return total
 
 
-def _sharded(dec_params: Dict[str, Any], cfg: WhisperConfig) -> bool:
-    """A tree sharded over a process group (tensor parallel or 2-D)."""
+def _mesh_groups(dec_params: Dict[str, Any], cfg: WhisperConfig):
+    """``(model group, data group)`` a tree is sharded over (None for an
+    axis it is not sharded over)."""
     q = dec_params["layers"]["self_attn"]["q"]
-    return (tp.group_of(q, cfg.d_model) is not None
-            or fsdp.is_sharded(q, cfg.d_model))
+    w = q["kernel"] if "kernel" in q else q["kernel_q"]
+    dp = fsdp.degree(w, cfg.d_model)
+    return (tp.group_of(q, cfg.d_model),
+            None if dp == 1 else groups.group_for("data", dp))
+
+
+def _stop_group(dec_params: Dict[str, Any], cfg: WhisperConfig):
+    """The group whose ranks must agree to stop decoding this tree: its
+    data group under 2-D sharding (else None)."""
+    return _mesh_groups(dec_params, cfg)[1]
+
+
+def _agree(count: torch.Tensor, group) -> torch.Tensor:
+    """``count`` (a 0-dim integer tensor: this rank's rows, beams or lanes
+    still running) summed over ``group``: the same value on every rank (a
+    0-dim int32 tensor; ``count`` itself without a group)."""
+    if group is None:
+        return count
+    return tp.reduce_int(count.reshape(1), group).reshape(())
+
+
+def _comm_key(dec_params: Dict[str, Any], cfg: WhisperConfig) -> Tuple:
+    """The device comms a sharded tree's program captures (group ranks and,
+    on the card, workspaces: a program holds their addresses)."""
+    q = dec_params["layers"]["self_attn"]["q"]
+    w = q["kernel"] if "kernel" in q else q["kernel_q"]
+    return device_comm.key_of(_mesh_groups(dec_params, cfg), w.is_cuda)
 
 
 def _prefill(dec_params, cfg: WhisperConfig, opts: GenerationOptions, cross,
@@ -224,6 +261,7 @@ def generate_eager(dec_params: Dict[str, Any], cfg: WhisperConfig,
     cross, cache, tokens = s["cross"], s["cache"], s["tokens"]
     last_logits, ts, finished = s["last_logits"], s["ts"], s["finished"]
     sum_logprobs, seq_len = s["sum_logprobs"], s["seq_len"]
+    group = _stop_group(dec_params, cfg)
 
     cur = p
     while cur < total:
@@ -241,7 +279,8 @@ def generate_eager(dec_params: Dict[str, Any], cfg: WhisperConfig,
         tokens[:, cur] = nxt
         ts = ts.update(nxt, cfg.timestamp_begin)
         cur += 1
-        if cur >= total or bool(finished.all()):
+        if cur >= total or not device_comm.host_read(
+                _agree((~finished).sum(), group)):
             break
         lg, cache = decode(dec_params, cfg, nxt[:, None], cross=cross,
                            cache=cache, pos_offset=cur - 1, pad_len=pad_len,
@@ -304,17 +343,21 @@ def _block(dec_params, cfg: WhisperConfig, opts: GenerationOptions,
            temperature: torch.Tensor, generator: Optional[torch.Generator],
            pad_len, dtype: torch.dtype) -> torch.Tensor:
     """``steps`` steps; returns ``[every row finished, cursor]`` (int64
-    [2]), the one vector the host reads a block."""
+    [2]; under 2-D sharding every row of the data group), the one vector
+    the host reads a block."""
     for _ in range(steps):
         _step(dec_params, cfg, opts, s, prompt_len, temperature, generator,
               pad_len, dtype)
-    return torch.stack([s["finished"].all().long(), s["cur"][0]])
+    left = _agree((~s["finished"]).sum(), _stop_group(dec_params, cfg))
+    return torch.stack([(left == 0).long(), s["cur"][0]])
 
 
 def _read_flags(flags: torch.Tensor, total: int) -> bool:
-    """The block's one host sync: True when the loop is done."""
+    """The block's one host sync: True when the loop is done.  A
+    collective that waits for a peer past the device comms' bound raises
+    here."""
     G.bump("host_syncs")
-    done, cur = flags.tolist()
+    done, cur = device_comm.host_read(flags)
     return bool(done) or cur >= total
 
 
@@ -406,11 +449,11 @@ def _program_key(dec_params, cfg: WhisperConfig, opts: GenerationOptions,
                  cross, prompt_ids, pad_len, sot_slot, dtype, steps):
     """JAX's jit key: batch and prompt length, the frozen options (the
     budget, greedy or sampling), the config (the int8 flags), dtype,
-    device, the cross-attention input's layout, the block length, and the
-    weights' addresses."""
+    device, the cross-attention input's layout, the block length, the
+    weights' addresses and, for a sharded tree, its device comms."""
     return (tuple(prompt_ids.shape), opts, cfg, dtype, prompt_ids.device,
             _cross_layout(cross), pad_len is not None, sot_slot, steps,
-            G.params_key(dec_params))
+            G.params_key(dec_params), _comm_key(dec_params, cfg))
 
 
 @torch.no_grad()
@@ -446,17 +489,12 @@ def generate(dec_params: Dict[str, Any], cfg: WhisperConfig,
     call of each shape and setting into ``graphs`` (an owner's pool, stream
     and cache).  Without ``graphs`` the call captures into an owner of its
     own, freed when it returns: a caller that decodes more than once keeps
-    an owner.  A failed capture raises.  A tree sharded over a process group decodes through
-    :func:`generate_eager`.
+    an owner.  A failed capture raises.  A tree sharded over a mesh
+    decodes alike, its collectives inside the graphs (every rank of its
+    groups calls ``generate`` alike: the warm-up runs them).
     """
     p = prompt_ids.shape[1]
     total = _check_budget(cfg, p, opts)
-    if _sharded(dec_params, cfg):
-        # collectives inside a step cannot be captured (gloo) and every
-        # rank must stop where the others stop: the plain loop
-        return generate_eager(dec_params, cfg, cross, prompt_ids, opts,
-                              temperature, generator, pad_len, sot_slot,
-                              dtype)
     device = prompt_ids.device
     steps = max(1, min(BLOCK_STEPS, opts.max_new_tokens))
     if opts.do_sample and generator is None:

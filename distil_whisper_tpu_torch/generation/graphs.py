@@ -25,7 +25,11 @@ transcriber, an engine, a ``build_generate`` callable, or one ``generate``
 call that was given no owner.  There is no process-wide cache.
 
 A capture records with ``capture_error_mode="thread_local"``: the serving
-threads go on launching while one of them captures.  The caller warms the
+threads go on launching while one of them captures.  A sharded tree's
+collectives are captured too: they run on the groups' device comms
+(``parallel/device_comm.py``), whose workspaces keep their addresses, so
+every rank of a group warms up, captures and replays the same programs in
+the same order, as it calls the decode.  The caller warms the
 body up first on :meth:`GraphOwner.side` (lazily built host tables, library
 handles and workspaces then exist before the capture).  Nothing here runs
 for CPU tensors: there the callers run the same body eagerly, and that is
@@ -168,7 +172,8 @@ class GraphOwner:
         # a capture allocates from the owner's pool alone, and while one is
         # under way the allocator hands no cached block back to the device:
         # free the cache first, or the pool cannot grow where the cache
-        # holds the memory
+        # holds the memory (a device comm's workspace is no block of the
+        # allocator's: it keeps its address)
         torch.cuda.empty_cache()
         with self.side(device), _build.recording_launches() as launches:
             graph.capture_begin(pool=self.pool,

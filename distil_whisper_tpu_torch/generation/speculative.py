@@ -28,7 +28,11 @@ the same bodies run eagerly.  The caches are written in place; a finished
 lane's decode rewrites the slots of its last window, whose values no
 emitted token reads any more.  :func:`speculate_eager` is the plain
 version (a read of the device every round), held bit for bit against the
-blocked loop, and the loop of a tree sharded over a process group.
+blocked loop.  A teacher (and a draft) sharded over a mesh runs the same
+loops, its collectives on the groups' device comms inside the graphs;
+under 2-D sharding "a lane is active" is agreed over the data group
+(``generate._agree``), a rank whose lanes have ended running masked
+rounds, so that every rank gathers the same layers.
 
 The draft's cache holds every accepted token, unlike the reference's: its
 first step of a round feeds the token before the window too, so the slot
@@ -60,8 +64,9 @@ from ..models.whisper import decode, encode, init_cache, kv_width
 from ..ops.quant import maybe_quantize_encoder
 from . import graphs as G
 from . import logits as L
-from .generate import (GenerationOptions, _cross, _cross_layout, _sharded,
-                       check_params_device)
+from ..parallel import device_comm
+from .generate import (GenerationOptions, _agree, _cross, _cross_layout,
+                       _stop_group, check_params_device)
 from .generate import _program_key as _decode_key
 
 
@@ -324,6 +329,8 @@ class _Loop:
         self.opts, self.p, self.dtype = opts, prompt_len, dtype
         self.pad_len, self.sot_slot, self.coins = pad_len, sot_slot, coins
         self.total = prompt_len + opts.max_new_tokens
+        # under 2-D sharding the data ranks agree on when to stop
+        self.group = _stop_group(teacher_dec, cfg)
         self.bias_fn = None
         if m.synthetic_acceptance is not None:
             def bias_fn(scores, pos):
@@ -485,12 +492,19 @@ class _Loop:
         finished.copy_(finished | (active & done))
         cur.copy_(torch.where(active, new_cur, cur))
 
+    def active(self, finished: torch.Tensor, cur: torch.Tensor
+               ) -> torch.Tensor:
+        """Whether a lane is still active (a bool [] tensor): under 2-D
+        sharding a lane of any rank of the data group."""
+        running = (~finished & (cur < self.total)).sum()
+        return _agree(running, self.group) > 0
+
     def block(self, s: Dict[str, Any], rounds: int) -> torch.Tensor:
         """``rounds`` rounds; returns whether a lane is still active (a
         bool [] tensor), the one value the host reads a block."""
         for _ in range(rounds):
             self.round(s)
-        return (~s["finished"] & (s["cur"] < self.total)).any()
+        return self.active(s["finished"], s["cur"])
 
     def output(self, s: Dict[str, Any]) -> SpeculativeOutput:
         total = self.total
@@ -520,7 +534,7 @@ def _run_eager(loop: _Loop, t_cross, d_cross,
     rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
 
     active = ~finished & (cur < total)
-    while bool(active.any()):                     # the round's one sync
+    while device_comm.host_read(loop.active(finished, cur)):  # one sync
         base = win + 1
         drafts, found = loop.propose(s, win, ts)
         accepted_vec, n_eff, done, t_logp = loop.verify(s, win, ts, drafts)
@@ -551,9 +565,11 @@ def _run_eager(loop: _Loop, t_cross, d_cross,
 
 
 def _read_flags(flags: torch.Tensor) -> bool:
-    """The block's one host sync: True when no lane is active."""
+    """The block's one host sync: True when no lane is active.  A
+    collective that waits for a peer past the device comms' bound raises
+    here."""
     G.bump("host_syncs")
-    return not bool(flags)
+    return not device_comm.host_read(flags)
 
 
 class _Program(NamedTuple):
@@ -607,8 +623,8 @@ def _speculate(teacher_dec: Dict[str, Any], cfg: WhisperConfig, draft_dec,
                graphs: Optional[G.GraphOwner],
                eager: bool = False) -> SpeculativeOutput:
     """Both methods' loop: checks, the knobs' coins, then the plain loop
-    (``eager``, or a tree sharded over a process group), the blocked loop
-    run eagerly (CPU tensors) or its captured program (CUDA tensors)."""
+    (``eager``), the blocked loop run eagerly (CPU tensors) or its
+    captured program (CUDA tensors), sharded trees alike."""
     b, p = prompt_ids.shape
     limit = min(c.max_target_positions
                 for c in (cfg, m.draft_cfg) if c is not None)
@@ -626,9 +642,7 @@ def _speculate(teacher_dec: Dict[str, Any], cfg: WhisperConfig, draft_dec,
         return _Loop(teacher_dec, cfg, draft_dec, m, opts, p, pad_len,
                      sot_slot, coins, repeat, dtype)
 
-    if eager or _sharded(teacher_dec, cfg):
-        # collectives inside a round cannot be captured (gloo) and every
-        # rank must stop where the others stop: the plain loop
+    if eager:
         return _run_eager(make_loop(pad_len, coins, repeat), t_cross,
                           d_cross, prompt_ids)
     rounds = ROUNDS_PER_BLOCK
@@ -675,8 +689,7 @@ def speculate_eager(teacher_dec: Dict[str, Any], teacher_cfg: WhisperConfig,
     draft_cross)`` speculates with a draft model, None by n-gram lookup;
     the other arguments are those of :func:`speculative_generate_batched`
     and :func:`ngram_speculative_generate_batched`.  Tests and the smoke
-    hold the blocked loops against it bit for bit, and a tree sharded over
-    a process group speculates through it."""
+    hold the blocked loops against it bit for bit."""
     d_dec, d_cfg, d_cross = draft if draft is not None else (None,) * 3
     m = _Method(int(gamma), d_cfg, int(max_ngram), synthetic_acceptance,
                 synthetic_period, synthetic_repeat_prob)

@@ -30,7 +30,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("mel", "encoder_attention", "encoder_attention_bwd", "int8_mlp",
-           "int8_decode_attention")
+           "int8_decode_attention", "mesh_collective")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -2,6 +2,7 @@
 rules, tensor parallelism over the model axis (``tensor_parallel``), 2-D
 (FSDP-style) parameter sharding over the data axis (``fsdp``), the axes'
 groups and one recorder of their collectives (``groups``), the
+collectives on the card that a CUDA graph captures (``device_comm``), the
 leader's command stream of serving under a mesh (``lockstep``), host-side
 collectives, and a multi-process dry run (``parallel.dryrun``)."""
 

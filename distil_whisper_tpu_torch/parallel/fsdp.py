@@ -21,6 +21,10 @@ collective.  Under
 ``remat`` the recompute gathers again; a frozen teacher runs under
 ``no_grad`` and keeps no gathered copy past its layer.
 
+Outside autograd (a decode, a frozen teacher) the all-gathers go through
+``device_comm``: the group's comm on the card for CUDA tensors, which a
+CUDA graph captures, its plain version on the CPU.
+
 ``parallel.groups.timed`` counts and times the all-gathers and
 reduce-scatters.
 """
@@ -34,6 +38,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from . import device_comm
 from .groups import group_for, recorded
 
 
@@ -64,16 +69,22 @@ def _data_dim(path: str, sliced: bool) -> Optional[int]:
     return dim - 1      # the layer slice dropped the leading 'layers' axis
 
 
-def _gather_flat(xs: List[torch.Tensor], dims: List[int],
-                 group) -> List[torch.Tensor]:
+def _gather_flat(xs: List[torch.Tensor], dims: List[int], group,
+                 training: bool = False) -> List[torch.Tensor]:
     """The data group's shards of each of ``xs`` (one dtype) concatenated
-    along its ``dims`` entry, in rank order: one all-gather for all."""
+    along its ``dims`` entry, in rank order: one all-gather for all,
+    through ``device_comm`` (the card's comm for CUDA tensors, capturable;
+    its plain version on the CPU), or ``torch.distributed``'s when
+    ``training`` (the forward of :class:`_GatherFromData`)."""
     n = dist.get_world_size(group)
     flat = torch.cat([x.detach().reshape(-1) for x in xs])
-    parts = [torch.empty_like(flat) for _ in range(n)]
     with recorded(flat, "all_gather", flat.numel() * flat.element_size()
                   * (n - 1)):
-        dist.all_gather(parts, flat, group=group)
+        if training:
+            parts = [torch.empty_like(flat) for _ in range(n)]
+            dist.all_gather(parts, flat, group=group)
+        else:
+            parts = list(device_comm.all_gather(flat, group).unbind(0))
     out, o = [], 0
     for x, dim in zip(xs, dims):
         k = x.numel()
@@ -120,7 +131,7 @@ class _GatherFromData(torch.autograd.Function):
     def forward(ctx, dims, group, *xs):
         ctx.dims, ctx.group = dims, group
         ctx.dtypes = [x.dtype for x in xs]
-        return tuple(_gather_flat(list(xs), dims, group))
+        return tuple(_gather_flat(list(xs), dims, group, training=True))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -158,6 +169,25 @@ def _gather_leaves(items) -> List[torch.Tensor]:
                 y = output_major(y)
             out[j] = y
     return out
+
+
+def largest_gather(tree: Dict[str, Any]) -> int:
+    """The bytes a rank sends in the largest all-gather outside autograd
+    of ``tree`` (a whole param tree, sliced over 'data'): one layer of a
+    stack or one top-level module (``models/whisper.py``'s ``_layer`` and
+    ``_leaf``), its sliced leaves of one dtype travelling together."""
+    from ..models.params import tree_paths
+    sizes: Dict[Any, int] = {}
+    for path, x in tree_paths(tree).items():
+        if not torch.is_tensor(x) or _data_dim(path, False) is None:
+            continue
+        parts = path.split(".")
+        nbytes = x.numel() * x.element_size()
+        if len(parts) > 2 and parts[1] == "layers":
+            nbytes //= x.shape[0]      # one layer of the stack
+        site = (".".join(parts[:2]), x.dtype)
+        sizes[site] = sizes.get(site, 0) + nbytes
+    return max(sizes.values(), default=0)
 
 
 def gather_tree(tree: Dict[str, Any], root: str, d_model: int,

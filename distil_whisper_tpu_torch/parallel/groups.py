@@ -11,8 +11,15 @@ job has at most one mesh a degree.
 model group's all-reduces (``tensor_parallel``) and the data group's
 all-gathers and reduce-scatters (``fsdp``), counted by kind, with the
 bytes a rank receives, the host's time inside the calls (all of a gloo
-collective, which returns when it is done; an NCCL call only enqueues)
-and, on the card, their device time between CUDA events.
+collective, which returns when it is done; an NCCL call or the card's
+comm only enqueues) and, on the card, their device time between CUDA
+events.  A collective issued while this thread captures a CUDA graph is
+counted and gets no events (a capture cannot hold timing events): its
+replays are timed from outside.
+
+The no-gradient collectives of CUDA tensors over a group go through its
+ranks' :class:`.device_comm.DeviceComm` (``device_comm.all_reduce`` and
+``all_gather``), made at the first of them.
 """
 
 from __future__ import annotations
@@ -82,7 +89,9 @@ def recorded(t: torch.Tensor, kind: str, nbytes: int):
     """Around one collective of ``kind`` on ``t`` (the innermost open
     record counts it)."""
     rec = _RECORD[-1] if _RECORD else None
-    if rec is not None and t.is_cuda:
+    timing = (rec is not None and t.is_cuda
+              and not torch.cuda.is_current_stream_capturing())
+    if timing:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
     t0 = time.perf_counter()
@@ -91,6 +100,6 @@ def recorded(t: torch.Tensor, kind: str, nbytes: int):
         rec.host_ms += (time.perf_counter() - t0) * 1e3
         rec.counts[kind] += 1
         rec.bytes[kind] += int(nbytes)
-        if t.is_cuda:
+        if timing:
             end.record()
             rec.events.append((start, end))

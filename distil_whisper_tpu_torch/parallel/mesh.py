@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from . import groups, tensor_parallel
+from . import device_comm, groups, tensor_parallel
 from .multihost import broadcast_, world_size
 
 # Logical axis -> mesh axis (the JAX package's table): batch -> data; the
@@ -65,7 +65,9 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     whose collectives also take CUDA tensors).  A model axis larger than 1
     registers this rank's model group for its degree, a data axis larger
     than 1 its data group (for trees sharded under ``RULES_2D``):
-    ``groups.group_for``."""
+    ``groups.group_for``.  A group's device comm, through which the
+    collectives of CUDA tensors run outside autograd, is made at its first
+    such collective (``device_comm``)."""
     from torch.distributed.device_mesh import init_device_mesh
     n = world_size()
     if shape is None:
@@ -78,10 +80,9 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
                        else "cpu")
     mesh = init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axis_names))
-    if shape[1] > 1:
-        groups.register("model", shape[1], mesh.get_group("model"))
-    if shape[0] > 1:
-        groups.register("data", shape[0], mesh.get_group("data"))
+    for axis, size in (("model", shape[1]), ("data", shape[0])):
+        if size > 1:
+            groups.register(axis, size, mesh.get_group(axis))
     return mesh
 
 
@@ -269,7 +270,9 @@ def shard_params(params: Any, mesh=None,
     row-parallel shard keeps its whole ``kernel_scale``).  ``cfg`` adds
     the check that the degrees divide the heads and d_model.  Raises
     ``ValueError`` on a degree that divides no shard evenly or splits an
-    int8 MLP chunk.  Returns ``params`` itself without a mesh."""
+    int8 MLP chunk.  Reserves the device comms of its groups for the
+    tree's collectives (:func:`reserve_comms`, one window).  Returns
+    ``params`` itself without a mesh."""
     from ..models.params import map_with_path
     if model_group(mesh) is not None:
         if cfg is not None:
@@ -286,7 +289,31 @@ def shard_params(params: Any, mesh=None,
         params = map_with_path(
             lambda path, x: shard_leaf(path, x, mesh, rules, ("data",)),
             params)
+    reserve_comms(params, mesh, cfg, rules)
     return params
+
+
+def reserve_comms(params: Any, mesh=None, cfg=None,
+                  rules: Dict[str, Optional[str]] = DEFAULT_RULES,
+                  windows: int = 1) -> None:
+    """Size the device comms of the groups ``params`` (sharded by
+    ``rules``) is sharded over for its largest collectives outside
+    autograd: over 'data' under ``RULES_2D``, the largest flat gather a
+    rank sends (``fsdp.largest_gather``, in the leaves' dtypes); over
+    'model' (with ``cfg``), the encoder's
+    fp32 row-parallel partial of ``windows`` windows (a rank's; the
+    decoder's are a token's).  A comm made at the groups' first collective
+    on the card takes them (``device_comm.reserve``)."""
+    from . import fsdp
+    group = model_group(mesh)
+    if group is not None and cfg is not None:
+        device_comm.reserve(group, windows * cfg.max_source_positions
+                            * cfg.d_model * 4)
+    group = data_group(mesh)
+    if group is not None and shards_data(rules):
+        nbytes = fsdp.largest_gather(params)
+        if nbytes:
+            device_comm.reserve(group, nbytes)
 
 
 def gather_params(params: Any, mesh=None,
@@ -312,10 +339,15 @@ def gather_leaf(path: str, x: torch.Tensor, mesh=None,
     parts = _slices(path, mesh, rules, ("model", "data"))
     if not parts:
         return x
-    full = x.detach()
+    full = x.detach().contiguous()
     for dim, _, _, axis in parts:
         group = model_group(mesh) if axis == "model" else data_group(mesh)
-        full = tensor_parallel.all_gather(full, dim, group)
+        # whole stacked leaves of a checkpoint or an export, gathered once:
+        # torch.distributed's gather
+        pieces = [torch.empty_like(full)
+                  for _ in range(tensor_parallel.size(group))]
+        torch.distributed.all_gather(pieces, full, group=group)
+        full = torch.cat(pieces, dim=dim)
     if path.endswith("kernel_q"):
         from ..ops.quant import output_major
         full = output_major(full)

@@ -21,6 +21,13 @@ the world size fixes the data axis, so a job has at most one mesh a
 degree.  With no mesh, or at
 tp 1, every function here is the identity and issues no collective.
 
+Without a gradient (inference, a frozen teacher) the collectives go
+through ``device_comm``: on a CUDA tensor the group's comm on the card
+(capturable, combined in rank order: every rank gets the same bits), on a
+CPU tensor its plain version.  The autograd functions of training
+(:class:`_CopyToModel`, :class:`_ReduceFromModel`) keep
+``torch.distributed``'s all-reduce.
+
 ``parallel.groups.timed`` counts the model group's all-reduces and, on
 the card, times them with CUDA events.
 """
@@ -32,6 +39,7 @@ from typing import Any, Dict
 import torch
 import torch.distributed as dist
 
+from . import device_comm
 from .groups import group_for, recorded
 
 def degree(p: Dict[str, Any], d_model: int) -> int:
@@ -59,13 +67,23 @@ def index(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
-def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all-reduce of ``t`` over ``group``, recorded."""
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """In-place sum of ``t`` over ``group`` by ``torch.distributed`` (the
+    autograd functions of training), recorded."""
     n = dist.get_world_size(group)
     with recorded(t, "all_reduce",
                   2 * (n - 1) * t.numel() * t.element_size() // n):
-        dist.all_reduce(t, op=op, group=group)
+        dist.all_reduce(t, group=group)
     return t
+
+
+def _reduce(t: torch.Tensor, group, mode: str) -> torch.Tensor:
+    """A new tensor: ``t`` combined over ``group`` by the device comm
+    (CUDA) or its plain version (CPU), in rank order, recorded."""
+    n = dist.get_world_size(group)
+    with recorded(t, "all_reduce",
+                  2 * (n - 1) * t.numel() * t.element_size() // n):
+        return device_comm.all_reduce(t, mode, group)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -107,14 +125,14 @@ def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
         return _ReduceFromModel.apply(x, group)
-    return _all_reduce(x.to(torch.float32, copy=True).contiguous(), group)
+    return _reduce(x.detach().to(torch.float32), group, "sum")
 
 
 def reduce_int(x: torch.Tensor, group) -> torch.Tensor:
     """The exact sum over the group of int32 partial products."""
     if group is None:
         return x
-    return _all_reduce(x.contiguous().clone(), group)
+    return _reduce(x.detach().to(torch.int32), group, "sum_int")
 
 
 @torch.no_grad()
@@ -123,8 +141,7 @@ def max_over(x: torch.Tensor, group) -> torch.Tensor:
     scale whose reduction axis is sharded."""
     if group is None:
         return x
-    return _all_reduce(x.detach().to(torch.float32, copy=True).contiguous(),
-                       group, dist.ReduceOp.MAX)
+    return _reduce(x.detach().to(torch.float32), group, "max")
 
 
 @torch.no_grad()
@@ -132,10 +149,8 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's shards of ``x`` concatenated along ``dim``, in order."""
     if group is None:
         return x
-    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-             for _ in range(size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    parts = device_comm.all_gather(x.detach(), group)
+    return torch.cat(list(parts.unbind(0)), dim=dim)
 
 
 def rand_shard(shape, dim: int, group, generator: torch.Generator,

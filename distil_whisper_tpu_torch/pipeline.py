@@ -56,7 +56,7 @@ from .generation.word_timestamps import (default_alignment_heads,
 from .models import load_params
 from .models.whisper import cross_kv, decode, encode, init_cache, kv_width
 from .ops.quant import maybe_quantize_encoder
-from .parallel.mesh import coordinates, shard_params
+from .parallel.mesh import coordinates, reserve_comms, shard_params
 from .tokenizer import WhisperTokenizer
 
 
@@ -100,6 +100,9 @@ class WhisperPipeline:
         params = maybe_quantize_encoder(params, cfg)
         if mesh is not None:
             params = shard_params(params, mesh, cfg=cfg)
+            # the device comms sized for a batch's encode on this data rank
+            reserve_comms(params, mesh, cfg,
+                          windows=-(-batch_size // coordinates(mesh)[1]))
         if dtype == torch.bfloat16:
             cfg = cfg.replace(fast_bf16_attention=True, use_flash_encoder=True)
         assistant = prepare_assistant(assistant, dtype, self.device, mesh)

@@ -18,12 +18,14 @@ between step blocks:
   ``block_steps`` steps with no host sync, and the host reads one packed
   vector ``[finished | pos | (drafted | accepted |) tokens]`` a block
   (:meth:`ContinuousBatchingEngine.unpack`);
-* on the card the greedy and the sampling block are each one CUDA graph,
-  captured by :meth:`ContinuousBatchingEngine.init_state` (before the
-  transcriber's threads start) on the engine's own pool and stream
-  (``generation/graphs.py``), the counterpart of JAX's jitted blocks;
-  speculative rounds and an engine under a mesh (collectives) run their
-  steps eagerly.
+* on the card the greedy and the sampling block (a speculative engine:
+  the block at each draft length) are each one CUDA graph, captured by
+  :meth:`ContinuousBatchingEngine.init_state` (before the transcriber's
+  threads start) on the engine's own pool and stream
+  (``generation/graphs.py``), the counterpart of JAX's jitted blocks; under
+  a mesh too, the collectives inside on the groups' device comms
+  (``parallel/device_comm.py``), every rank capturing and replaying the
+  same blocks in the same order.
 
 Per-lane options: language and task (prompt content), timestamps (a
 per-lane gate on the FSM), the token budget, and sampling — per-lane
@@ -92,6 +94,7 @@ from .generation.speculative import (_bias_to, _oracle, _process,
                                      prepare_assistant)
 from .models.whisper import cross_kv, decode, encode, init_cache, kv_width
 from .parallel.lockstep import Lockstep
+from .parallel import device_comm
 from .parallel.mesh import coordinates
 from .parallel.multihost import world_size
 from .serving import (ServerOverloadedError, _budget, _coerce_beams,
@@ -292,9 +295,8 @@ class ContinuousBatchingEngine:
             no_speech_token_id=self.tok.no_speech)
         self._state: Optional[Dict[str, Any]] = None
         # the greedy and sampling blocks, or the speculative blocks at each
-        # draft length, run as CUDA graphs on the card; a meshed engine
-        # (collectives) stays eager
-        self.graphed = self.device.type == "cuda" and mesh is None
+        # draft length, run as CUDA graphs on the card, meshed or not
+        self.graphed = self.device.type == "cuda"
         self.graphs = GraphOwner("engine")
         self._blocks: Dict[Any, Any] = {}
 
@@ -544,11 +546,18 @@ class ContinuousBatchingEngine:
                 self._blocks[variant] = self.graphs.capture(
                     lambda: self._block(variant), self.device)
             graph, packed = self._blocks[variant]
-            with self.graphs.side(self.device):
+            # replayed on the caller's stream, which the state's writes
+            # (admission) are ordered on: under a mesh on one card, a
+            # replay on the owner's stream with the caller's stream queued
+            # behind it kept the time-sliced card from switching ranks at
+            # the collectives' stream waits (215.6 ms a block against
+            # 63.1, H100 80GB HBM3, 700 W; scripts/torch_mesh_collective.py)
+            with torch.cuda.device(self.device):
                 graph.replay()
             # the next replay rewrites the graph's vector
-            return packed.clone()
-        packed = self._block(variant)
+            packed = packed.clone()
+        else:
+            packed = self._block(variant)
         return (self._gather_lanes(packed, 4 if self.spec else 2)
                 if self._gather else packed)
 
@@ -571,6 +580,8 @@ class ContinuousBatchingEngine:
         sync.  ``counters`` is None in greedy mode, else ``(drafted [B],
         accepted [B])``, cumulative since each lane's admission."""
         b = self.lanes
+        if packed.is_cuda:          # a collective stuck past its bound raises
+            device_comm.wait_device(packed.device)
         flat = packed.cpu().numpy()
         if self.spec:
             return (flat[:b].astype(bool), flat[b:2 * b],

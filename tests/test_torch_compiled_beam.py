@@ -19,8 +19,8 @@ hold:
 * the program keys: the beams, the length penalty and the rows each make
   another program, equal shapes the same one;
 * that the callers hand their encoder states and their owners to the
-  loop, the labelling run one owner and full batches, and that a tree
-  sharded over a process group decodes through the plain loop.
+  loop, the labelling run one owner and full batches, and that no tree
+  branches to the plain loop (sharded ones run the blocked loop too).
 """
 
 import json
@@ -356,9 +356,10 @@ def test_callers_pass_encoder_states_and_their_owner(ckpt, spy, caller):
 
 
 def test_sharded_tree_decodes_through_the_plain_loop(setup, monkeypatch):
-    """A tree sharded over a process group takes ``beam_search_eager``
-    (its collectives cannot be captured), with the blocked loop's
-    output."""
+    """No tree takes ``beam_search_eager`` any more: a tree sharded over a
+    mesh runs the blocked loop too (its collectives on the device comms,
+    inside the graphs on the card; tests/test_torch_mesh_graphs.py drives
+    real meshes), with the plain loop's output bit for bit."""
     calls = []
     real = B.beam_search_eager
 
@@ -366,8 +367,7 @@ def test_sharded_tree_decodes_through_the_plain_loop(setup, monkeypatch):
         calls.append(a[2])
         return real(*a, **k)
 
-    blocked = _run(setup, B.beam_search, "k4_timestamps")
-    monkeypatch.setattr(B, "_sharded", lambda dec, cfg: True)
+    plain = _run(setup, real, "k4_timestamps")
     monkeypatch.setattr(B, "beam_search_eager", record)
-    _assert_equal(_run(setup, B.beam_search, "k4_timestamps"), blocked)
-    assert len(calls) == 1 and calls[0] is setup["enc"]
+    _assert_equal(_run(setup, B.beam_search, "k4_timestamps"), plain)
+    assert calls == []

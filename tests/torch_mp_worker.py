@@ -35,6 +35,14 @@ Modes:
          run_server --distributed over HTTP, and last a follower that
          fails
 
+  graphs <inputs.npz> <out_dir>   two ranks: the plain device collective
+         in each mode; on a (1, 2) tensor-parallel mesh and a (2, 1) 2-D
+         mesh (RULES_2D) the blocked generate (greedy with timestamps,
+         sampling), beam search, draft speculation and engine blocks
+         beside their plain loops; a 2-D decode whose data ranks' rows end
+         at different steps (an EOS-bound encoder state on data rank 0's
+         rows) beside one process's
+
 The rank joins the job through the environment torchrun would set, as the
 CLIs expect; the port alone is imported (no JAX).
 """
@@ -741,12 +749,187 @@ def serve(rank, world, inputs, ckpt, draft_ck, out):
     os._exit(0)
 
 
+def eos_states(dec, cfg, scale, seed):
+    """Encoder states [1500, d] that drive this tiny decoder to EOS at its
+    first step: a seeded direction through both layers' cross-attention V
+    and out-projections, solved so that the residual stream it adds lines
+    up with the EOS row of the tied embedding (over the final LayerNorm's
+    scale), times ``scale``."""
+    import torch
+    lay = dec["layers"]["cross_attn"]
+    m = sum(lay["v"]["kernel"][i].double() @ lay["out"]["kernel"][i].double()
+            for i in range(cfg.decoder_layers))
+    e = dec["tok_emb"][cfg.eos_token_id].double()
+    target = e / dec["ln"]["scale"].double()
+    target = target - target.mean()
+    u = torch.linalg.solve(m.T, target)
+    rng = np.random.default_rng(seed)
+    u = u + 1e-3 * u.norm() * torch.from_numpy(rng.standard_normal(u.shape))
+    return (scale * u / u.norm()).float().expand(1500, -1).contiguous()
+
+
+def graphs(rank, world, inputs, out):
+    """The ``graphs`` mode (tests/test_torch_mesh_graphs.py)."""
+    import torch
+    from distil_whisper_tpu_torch.config import WhisperConfig
+    from distil_whisper_tpu_torch.generation import (GenerationOptions,
+                                                     generate, generate_eager)
+    from distil_whisper_tpu_torch.generation import beam as B
+    from distil_whisper_tpu_torch.generation import speculative as S
+    from distil_whisper_tpu_torch.models import init_params
+    from distil_whisper_tpu_torch.models.whisper import cross_kv, encode
+    from distil_whisper_tpu_torch.parallel import RULES_2D, device_comm
+    from distil_whisper_tpu_torch.parallel import make_mesh
+    from distil_whisper_tpu_torch.parallel.dryrun import _serving_tokenizer
+    from distil_whisper_tpu_torch.parallel.mesh import (coordinates,
+                                                        model_group,
+                                                        shard_params)
+    from distil_whisper_tpu_torch.pipeline import WhisperPipeline
+    from distil_whisper_tpu_torch.serving_engine import \
+        ContinuousBatchingEngine
+
+    data = np.load(inputs)
+    out = Path(out)
+    tp_mesh, dd_mesh = make_mesh((1, 2)), make_mesh((2, 1))
+    d = coordinates(dd_mesh)[0]
+    arrays = {}
+
+    def put(name, o):
+        for f in o._fields:
+            arrays[f"{name}/{f}"] = getattr(o, f).numpy()
+
+    # the largest collective issued (a rank's bytes), to hold the comms'
+    # reservations against
+    issued = {"max": 0}
+
+    def tracking(fn, nbytes):
+        def call(x, *args):
+            issued["max"] = max(issued["max"], nbytes(x))
+            return fn(x, *args)
+        return call
+
+    device_comm.all_reduce = tracking(device_comm.all_reduce,
+                                      lambda x: x.numel() * 4)
+    device_comm.all_gather = tracking(
+        device_comm.all_gather, lambda x: x.numel() * x.element_size())
+
+    # -- the plain collective, each mode, over the model group -----------
+    group = model_group(tp_mesh)
+    for mode in ("sum", "sum_int", "max"):
+        x = torch.from_numpy(data[f"coll_{mode}"][rank])
+        arrays[f"coll/{mode}"] = device_comm.all_reduce(x, mode,
+                                                        group).numpy()
+    x = torch.from_numpy(data["coll_gather"][rank])
+    arrays["coll/gather"] = device_comm.all_gather(x, group).numpy()
+
+    cfg = WhisperConfig(**json.loads(str(data["dims"])))
+    dcfg = cfg.replace(decoder_layers=1)
+    full, draft = _tree(data, "inf/"), _tree(data, "draft/")
+    mel = torch.from_numpy(data["mel"])
+    prompt = torch.full((4, 1), 3, dtype=torch.long)
+    ts = GenerationOptions(max_new_tokens=12, return_timestamps=True,
+                           max_initial_timestamp_index=50)
+    greedy = GenerationOptions(max_new_tokens=12)
+    sampled = GenerationOptions(max_new_tokens=12, do_sample=True, top_k=5)
+
+    def decodes(name, tree, d_tree, enc, prompt):
+        """Every loop on ``tree`` (decoder) against its plain version."""
+        dec, d_dec = tree["decoder"], d_tree["decoder"]
+        for tag, fn in (("", generate), ("eager_", generate_eager)):
+            put(f"{name}/{tag}ts", fn(dec, cfg, enc, prompt, ts))
+            put(f"{name}/{tag}sampled", fn(
+                dec, cfg, enc, prompt, sampled, temperature=0.7,
+                generator=torch.Generator().manual_seed(5)))
+        for tag, fn in (("", B.beam_search), ("eager_", B.beam_search_eager)):
+            put(f"{name}/{tag}beam", fn(dec, cfg, enc, prompt, greedy,
+                                        num_beams=2))
+        t_cross, d_cross = cross_kv(dec, cfg, enc), cross_kv(d_dec, dcfg, enc)
+        put(f"{name}/draft", S.speculative_generate_batched(
+            dec, cfg, d_dec, dcfg, t_cross, d_cross, prompt, greedy,
+            gamma=3))
+        put(f"{name}/eager_draft", S.speculate_eager(
+            dec, cfg, t_cross, prompt, greedy, gamma=3,
+            draft=(d_dec, dcfg, d_cross)))
+
+    # -- tensor parallel, (1, 2): every rank the four rows ---------------
+    device_comm._RESERVED.clear()
+    tp_tree = shard_params(full, tp_mesh, cfg=cfg)
+    tp_draft = shard_params(draft, tp_mesh, cfg=dcfg)
+    arrays["reserved/tp"] = device_comm.reserved((0, 1))
+    issued["max"] = 0
+    decodes("tp", tp_tree, tp_draft, encode(tp_tree["encoder"], cfg, mel),
+            prompt)
+    arrays["issued/tp"] = issued["max"]
+
+    # -- 2-D, (2, 1): data rank d the rows 2d, 2d + 1 --------------------
+    device_comm._RESERVED.clear()
+    dd_tree = shard_params(full, dd_mesh, RULES_2D, cfg=cfg)
+    arrays["reserved/dd"] = device_comm.reserved((0, 1))
+    rows = slice(2 * d, 2 * d + 2)
+    issued["max"] = 0
+    decodes("dd", dd_tree, draft, encode(dd_tree["encoder"], cfg, mel[rows]),
+            prompt[rows])
+    arrays["issued/dd"] = issued["max"]
+    # data rank 0's rows end at their first step; rank 1's run on
+    enc = encode(full["encoder"], cfg, mel[rows])
+    if d == 0:
+        enc = eos_states(full["decoder"], cfg, float(data["eos_scale"]),
+                         seed=7).expand(2, -1, -1).contiguous()
+    decodes("eos", dd_tree, draft, enc, prompt[rows])
+    put("eos/one_process", generate(full["decoder"], cfg, enc, prompt[rows],
+                                    ts))
+    put("eos/one_process_beam", B.beam_search(full["decoder"], cfg, enc,
+                                              prompt[rows], greedy,
+                                              num_beams=2))
+
+    # -- engine blocks on both meshes against the plain greedy loop ------
+    tok = _serving_tokenizer()
+    scfg = WhisperConfig(**json.loads(str(data["serve_dims"])))
+    srv = init_params(scfg, seed=2, device="cpu")
+    smel = torch.from_numpy(data["serve_mel"])
+    sprompt = tok.prompt_ids(language="en", task="transcribe",
+                             no_timestamps=True)
+    for name, mesh, rules in (("tp", tp_mesh, None), ("dd", dd_mesh,
+                                                      RULES_2D)):
+        device_comm._RESERVED.clear()
+        pipe = WhisperPipeline(None, params=srv, cfg=scfg, tokenizer=tok,
+                               dtype=torch.float32, batch_size=2,
+                               max_new_tokens=8, device="cpu", mesh=mesh)
+        if rules is not None:
+            pipe.params = shard_params(srv, mesh, rules, cfg=scfg)
+        arrays[f"reserved/engine_{name}"] = device_comm.reserved((0, 1))
+        issued["max"] = 0
+        eng = ContinuousBatchingEngine(pipe, lanes=2, block_steps=3,
+                                       max_new_tokens=8)
+        eng.init_state()
+        eng.admit(smel, [sprompt] * 2, [8, 8], [False, False], [0, 1])
+        for _ in range(3):
+            packed = eng.step()
+        fin, pos, tokens, _ = eng.unpack(packed)
+        arrays[f"issued/engine_{name}"] = issued["max"]
+        arrays[f"engine_{name}/finished"] = fin
+        arrays[f"engine_{name}/pos"] = pos
+        arrays[f"engine_{name}/tokens"] = tokens[:, :len(sprompt) + 8]
+        opts = GenerationOptions.from_config(scfg, max_new_tokens=8,
+                                             no_speech_token_id=tok.no_speech)
+        d_, n_d, _, _ = coordinates(mesh)
+        lane_rows = slice(d_ * 2 // n_d, (d_ + 1) * 2 // n_d)
+        plain = generate_eager(
+            pipe.params["decoder"], scfg,
+            encode(pipe.params["encoder"], scfg, smel[lane_rows]),
+            torch.tensor([sprompt] * (2 // n_d)), opts)
+        arrays[f"engine_{name}/plain"] = plain.sequences.numpy()
+
+    np.savez(out / f"graphs-rank{rank}.npz", **arrays)
+
+
 def main():
     mode, rank, world, port = (sys.argv[1], int(sys.argv[2]),
                                int(sys.argv[3]), sys.argv[4])
-    # the serving job's collectives give up after a minute: its last phase
-    # makes a follower fail
-    mesh = _join(rank, world, port, timeout=60 if mode == "serve" else None)
+    # the serving job's collectives give up after a minute (its last phase
+    # makes a follower fail), as do the graphs job's (a hang fails)
+    mesh = _join(rank, world, port,
+                 timeout=60 if mode in ("serve", "graphs") else None)
     if mode == "steps":
         steps(rank, world, mesh, *sys.argv[5:7])
     elif mode == "cli":
@@ -757,6 +940,8 @@ def main():
         fsdp(rank, world, *sys.argv[5:11])
     elif mode == "serve":
         serve(rank, world, *sys.argv[5:9])
+    elif mode == "graphs":
+        graphs(rank, world, *sys.argv[5:7])
     else:
         raise SystemExit(f"unknown mode {mode}")
     import torch.distributed as dist
